@@ -12,12 +12,19 @@ and no result line:
 3. kernels - each CUDA kernel against its plain PyTorch version: at the
              training shape (N=512, D=512, C=10,575), at N=24 / C=100 in all
              three margin modes with an out-of-range label, and the backward
-             at N=4,096. Times (CUDA events, after warm-up) of the kernel, its
-             plain version and the eager library head, beside the bound.
-4. train   - the port's `fit`: resnet18 + ArcFace, C=10,575, batch 512,
-             112 px, bf16, 5 steps; the launch counters must equal the steps.
-             Then one step from the same state through the kernels and
-             through the eager head, compared.
+             at N=4,096; the memory-blended (_mem) kernels at N=24 / C=100
+             with lam mixing 0, 0.15 and 1, and at the training shape with
+             lam and memory from a VPL state after one step. Times (CUDA
+             events, after warm-up) of the kernel, its plain version and the
+             eager library head, beside the bound.
+4. train   - the port's `fit` at full width (resnet18, C=10,575, batch 512,
+             112 px, bf16), 5 steps each of the ArcFace, VPL-ArcFace and
+             QAFace heads. Each path's launch counters must equal the steps
+             and the other kernels' stay 0; VPL must have active memory
+             classes from step 1. Then one step from the same state through
+             the kernels and through the eager head (ArcFace, VPL-ArcFace),
+             and QAFace's BatchNorm buffers after a step with its degraded
+             view against a step without it.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -25,6 +32,7 @@ The line before the last is {"kernels": [...]}, the last
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -45,7 +53,16 @@ REPLACES = {
     "fused_ce_fwd": "face_recognition_models_tpu/ops/fused_head.py:95",
     "fused_ce_bwd_dx": "face_recognition_models_tpu/ops/fused_head.py:315",
     "fused_ce_bwd_dw": "face_recognition_models_tpu/ops/fused_head.py:315",
+    # the has_mem=True bodies of the same Pallas kernels
+    "fused_ce_fwd_mem": "face_recognition_models_tpu/ops/fused_head.py:122",
+    "fused_ce_bwd_dx_mem":
+        "face_recognition_models_tpu/ops/fused_head.py:395",
+    "fused_ce_bwd_dw_mem":
+        "face_recognition_models_tpu/ops/fused_head.py:401",
 }
+PLAIN_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dx", "fused_ce_bwd_dw")
+MEM_KERNELS = ("fused_ce_fwd_mem", "fused_ce_bwd_dx_mem",
+               "fused_ce_bwd_dw_mem")
 # kernel vs plain, both IEEE fp32 on the card: the sums run in different
 # orders (10^4 exp terms, 512-deep dot products), a few ulps apart.
 TOL_STATS = dict(rtol=1e-5, atol=1e-5)
@@ -99,9 +116,11 @@ def cuda_ms(fn, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def make_inputs(n, d, c, mode, seed, oor_label=False):
+def make_inputs(n, d, c, mode, seed, oor_label=False, mem=None):
     """Row-normalised xn, column-normalised wn and ArcFace-like row scalars
-    on the card, from a seeded generator."""
+    on the card, from a seeded generator. mem="mixed" adds a random memn and
+    lam mixing 0, 0.15 and 1; mem="vpl" adds the memn and lam of a
+    VPL-ArcFace state after one step on random features."""
     import torch
 
     from face_recognition_models_tpu_torch.ops import fused_head as fh
@@ -124,42 +143,86 @@ def make_inputs(n, d, c, mode, seed, oor_label=False):
         ab = torch.stack([tcos - 0.2, torch.full_like(tcos, 1.12)], 1)
     g_lse = torch.full((n,), 1.0 / n, device=dev)
     g_t = torch.full((n,), -1.0 / n, device=dev)
-    return dict(xn=xn, wn=wn, labels=labels, t=t, tcos=tcos, scale=scale,
-                ab=ab.contiguous(), g_lse=g_lse, g_t=g_t)
+    x = dict(xn=xn, wn=wn, labels=labels, t=t, tcos=tcos, scale=scale,
+             ab=ab.contiguous(), g_lse=g_lse, g_t=g_t)
+    if mem == "mixed":
+        x["memn"] = l2_normalize(torch.randn(d, c, device=dev, generator=g),
+                                 dim=0)
+        pick = torch.randint(0, 3, (c,), device=dev, generator=g)
+        x["lam"] = torch.tensor([0.0, 0.15, 1.0], device=dev)[pick]
+    elif mem == "vpl":
+        from face_recognition_models_tpu_torch import config as cfg_lib
+        from face_recognition_models_tpu_torch.heads import get_head
+        from face_recognition_models_tpu_torch.heads import margins
+
+        cfg = cfg_lib.VPLArcFaceConfig(feature_dim=d, num_classes=c)
+        state = get_head("vpl_arcface").init_state(cfg, dev)
+        feats = 10.0 * torch.randn(n, d, device=dev, generator=g)
+        mem_, life, _ = margins._class_mean_update(
+            feats, labels, labels >= 0, state.mem, state.life, cfg.delta)
+        x["memn"] = l2_normalize(mem_, dim=1).T.contiguous()
+        x["lam"] = cfg.lamda * (life > 0).to(torch.float32)
+    return x
+
+
+def kernel_fns(mem):
+    """(names, [(kernel, plain) for fwd, bwd_dx, bwd_dw]) of the plain or
+    the memory-blended family."""
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+
+    if mem:
+        return MEM_KERNELS, [
+            (fh.fused_ce_fwd_mem, fh.fused_margin_ce_mem_plain),
+            (fh.fused_ce_bwd_dx_mem, fh.fused_ce_bwd_dx_mem_plain),
+            (fh.fused_ce_bwd_dw_mem, fh.fused_ce_bwd_dw_mem_plain)]
+    return PLAIN_KERNELS, [
+        (fh.fused_ce_fwd, fh.fused_margin_ce_plain),
+        (fh.fused_ce_bwd_dx, fh.fused_ce_bwd_dx_plain),
+        (fh.fused_ce_bwd_dw, fh.fused_ce_bwd_dw_plain)]
+
+
+def kernel_args(x, mode, clamp_eps, lse=None):
+    """Positional arguments of (fwd, bwd_dx, bwd_dw) on inputs `x`."""
+    head = (x["xn"], x["wn"], *((x["memn"], x["lam"]) if "memn" in x
+                                else ()), x["labels"], x["t"])
+    fwd = (*head, x["tcos"], x["scale"], x["ab"], mode, clamp_eps)
+    bwd = (*head, x["scale"], x["ab"], lse, x["g_lse"])
+    return fwd, (*bwd, x["g_t"], mode, clamp_eps), (*bwd, mode, clamp_eps)
 
 
 def check_case(x, mode, clamp_eps):
-    """Each kernel against its plain version on inputs `x`; returns
-    (max abs err per kernel, number of rows where `higher` differs)."""
-    from face_recognition_models_tpu_torch.ops import fused_head as fh
-
-    rows = (x["labels"], x["t"])
-    out = fh.fused_ce_fwd(x["xn"], x["wn"], *rows, x["tcos"], x["scale"],
-                          x["ab"], mode, clamp_eps)
-    ref = fh.fused_margin_ce_plain(x["xn"], x["wn"], *rows, x["tcos"],
-                                   x["scale"], x["ab"], mode, clamp_eps)
-    errs = {"fused_ce_fwd": max(
+    """Each kernel against its plain version on inputs `x` (the _mem family
+    when `x` holds memn); returns (max abs err per kernel, number of rows
+    where `higher` differs)."""
+    names, fns = kernel_fns("memn" in x)
+    fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
+    out = fns[0][0](*fwd_args)
+    ref = fns[0][1](*fwd_args)
+    errs = {names[0]: max(
         close("lse", out.lse, ref.lse, **TOL_STATS),
         close("target_logit", out.target_logit, ref.target_logit,
               **TOL_STATS))}
     flips = close_higher("higher", out.higher, ref.higher)
-    args = (x["xn"], x["wn"], *rows, x["scale"], x["ab"], ref.lse,
-            x["g_lse"])
-    dx, dt, dscale = fh.fused_ce_bwd_dx(*args, x["g_t"], mode, clamp_eps)
-    rdx, rdt, rdscale = fh.fused_ce_bwd_dx_plain(*args, x["g_t"], mode,
-                                                 clamp_eps)
-    errs["fused_ce_bwd_dx"] = max(close_grad("dx", dx, rdx),
-                                  close_grad("dt", dt, rdt),
-                                  close_grad("dscale", dscale, rdscale))
-    dw = fh.fused_ce_bwd_dw(*args, mode, clamp_eps)
-    errs["fused_ce_bwd_dw"] = close_grad(
-        "dw", dw, fh.fused_ce_bwd_dw_plain(*args, mode, clamp_eps))
+    _, dx_args, dw_args = kernel_args(x, mode, clamp_eps, ref.lse)
+    dx, dt, dscale = fns[1][0](*dx_args)
+    rdx, rdt, rdscale = fns[1][1](*dx_args)
+    errs[names[1]] = max(close_grad("dx", dx, rdx),
+                         close_grad("dt", dt, rdt),
+                         close_grad("dscale", dscale, rdscale))
+    dw = fns[2][0](*dw_args)
+    errs[names[2]] = close_grad("dw", dw, fns[2][1](*dw_args))
+    if "lam" in x and bool((x["lam"] == 1).any()):
+        # a column fully replaced by its memory takes no dw
+        if float(dw[:, x["lam"] == 1].abs().max()) != 0.0:
+            raise AssertionError("dw is not 0 in lam = 1 columns")
     return errs, flips
 
 
-def library_head_ms(x):
+def library_head_ms(x, clamp_eps=None):
     """The eager head as the yardstick: torch.matmul + the margin select +
-    F.cross_entropy, forward and backward timed apart (CUDA events)."""
+    F.cross_entropy, forward and backward timed apart (CUDA events). With
+    memn in `x`, the eager VPL head: two torch.matmul + the blend (+ the
+    clamp) before the select."""
     import torch
     import torch.nn.functional as F
 
@@ -170,6 +233,11 @@ def library_head_ms(x):
 
     def forward():
         cos = torch.matmul(xn, wn)
+        if "memn" in x:
+            cos = (1.0 - x["lam"]) * cos + x["lam"] * torch.matmul(xn,
+                                                                   x["memn"])
+        if clamp_eps is not None:
+            cos = cos.clamp(-1.0 + clamp_eps, 1.0 - clamp_eps)
         logits = x["scale"][:, None] * torch.where(onehot, x["t"][:, None],
                                                    cos)
         return F.cross_entropy(logits, labels)
@@ -192,141 +260,235 @@ def library_head_ms(x):
     return fwd_ms, total / iters
 
 
-def phase_kernels():
-    import torch
-
-    from face_recognition_models_tpu_torch.ops import fused_head as fh
-
-    fh.reset_launch_counts()
-    # small shapes: every mode, an out-of-range label, C not a tile multiple
-    for mode, eps in ((fh.MODE_IDENTITY, None), (fh.MODE_MV, 1e-7),
-                      (fh.MODE_CURRICULAR, 0.0)):
-        errs, flips = check_case(make_inputs(24, 64, 100, mode, seed=mode,
-                                             oor_label=True), mode, eps)
-        emit({"phase": "kernels", "case": f"N24_D64_C100_mode{mode}",
-              "max_abs_err": errs, "higher_flips": flips, "tolerance": TOLERANCE,
-              "ok": True})
-    # backward where the JAX package switches to its two-kernel form
-    x = make_inputs(4096, D_MAIN, C_MAIN, fh.MODE_IDENTITY, seed=11)
-    errs, flips = check_case(x, fh.MODE_IDENTITY, None)
-    emit({"phase": "kernels", "case": "N4096_D512_C10575_identity",
-          "max_abs_err": errs, "higher_flips": flips, "tolerance": TOLERANCE,
-              "ok": True})
-    del x
-    # the training shape, with times
-    x = make_inputs(N_MAIN, D_MAIN, C_MAIN, fh.MODE_IDENTITY, seed=7)
-    errs, flips = check_case(x, fh.MODE_IDENTITY, None)
-    m = fh.MODE_IDENTITY
-    fwd_args = (x["xn"], x["wn"], x["labels"], x["t"], x["tcos"], x["scale"],
-                x["ab"], m, None)
-    lse = fh.fused_margin_ce_plain(*fwd_args).lse
-    bwd = (x["xn"], x["wn"], x["labels"], x["t"], x["scale"], x["ab"], lse,
-           x["g_lse"])
-    ms = {
-        "fused_ce_fwd": (cuda_ms(lambda: fh.fused_ce_fwd(*fwd_args)),
-                         cuda_ms(lambda: fh.fused_margin_ce_plain(*fwd_args))),
-        "fused_ce_bwd_dx": (
-            cuda_ms(lambda: fh.fused_ce_bwd_dx(*bwd, x["g_t"], m, None)),
-            cuda_ms(lambda: fh.fused_ce_bwd_dx_plain(*bwd, x["g_t"], m,
-                                                     None))),
-        "fused_ce_bwd_dw": (
-            cuda_ms(lambda: fh.fused_ce_bwd_dw(*bwd, m, None)),
-            cuda_ms(lambda: fh.fused_ce_bwd_dw_plain(*bwd, m, None))),
-    }
-    lib_fwd, lib_bwd = library_head_ms(x)
-    n, d, c = N_MAIN, D_MAIN, C_MAIN
+def bound_rows(x, names, errs, ms, library):
+    """The `kernels` line entries of one family at the shape of `x`, with
+    the bound from this run's inputs: inputs read once, outputs written once,
+    and the products these inputs need. With the memory blend a column with
+    lam = 0 needs no memory product and one with lam = 1 no weight product,
+    so the products are counted over the columns that need them."""
+    n, d = x["xn"].shape
+    c = x["wn"].shape[1]
     product = 2.0 * n * d * c
-    # bytes each function must move: inputs read once, outputs written once
     row = 4 * n
-    bytes_ = {"fused_ce_fwd": 4 * (n * d + d * c) + 7 * row + 3 * row,
-              "fused_ce_bwd_dx": 4 * (n * d + d * c) + 9 * row
-              + 4 * n * d + 2 * row,
-              "fused_ce_bwd_dw": 4 * (n * d + d * c) + 8 * row + 4 * d * c}
-    # operations: fwd one product; each backward kernel two (cos, then its
-    # own gradient product)
-    flops = {"fused_ce_fwd": product, "fused_ce_bwd_dx": 2 * product,
-             "fused_ce_bwd_dw": 2 * product}
-    library = {"fused_ce_fwd": lib_fwd, "fused_ce_bwd_dx": lib_bwd,
-               "fused_ce_bwd_dw": lib_bwd}
+    if "memn" in x:
+        fw = float((x["lam"] != 1).float().mean())   # share needing wn
+        fm = float((x["lam"] != 0).float().mean())   # share needing memn
+        w_bytes = 4 * d * c * (fw + fm) + 4 * c
+    else:
+        fw, fm = 1.0, 0.0
+        w_bytes = 4 * d * c
+    cos = product * (fw + fm)
+    bytes_ = [4 * n * d + w_bytes + 7 * row + 3 * row,
+              4 * n * d + w_bytes + 9 * row + 4 * n * d + 2 * row,
+              4 * n * d + w_bytes + 8 * row + 4 * d * c]
+    # fwd: cos; bwd_dx: cos again, then dx through the same products;
+    # bwd_dw: cos again, then dw through the weight share only
+    flops = [cos, 2 * cos, cos + product * fw]
     rows = []
-    for name in ("fused_ce_fwd", "fused_ce_bwd_dx", "fused_ce_bwd_dw"):
-        t_ops = flops[name] / PEAK_FP32_FLOPS * 1e3
-        t_bytes = bytes_[name] / PEAK_BYTES * 1e3
+    for k, name in enumerate(names):
+        t_ops = flops[k] / PEAK_FP32_FLOPS * 1e3
+        t_bytes = bytes_[k] / PEAK_BYTES * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": 0,
             "max_abs_err": errs[name], "ms": ms[name][0],
             "plain_ms": ms[name][1], "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library[name]})
-    emit({"phase": "kernels", "case": "N512_D512_C10575_identity",
-          "max_abs_err": errs, "higher_flips": flips, "tolerance": TOLERANCE,
-          "kernel_ms": {r["name"]: r["ms"] for r in rows},
-          "plain_ms": {r["name"]: r["plain_ms"] for r in rows},
-          "library_ms": {"head_fwd": lib_fwd, "head_bwd": lib_bwd},
-          "bound_ms": {r["name"]: r["bound_ms"] for r in rows}, "ok": True})
-    torch.cuda.empty_cache()
+            "library_ms": library[k]})
     return rows
 
 
-def phase_train():
+def time_family(x, mode, clamp_eps):
+    """{name: (kernel ms, plain ms)} of one family on inputs `x`."""
+    names, fns = kernel_fns("memn" in x)
+    fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
+    lse = fns[0][1](*fwd_args).lse
+    args = kernel_args(x, mode, clamp_eps, lse)
+    return {name: (cuda_ms(lambda: kernel(*a)), cuda_ms(lambda: plain(*a)))
+            for name, (kernel, plain), a in zip(names, fns, args)}
+
+
+def phase_kernels():
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+
+    fh.reset_launch_counts()
+    # small shapes: every mode, an out-of-range label, C not a tile multiple;
+    # the _mem family with lam mixing 0, 0.15 and 1
+    for mem in (None, "mixed"):
+        for mode, eps in ((fh.MODE_IDENTITY, None), (fh.MODE_MV, 1e-7),
+                          (fh.MODE_CURRICULAR, 0.0)):
+            x = make_inputs(24, 64, 100, mode, seed=mode + (10 if mem else 0),
+                            oor_label=True, mem=mem)
+            errs, flips = check_case(x, mode, eps)
+            emit({"phase": "kernels",
+                  "case": f"N24_D64_C100_mode{mode}" + ("_mem" if mem
+                                                        else ""),
+                  "max_abs_err": errs, "higher_flips": flips,
+                  "tolerance": TOLERANCE, "ok": True})
+    # backward where the JAX package switches to its two-kernel form (K3)
+    x = make_inputs(4096, D_MAIN, C_MAIN, fh.MODE_IDENTITY, seed=11)
+    errs, flips = check_case(x, fh.MODE_IDENTITY, None)
+    ms = time_family(x, fh.MODE_IDENTITY, None)
+    _, lib_bwd = library_head_ms(x)
+    k3 = bound_rows(x, PLAIN_KERNELS, errs, ms, (None, lib_bwd, lib_bwd))
+    emit({"phase": "kernels", "case": "N4096_D512_C10575_identity",
+          "max_abs_err": errs, "higher_flips": flips, "tolerance": TOLERANCE,
+          "kernel_ms": {r["name"]: r["ms"] for r in k3[1:]},
+          "plain_ms": {r["name"]: r["plain_ms"] for r in k3[1:]},
+          "library_ms": {"head_bwd": lib_bwd},
+          "bound_ms": {r["name"]: r["bound_ms"] for r in k3[1:]},
+          "ok": True})
+    del x
+    torch.cuda.empty_cache()
+    # the training shape, with times: ArcFace's kernels, then the _mem
+    # kernels with the memory and lam of a VPL state after one step
+    rows = []
+    for mem, mode, eps, case in (
+            (None, fh.MODE_IDENTITY, None, "N512_D512_C10575_identity"),
+            ("vpl", fh.MODE_IDENTITY, 1e-7, "N512_D512_C10575_vpl_mem")):
+        x = make_inputs(N_MAIN, D_MAIN, C_MAIN, mode, seed=7, mem=mem)
+        names, _ = kernel_fns(mem)
+        errs, flips = check_case(x, mode, eps)
+        ms = time_family(x, mode, eps)
+        lib_fwd, lib_bwd = library_head_ms(x, eps)
+        fam = bound_rows(x, names, errs, ms, (lib_fwd, lib_bwd, lib_bwd))
+        extra = ({"active_classes": int((x["lam"] > 0).sum())} if mem
+                 else {})
+        emit({"phase": "kernels", "case": case, **extra,
+              "max_abs_err": errs, "higher_flips": flips,
+              "tolerance": TOLERANCE,
+              "kernel_ms": {r["name"]: r["ms"] for r in fam},
+              "plain_ms": {r["name"]: r["plain_ms"] for r in fam},
+              "library_ms": {"head_fwd": lib_fwd, "head_bwd": lib_bwd},
+              "bound_ms": {r["name"]: r["bound_ms"] for r in fam},
+              "ok": True})
+        rows += fam
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_batches(steps, bs, size, seed=0):
+    rs = np.random.RandomState(seed)
+    images = rs.randint(0, 256, (steps * bs, size, size, 3), np.uint8)
+    labels = rs.randint(0, C_MAIN, steps * bs).astype(np.int32)
+    return images, labels
+
+
+@contextlib.contextmanager
+def after_each_step(record):
+    """Run `record(state)` after every train step that `fit` takes (by
+    wrapping the loop's `make_train_step`); the step itself is as is."""
+    from face_recognition_models_tpu_torch.train import loop
+
+    build = loop.make_train_step
+
+    def make(*args, **kwargs):
+        step = build(*args, **kwargs)
+
+        def observed(state, *batch):
+            out = step(state, *batch)
+            record(out[0])
+            return out
+        return observed
+
+    loop.make_train_step = make
+    try:
+        yield
+    finally:
+        loop.make_train_step = build
+
+
+def train_phase(head_name, kernels):
+    """5 full-width steps of resnet18 + `head_name` through the port's `fit`.
+    The counters of `kernels` must equal the steps and all others stay 0.
+    Returns (fit result, the step's batch, launch counts)."""
     import torch
 
     from face_recognition_models_tpu_torch import config as cfg_lib
     from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
-    from face_recognition_models_tpu_torch.heads import get_head
     from face_recognition_models_tpu_torch.ops import fused_head as fh
     from face_recognition_models_tpu_torch.train.loop import fit
-    from face_recognition_models_tpu_torch.train.step import (
-        make_eval_step, make_train_step)
 
     bs, size = 512, 112
-    cfg = cfg_lib.TrainConfig(num_classes=C_MAIN, batch_size=bs, epochs=1,
-                              print_freq=1, seed=0)
-    rs = np.random.RandomState(0)
-    images = rs.randint(0, 256, (TRAIN_STEPS * bs, size, size, 3), np.uint8)
-    labels = rs.randint(0, C_MAIN, TRAIN_STEPS * bs).astype(np.int32)
+    cfg = cfg_lib.TrainConfig(head=head_name, num_classes=C_MAIN,
+                              batch_size=bs, epochs=1, print_freq=1, seed=0)
+    images, labels = train_batches(TRAIN_STEPS, bs, size)
     loader = ArrayLoader(images, labels, batch_size=bs, seed=0)
+    active = []
+
+    def count_active(state):
+        if state.head_state is not None:
+            active.append(int((state.head_state.life > 0).sum()))
 
     torch.cuda.reset_peak_memory_stats()
     fh.reset_launch_counts()
-    res = fit(cfg, loader, device="cuda")
+    with after_each_step(count_active):
+        res = fit(cfg, loader, device="cuda")
     torch.cuda.synchronize()
     launches = dict(fh.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(v) for v in res.losses):
-        raise AssertionError(f"non-finite loss: {res.losses}")
+        raise AssertionError(f"{head_name}: non-finite loss: {res.losses}")
     if len(res.losses) != TRAIN_STEPS:
-        raise AssertionError(f"{len(res.losses)} steps run")
+        raise AssertionError(f"{head_name}: {len(res.losses)} steps run")
     for name, count in launches.items():
-        if count != TRAIN_STEPS:
-            raise AssertionError(f"{name} launched {count} times in "
-                                 f"{TRAIN_STEPS} steps")
+        want = TRAIN_STEPS if name in kernels else 0
+        if count != want:
+            raise AssertionError(f"{head_name}: {name} launched {count} "
+                                 f"times in {TRAIN_STEPS} steps, not {want}")
+    if head_name == "vpl_arcface" and not (
+            len(active) == TRAIN_STEPS and min(active) > 0):
+        raise AssertionError(f"vpl_arcface: active classes {active}: the "
+                             "memory blend was not exercised")
     # print_freq=1 reads the loss every step, so each step time includes
     # the wait for the card; step 1 carries cuDNN's first-call set-up
     ms_step = 1e3 * float(np.mean(res.step_seconds[1:]))
-    emit({"phase": "train", "backbone": "resnet18", "head": "arcface",
+    extra = {"active_classes": active} if active else {}
+    emit({"phase": "train", "backbone": "resnet18", "head": head_name,
           "num_classes": C_MAIN, "batch": bs, "image_size": size,
-          "dtype": cfg.compute_dtype, "losses": res.losses,
+          "dtype": cfg.compute_dtype, "losses": res.losses, **extra,
           "step_ms": [1e3 * s for s in res.step_seconds],
           "ms_per_step_after_1": ms_step, "img_per_s_after_1": bs / ms_step
           * 1e3, "max_memory_allocated": peak, "launches": launches,
           "ok": True})
+    return res, (images[:bs], labels[:bs]), launches
 
-    # one step from the same state through the kernels and the eager head
+
+def snapshot(state):
+    return (copy.deepcopy(state.backbone.state_dict()),
+            state.kernel_w.detach().clone(),
+            copy.deepcopy(state.optimizer.state_dict()), state.step,
+            state.head_state)
+
+
+def restore(state, saved):
+    import torch
+
+    state.backbone.load_state_dict(saved[0])
+    with torch.no_grad():
+        state.kernel_w.copy_(saved[1])
+    state.optimizer.load_state_dict(copy.deepcopy(saved[2]))
+    state.step = saved[3]
+    state.head_state = saved[4]
+
+
+def train_vs_eager(res, batch):
+    """One step from the same state through the kernels and the eager head."""
+    import torch
+
+    from face_recognition_models_tpu_torch.heads import get_head
+    from face_recognition_models_tpu_torch.train.step import (
+        make_eval_step, make_train_step)
+
     state, head_cfg = res.state, res.head_cfg
-    saved = (copy.deepcopy(state.backbone.state_dict()),
-             state.kernel_w.detach().clone(),
-             copy.deepcopy(state.optimizer.state_dict()), state.step)
-    batch = (images[:bs], labels[:bs])
-    head = get_head("arcface")
+    saved = snapshot(state)
+    head = get_head(head_cfg.name)
     out = {}
     for path, fused in (("kernel", True), ("eager", False)):
-        state.backbone.load_state_dict(saved[0])
-        with torch.no_grad():
-            state.kernel_w.copy_(saved[1])
-        state.optimizer.load_state_dict(copy.deepcopy(saved[2]))
-        state.step = saved[3]
+        restore(state, saved)
         step = make_train_step(head, head_cfg, use_fused_head=fused,
                                device="cuda")
         _, metrics = step(state, *batch)
@@ -336,18 +498,68 @@ def phase_train():
     # order, and kernel_w moves by lr * grad, so the updated weights agree
     # far inside 1e-6 of values ~2e-2
     if loss_err > 1e-4 * abs(out["eager"][0]):
-        raise AssertionError(f"loss kernel {out['kernel'][0]} vs eager "
-                             f"{out['eager'][0]}")
+        raise AssertionError(f"{head_cfg.name}: loss kernel "
+                             f"{out['kernel'][0]} vs eager {out['eager'][0]}")
     w_err = close("kernel_w", out["kernel"][1], out["eager"][1], 1e-5, 1e-6)
-    emb = make_eval_step(state.backbone, device="cuda")(images[:2])
+    emb = make_eval_step(state.backbone, device="cuda")(batch[0][:2])
     if emb.shape != (2, head_cfg.feature_dim) or not bool(
             torch.isfinite(emb).all()):
         raise AssertionError(f"embeddings {tuple(emb.shape)} not finite")
-    emit({"phase": "train_vs_eager", "loss_kernel": out["kernel"][0],
-          "loss_eager": out["eager"][0], "loss_abs_err": loss_err,
-          "kernel_w_max_abs_err": w_err, "embed_shape": list(emb.shape),
-          "ok": True})
-    return launches
+    emit({"phase": "train_vs_eager", "head": head_cfg.name,
+          "loss_kernel": out["kernel"][0], "loss_eager": out["eager"][0],
+          "loss_abs_err": loss_err, "kernel_w_max_abs_err": w_err,
+          "embed_shape": list(emb.shape), "ok": True})
+
+
+def qaface_bn_check(res, batch):
+    """QAFace's degraded view runs in train mode but must move no BatchNorm
+    buffer: after one step with it the buffers equal those after one step
+    without it (the first forward is the same computation in both)."""
+    import torch
+
+    from face_recognition_models_tpu_torch.heads import get_head
+    from face_recognition_models_tpu_torch.train.loop import degrade_images
+    from face_recognition_models_tpu_torch.train.step import make_train_step
+
+    state, head_cfg = res.state, res.head_cfg
+    saved = snapshot(state)
+    step = make_train_step(get_head("qaface"), head_cfg, device="cuda")
+    images = torch.as_tensor(batch[0]).cuda()
+    buffers = {}
+    for path, view in (("with_view", degrade_images(images)),
+                       ("without_view", None)):
+        restore(state, saved)
+        step(state, images, batch[1], view)
+        buffers[path] = {k: v.clone() for k, v in
+                         state.backbone.state_dict().items()
+                         if "running" in k or "num_batches" in k}
+    err = 0.0
+    for key, got in buffers["with_view"].items():
+        want = buffers["without_view"][key]
+        if got.dtype == torch.long:
+            if not torch.equal(got, want):
+                raise AssertionError(f"qaface: {key} {got} vs {want}")
+            continue
+        # the same forward twice on one card: equal but for the atomics of
+        # a reduction, far below the 0.1 x (batch statistic) a second update
+        # would add
+        err = max(err, close(key, got, want, 1e-5, 1e-6))
+    emit({"phase": "qaface_bn_buffers", "buffers": len(buffers["with_view"]),
+          "max_abs_err": err, "ok": True})
+
+
+def phase_train():
+    """Returns {kernel: launches on its own path's run}."""
+    res, batch, arc = train_phase("arcface", PLAIN_KERNELS)
+    train_vs_eager(res, batch)
+    del res
+    res, batch, vpl = train_phase("vpl_arcface", MEM_KERNELS)
+    train_vs_eager(res, batch)
+    del res
+    res, batch, _ = train_phase("qaface", MEM_KERNELS)
+    qaface_bn_check(res, batch)
+    return {**{k: arc[k] for k in PLAIN_KERNELS},
+            **{k: vpl[k] for k in MEM_KERNELS}}
 
 
 def main() -> int:
@@ -372,7 +584,8 @@ def main() -> int:
     reports = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "entry function" in ln or "registers" in ln
+                        or "spill" in ln]
                     for k, v in reports.items()}})
 
     rows = phase_kernels()

@@ -21,6 +21,10 @@ from face_recognition_models_tpu_torch.models import BACKBONES
 def _add_train_parser(sub):
     p = sub.add_parser("train", help="train a margin-head model")
     p.add_argument("--head", default="arcface", choices=available_heads())
+    p.add_argument("--head-arg", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="head hyperparameter override, repeatable "
+                        "(e.g. --head-arg delta=1 for qaface)")
     p.add_argument("--backbone", "-bb", default="resnet18",
                    choices=sorted(BACKBONES))
     p.add_argument("--batch_size", "-bs", type=int, default=512)
@@ -68,6 +72,9 @@ def cmd_train(args) -> int:
         schedule=cfg_lib.ScheduleConfig(
             steps=tuple(int(s) for s in args.lr_steps.split(",") if s)),
         data=cfg_lib.DataConfig(image_size=args.image_size))
+    head_cfg = cfg_lib.make_head_config(
+        args.head, num_classes=cfg.num_classes,
+        **cfg_lib.parse_head_overrides(args.head, args.head_arg))
     images, labels = synthetic_identities(
         args.synthetic_classes, args.synthetic_per_class,
         image_size=args.image_size, seed=cfg.seed)
@@ -76,7 +83,7 @@ def cmd_train(args) -> int:
     print(f"Training {cfg.head} ({cfg.backbone}) - batch {cfg.batch_size}, "
           f"epochs {cfg.epochs}, lr {args.learning_rate}")
     t0 = time.time()
-    result = fit(cfg, loader, device=args.device)
+    result = fit(cfg, loader, device=args.device, head_cfg=head_cfg)
     print(f"Done in {time.time() - t0:.0f}s - min train loss "
           f"{result.min_train_loss:.6f}, {result.images_per_sec:.0f} img/s")
     return 0

@@ -1,9 +1,10 @@
 """Typed configuration of the port's training path.
 
 The port's own copy of the fields of face_recognition_models_tpu/config.py
-that the ResNet + ArcFace training path reads; defaults are the same values
-(the reference's recipe: resnet18, ArcFace m=0.5 s=64, CASIA's 10,575
-classes, batch 512, 112 px, SGD lr 0.1 momentum 0.9 wd 5e-4, customstep).
+that the ResNet training path reads, with the ArcFace, VPL-ArcFace and
+QAFace heads; defaults are the same values (the reference's recipe:
+resnet18, ArcFace m=0.5 s=64, CASIA's 10,575 classes, batch 512, 112 px, SGD
+lr 0.1 momentum 0.9 wd 5e-4, customstep).
 """
 
 from __future__ import annotations
@@ -35,7 +36,39 @@ class ArcFaceConfig(HeadConfig):
     easy_margin: bool = False
 
 
-HEAD_CONFIGS = {"arcface": ArcFaceConfig}
+@dataclasses.dataclass(frozen=True)
+class VPLArcFaceConfig(HeadConfig):
+    """ArcFace over a virtual-prototype memory blend (reference
+    criterion.py:619-762)."""
+
+    name: str = "vpl_arcface"
+    s: float = 64.0
+    m: float = 0.5
+    easy_margin: bool = False
+    lamda: float = 0.15
+    delta: int = 100
+    eps: float = 1e-7
+
+
+@dataclasses.dataclass(frozen=True)
+class QAFaceConfig(HeadConfig):
+    """Quality-aware head with an injection memory (reference
+    criterion.py:1331-1520). The training pipeline passes a degraded view of
+    the batch as `minput`. On short runs the memory replacement stalls
+    verification; `--head-arg delta=1` keeps the memory from activating."""
+
+    name: str = "qaface"
+    s: float = 64.0
+    m: float = 0.5
+    easy_margin: bool = False
+    delta: int = 1000
+    tto: float = 2.0
+    alpha: float = 0.99
+    eps: float = 1e-7
+
+
+HEAD_CONFIGS = {"arcface": ArcFaceConfig, "vpl_arcface": VPLArcFaceConfig,
+                "qaface": QAFaceConfig}
 
 
 def make_head_config(name: str, **overrides) -> HeadConfig:
@@ -44,6 +77,36 @@ def make_head_config(name: str, **overrides) -> HeadConfig:
         raise ValueError(
             f"Unknown head '{name}'. Available: {sorted(HEAD_CONFIGS)}")
     return HEAD_CONFIGS[key](**overrides)
+
+
+def parse_head_overrides(name: str, items) -> dict:
+    """Parse CLI 'key=value' strings into typed head-config overrides.
+
+    Values are coerced to the type of the field's default, so
+    `--head-arg delta=1` round-trips into the frozen dataclass. Unknown keys
+    raise with the head's editable fields.
+    """
+    key = name.lower()
+    if key not in HEAD_CONFIGS:
+        raise ValueError(
+            f"Unknown head '{name}'. Available: {sorted(HEAD_CONFIGS)}")
+    defaults = HEAD_CONFIGS[key]()
+    # name is fixed; num_classes comes from the run's own settings
+    editable = {f.name for f in dataclasses.fields(defaults)
+                if f.name not in ("name", "num_classes")}
+    out = {}
+    for item in items:
+        k, sep, v = item.partition("=")
+        if not sep or k not in editable:
+            raise ValueError(
+                f"--head-arg '{item}': expected key=value with key in "
+                f"{sorted(editable)}")
+        default = getattr(defaults, k)
+        if isinstance(default, bool):
+            out[k] = v.lower() in ("1", "true", "yes", "on")
+        else:
+            out[k] = type(default)(v)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,13 @@
 //                       _bwd_dx_kernel (K3a)
 //   fused_ce_bwd_dw  <- _bwd_fused_kernel's dw half (K2), and
 //                       _bwd_dw_kernel (K3b)
+// and the has_mem=True bodies of the same kernels (K4), reached through
+// fused_margin_ce_mem (:727):
+//   fused_ce_fwd_mem    <- _fwd_kernel's blend (:122-126)
+//   fused_ce_bwd_dx_mem <- the dx half of _bwd_fused_kernel (:395-400) and
+//                          _bwd_dx_kernel (:236-240)
+//   fused_ce_bwd_dw_mem <- the dw half of _bwd_fused_kernel (:401-402) and
+//                          _bwd_dw_kernel (:305-307)
 //
 // Every head reduces to
 //   logit[i, j]        = scale[i] * h(cos[i, j], a[i], b[i])   (j != label[i])
@@ -16,10 +23,24 @@
 // label outside [0, C) marks no column as target (the class-sharded caller
 // relies on that). The [N, C] logits never reach device memory.
 //
+// Memory-blended heads (VPL-ArcFace, QAFace; the kMem instantiations) blend
+// every column with a per-class memory before the clamp:
+//   cos[i, j] = (1 - lam[j]) * (xn @ wn)[i, j] + lam[j] * (xn @ memn)[i, j]
+// memn [D, C] and lam [C] are constants of the step (no gradient). dx flows
+// through both products, dw only through the (1 - lam) share; a column with
+// lam = 1 gets no dw and all of its dx through memn.
+//
 // What bounds them: at the training shape (N=512, D=512, C=10,575) one
-// product is 2*N*D*C = 5.5 GFLOP against ~22 MB of wn, so each kernel is
-// bound by fp32 operations (67 TFLOP/s outside the tensor cores), not by
-// bytes (3.35 TB/s). The products run in IEEE fp32 on the CUDA cores, never
+// product P = 2*N*D*C is 5.5 GFLOP (0.083 ms at 67 TFLOP/s fp32 outside the
+// tensor cores) against ~22 MB of wn (0.007 ms at 3.35 TB/s), so each kernel
+// is bound by fp32 operations, not by bytes. fwd needs P, bwd_dx and bwd_dw
+// 2P each (cos again, then their own product). With the blend each product
+// runs over wn and over memn: fwd_mem 2P (0.166 ms), bwd_dx_mem 4P
+// (0.331 ms), bwd_dw_mem 3P (0.248 ms), against 43 MB of wn + memn. The
+// kernels do this dense work; a column with lam = 0 needs no memory product
+// and one with lam = 1 no weight product, so with VPL's few active classes
+// the work the data needs is close to the unblended kernels' (chip_smoke.py
+// counts it so). The products run in IEEE fp32 on the CUDA cores, never
 // TF32: the acos-based margins downstream need full fp32 cosines, as the JAX
 // package runs this math at Precision.HIGHEST.
 //
@@ -36,12 +57,24 @@
 // Each product is a register-tiled SIMT loop over chunks of W staged in
 // shared memory. This is the simple, right form; tensor-core (3xTF32 or
 // split-bf16) variants and splitting C across blocks at small N are later
-// work.
+// work. The memory blend is a compile-time switch (template <bool kMem>) on
+// the kernel bodies: the kMem = false instantiations are the ArcFace kernels
+// unchanged (same code, registers and launch bounds), and kMem = true stages
+// memn beside wn in the same loops.
+//
+// Shared memory per block at D = 512 (the limit is 232,448 B):
+//   fwd 49,280 B; fwd_mem 65,792 B (a second [kChunk][kCols + 1] chunk);
+//   bwd_dx 90,240 B; bwd_dx_mem 114,944 B (a memn chunk and a dcos * lam
+//   tile beside the dcos * (1 - lam) one);
+//   bwd_dw 165,888 B; bwd_dw_mem 231,424 B: the memn tile [512][32] stays
+//   resident beside the wn tile (65,536 B more) and lam of the lane's column
+//   sits in a register, leaving 1,024 B. A width above 512 is refused by
+//   the wrapper (fused_ce_smem_bytes).
 //
 // C interface: each entry launches on the given stream and returns
 // cudaGetLastError() (0 on success). All pointers are device pointers to
 // contiguous fp32 (labels int32) arrays; ab is [N, 2] with a = ab[:, 0],
-// b = ab[:, 1]; wn and dw are [D, C] row-major.
+// b = ab[:, 1]; wn, memn and dw are [D, C] row-major, lam is [C].
 
 #include <cuda_runtime.h>
 
@@ -142,19 +175,36 @@ __device__ __forceinline__ void load_chunk(float* ws, const float* wn, int d0,
   }
 }
 
-// cos for the warp's two rows x the lane's four columns (lane + 32 * i) of
-// the class tile starting at c0.
-__device__ __forceinline__ void cos_tile(float acc[2][4], const float* xs,
-                                         float* ws, const float* wn, int c0,
-                                         int d, int c, int r0) {
+// lam of the lane's four columns (lane + 32 * i) of the tile at c0; 0 past C.
+__device__ __forceinline__ void load_lam(float lt[4], const float* lam, int c0,
+                                         int c) {
   const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int col = c0 + lane + 32 * i;
+    lt[i] = col < c ? lam[col] : 0.0f;
+  }
+}
+
+// cos for the warp's two rows x the lane's four columns (lane + 32 * i) of
+// the class tile starting at c0. With kMem, the blended cosine
+// (1 - lt) * (x . wn) + lt * (x . memn), memn staged through `ms` as wn is
+// through `ws`.
+template <bool kMem>
+__device__ __forceinline__ void cos_tile(float acc[2][4], const float* xs,
+                                         float* ws, float* ms, const float* wn,
+                                         const float* memn, const float lt[4],
+                                         int c0, int d, int c, int r0) {
+  const int lane = threadIdx.x & 31;
+  float accm[2][4];
 #pragma unroll
   for (int q = 0; q < 2; ++q)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[q][i] = 0.0f;
+    for (int i = 0; i < 4; ++i) acc[q][i] = accm[q][i] = 0.0f;
   for (int d0 = 0; d0 < d; d0 += kChunk) {
     __syncthreads();
     load_chunk(ws, wn, d0, c0, d, c);
+    if constexpr (kMem) load_chunk(ms, memn, d0, c0, d, c);
     __syncthreads();
     const int kmax = min(kChunk, d - d0);
     for (int k = 0; k < kmax; ++k) {
@@ -165,23 +215,41 @@ __device__ __forceinline__ void cos_tile(float acc[2][4], const float* xs,
         const float w = ws[k * (kCols + 1) + lane + 32 * i];
         acc[0][i] = fmaf(x0, w, acc[0][i]);
         acc[1][i] = fmaf(x1, w, acc[1][i]);
+        if constexpr (kMem) {
+          const float mv = ms[k * (kCols + 1) + lane + 32 * i];
+          accm[0][i] = fmaf(x0, mv, accm[0][i]);
+          accm[1][i] = fmaf(x1, mv, accm[1][i]);
+        }
       }
     }
   }
+  if constexpr (kMem) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[q][i] = (1.0f - lt[i]) * acc[q][i] + lt[i] * accm[q][i];
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_ce_fwd_kernel(const float* __restrict__ xn, const float* __restrict__ wn,
-                    const int* __restrict__ labels, const float* __restrict__ t,
-                    const float* __restrict__ tcos,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ ab, float* __restrict__ lse_out,
-                    float* __restrict__ tlogit_out,
-                    float* __restrict__ higher_out, int n, int d, int c,
-                    int mode, int has_clamp, float clamp_eps) {
+#define FWD_PARAMS                                                        \
+  const float *__restrict__ xn, const float *__restrict__ wn,             \
+      const float *__restrict__ memn, const float *__restrict__ lam,      \
+      const int *__restrict__ labels, const float *__restrict__ t,        \
+      const float *__restrict__ tcos, const float *__restrict__ scale,    \
+      const float *__restrict__ ab, float *__restrict__ lse_out,          \
+      float *__restrict__ tlogit_out, float *__restrict__ higher_out,     \
+      int n, int d, int c, int mode, int has_clamp, float clamp_eps
+#define FWD_ARGS                                                          \
+  xn, wn, memn, lam, labels, t, tcos, scale, ab, lse_out, tlogit_out,     \
+      higher_out, n, d, c, mode, has_clamp, clamp_eps
+
+template <bool kMem>
+__device__ __forceinline__ void fwd_body(FWD_PARAMS) {
   extern __shared__ float smem[];
   float* xs = smem;                    // [kRows][d]
   float* ws = xs + kRows * d;          // [kChunk][kCols + 1]
+  float* ms = ws + kChunk * (kCols + 1);  // kMem: [kChunk][kCols + 1]
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -199,8 +267,10 @@ fused_ce_fwd_kernel(const float* __restrict__ xn, const float* __restrict__ wn,
 
   load_rows(xs, xn, row0, n, d);
   for (int c0 = 0; c0 < c; c0 += kCols) {
+    float lt[4];
+    if constexpr (kMem) load_lam(lt, lam, c0, c);
     float acc[2][4];
-    cos_tile(acc, xs, ws, wn, c0, d, c, r0);
+    cos_tile<kMem>(acc, xs, ws, ms, wn, memn, lt, c0, d, c, r0);
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       float logit[4];
@@ -217,8 +287,8 @@ fused_ce_fwd_kernel(const float* __restrict__ xn, const float* __restrict__ wn,
                        ? rp[q].scale * (is_target ? rp[q].t
                                                   : h_fn(mode, cs, rp[q].a, rp[q].b))
                        : kNegInf;
-        // pre-margin rank statistic for top-k accuracy: the target column
-        // never counts itself
+        // pre-margin rank statistic for top-k accuracy (on the blended,
+        // clamped cos): the target column never counts itself
         if (in_range && !is_target && cs > rp[q].tcos) cnt += 1.0f;
         tile_max = fmaxf(tile_max, logit[i]);
       }
@@ -245,6 +315,16 @@ fused_ce_fwd_kernel(const float* __restrict__ xn, const float* __restrict__ wn,
     }
   }
 }
+
+__global__ void __launch_bounds__(kThreads)
+fused_ce_fwd_kernel(FWD_PARAMS) { fwd_body<false>(FWD_ARGS); }
+
+// The blend's second accumulators do not fit the 64 registers ptxas allots
+// a 256-thread block by default (it spilled); allowing one block per SM lets
+// it keep them in registers. At N = 512 there are 32 blocks for 132 SMs, so
+// the occupancy given up is not used anyway.
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_fwd_mem_kernel(FWD_PARAMS) { fwd_body<true>(FWD_ARGS); }
 
 // dlogit-side epilogue shared by both backward kernels. Returns dcos and
 // adds the row's target / scale gradient terms to dt, dsc.
@@ -273,24 +353,28 @@ __device__ __forceinline__ float dcos_of(float cos_raw, int col, int c,
   return dl * r.scale * h_grad(mode, cs, r.a, r.b) * pass;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_ce_bwd_dx_kernel(const float* __restrict__ xn,
-                       const float* __restrict__ wn,
-                       const int* __restrict__ labels,
-                       const float* __restrict__ t,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ ab,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ g_lse,
-                       const float* __restrict__ g_t, float* __restrict__ dx,
-                       float* __restrict__ dt_out,
-                       float* __restrict__ dscale_out, int n, int d, int c,
-                       int mode, int has_clamp, float clamp_eps) {
+#define DX_PARAMS                                                         \
+  const float *__restrict__ xn, const float *__restrict__ wn,             \
+      const float *__restrict__ memn, const float *__restrict__ lam,      \
+      const int *__restrict__ labels, const float *__restrict__ t,        \
+      const float *__restrict__ scale, const float *__restrict__ ab,      \
+      const float *__restrict__ lse, const float *__restrict__ g_lse,     \
+      const float *__restrict__ g_t, float *__restrict__ dx,              \
+      float *__restrict__ dt_out, float *__restrict__ dscale_out, int n,  \
+      int d, int c, int mode, int has_clamp, float clamp_eps
+#define DX_ARGS                                                           \
+  xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse, g_t, dx, dt_out,   \
+      dscale_out, n, d, c, mode, has_clamp, clamp_eps
+
+template <bool kMem>
+__device__ __forceinline__ void bwd_dx_body(DX_PARAMS) {
   extern __shared__ float smem[];
   float* xs = smem;                        // [kRows][d]
   float* dxs = xs + kRows * d;             // [kRows][d] dx accumulator
   float* ws = dxs + kRows * d;             // [kChunk][kCols + 1]
-  float* dcs = ws + kChunk * (kCols + 1);  // [kRows][kCols] dcos tile
+  float* dcs = ws + kChunk * (kCols + 1);  // [kRows][kCols] dcos (* (1 - lam))
+  float* ms = dcs + kRows * kCols;         // kMem: [kChunk][kCols + 1]
+  float* dcm = ms + kChunk * (kCols + 1);  // kMem: [kRows][kCols] dcos * lam
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -309,20 +393,31 @@ fused_ce_bwd_dx_kernel(const float* __restrict__ xn,
   for (int i = threadIdx.x; i < kRows * d; i += kThreads) dxs[i] = 0.0f;
 
   for (int c0 = 0; c0 < c; c0 += kCols) {
+    float lt[4];
+    if constexpr (kMem) load_lam(lt, lam, c0, c);
     float acc[2][4];
-    cos_tile(acc, xs, ws, wn, c0, d, c, r0);
+    cos_tile<kMem>(acc, xs, ws, ms, wn, memn, lt, c0, d, c, r0);
 #pragma unroll
     for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dcs[(r0 + q) * kCols + lane + 32 * i] =
-            dcos_of(acc[q][i], c0 + lane + 32 * i, c, rp[q], mode, has_clamp,
-                    clamp_eps, &dt[q], &dsc[q]);
+      for (int i = 0; i < 4; ++i) {
+        const int at = (r0 + q) * kCols + lane + 32 * i;
+        const float g = dcos_of(acc[q][i], c0 + lane + 32 * i, c, rp[q], mode,
+                                has_clamp, clamp_eps, &dt[q], &dsc[q]);
+        if constexpr (kMem) {
+          dcs[at] = g * (1.0f - lt[i]);
+          dcm[at] = g * lt[i];
+        } else {
+          dcs[at] = g;
+        }
+      }
 
     // dx[rows, d0 + lane] += dcos[rows, :] . wn[d0 + lane, tile]
+    //                        (+ (dcos * lam)[rows, :] . memn[d0 + lane, tile])
     for (int d0 = 0; d0 < d; d0 += kChunk) {
       __syncthreads();  // dcs written; previous readers of ws done
       load_chunk(ws, wn, d0, c0, d, c);
+      if constexpr (kMem) load_chunk(ms, memn, d0, c0, d, c);
       __syncthreads();
       float a0 = 0.0f, a1 = 0.0f;
       const float* wrow = ws + lane * (kCols + 1);
@@ -331,6 +426,15 @@ fused_ce_bwd_dx_kernel(const float* __restrict__ xn,
       for (int j = 0; j < kCols; ++j) {
         a0 = fmaf(g0[j], wrow[j], a0);
         a1 = fmaf(g1[j], wrow[j], a1);
+      }
+      if constexpr (kMem) {
+        const float* mrow = ms + lane * (kCols + 1);
+        const float* h0 = dcm + r0 * kCols;
+        const float* h1 = h0 + kCols;
+        for (int j = 0; j < kCols; ++j) {
+          a0 = fmaf(h0[j], mrow[j], a0);
+          a1 = fmaf(h1[j], mrow[j], a1);
+        }
       }
       if (d0 + lane < d) {
         dxs[r0 * d + d0 + lane] += a0;
@@ -359,8 +463,20 @@ fused_ce_bwd_dx_kernel(const float* __restrict__ xn,
 }
 
 __global__ void __launch_bounds__(kThreads)
+fused_ce_bwd_dx_kernel(DX_PARAMS) { bwd_dx_body<false>(DX_ARGS); }
+
+// one block per SM, for the reason given at fused_ce_fwd_mem_kernel
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_bwd_dx_mem_kernel(DX_PARAMS) { bwd_dx_body<true>(DX_ARGS); }
+
+// bwd_dw_mem fits the default register budget without spilling, so both
+// instantiations share one template kernel.
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads)
 fused_ce_bwd_dw_kernel(const float* __restrict__ xn,
                        const float* __restrict__ wn,
+                       const float* __restrict__ memn,
+                       const float* __restrict__ lam,
                        const int* __restrict__ labels,
                        const float* __restrict__ t,
                        const float* __restrict__ scale,
@@ -374,17 +490,22 @@ fused_ce_bwd_dw_kernel(const float* __restrict__ xn,
   float* dws = wt + d * kDwCols;         // [d][kDwCols] dw accumulator
   float* xs = dws + d * kDwCols;         // [kRows][d]
   float* dcs = xs + kRows * d;           // [kRows][kDwCols]
+  float* mt = dcs + kRows * kDwCols;     // kMem: [d][kDwCols] memn tile
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int c0 = blockIdx.x * kDwCols;
   const int col = c0 + lane;
   const int r0 = 2 * warp;
+  float lc = 0.0f;  // lam of the lane's column
+  if constexpr (kMem) lc = col < c ? lam[col] : 0.0f;
 
   for (int i = threadIdx.x; i < d * kDwCols; i += kThreads) {
     const int k = i / kDwCols;
     const int j = i - k * kDwCols;
     wt[i] = c0 + j < c ? wn[static_cast<size_t>(k) * c + c0 + j] : 0.0f;
+    if constexpr (kMem)
+      mt[i] = c0 + j < c ? memn[static_cast<size_t>(k) * c + c0 + j] : 0.0f;
     dws[i] = 0.0f;
   }
 
@@ -400,16 +521,32 @@ fused_ce_bwd_dw_kernel(const float* __restrict__ xn,
       acc0 = fmaf(x0[k], w, acc0);
       acc1 = fmaf(x1[k], w, acc1);
     }
+    if constexpr (kMem) {
+      float m0 = 0.0f, m1 = 0.0f;
+      for (int k = 0; k < d; ++k) {
+        const float mv = mt[k * kDwCols + lane];
+        m0 = fmaf(x0[k], mv, m0);
+        m1 = fmaf(x1[k], mv, m1);
+      }
+      acc0 = (1.0f - lc) * acc0 + lc * m0;
+      acc1 = (1.0f - lc) * acc1 + lc * m1;
+    }
     float unused_dt = 0.0f, unused_dsc = 0.0f;
     const Row ra = load_row(row0 + r0, n, labels, t, nullptr, scale, ab, lse,
                             g_lse, nullptr);
     const Row rb = load_row(row0 + r0 + 1, n, labels, t, nullptr, scale, ab,
                             lse, g_lse, nullptr);
-    dcs[r0 * kDwCols + lane] = dcos_of(acc0, col, c, ra, mode, has_clamp,
-                                       clamp_eps, &unused_dt, &unused_dsc);
-    dcs[(r0 + 1) * kDwCols + lane] = dcos_of(acc1, col, c, rb, mode,
-                                             has_clamp, clamp_eps, &unused_dt,
-                                             &unused_dsc);
+    float g0 = dcos_of(acc0, col, c, ra, mode, has_clamp, clamp_eps,
+                       &unused_dt, &unused_dsc);
+    float g1 = dcos_of(acc1, col, c, rb, mode, has_clamp, clamp_eps,
+                       &unused_dt, &unused_dsc);
+    if constexpr (kMem) {
+      // only the weight-cosine share reaches W
+      g0 *= 1.0f - lc;
+      g1 *= 1.0f - lc;
+    }
+    dcs[r0 * kDwCols + lane] = g0;
+    dcs[(r0 + 1) * kDwCols + lane] = g1;
     __syncthreads();
     // dw[k, lane] += sum_r xs[r, k] * dcos[r, lane]
     for (int k = warp; k < d; k += kThreads / 32) {
@@ -427,12 +564,74 @@ fused_ce_bwd_dw_kernel(const float* __restrict__ xn,
       dw[static_cast<size_t>(k) * c + col] = dws[k * kDwCols + lane];
 }
 
-size_t fwd_smem(int d) { return sizeof(float) * (kRows * d + kChunk * (kCols + 1)); }
-size_t dx_smem(int d) {
-  return sizeof(float) * (2 * kRows * d + kChunk * (kCols + 1) + kRows * kCols);
+size_t fwd_smem(int d, bool mem) {
+  return sizeof(float) * (kRows * d + (mem ? 2 : 1) * kChunk * (kCols + 1));
 }
-size_t dw_smem(int d) {
-  return sizeof(float) * (2 * d * kDwCols + kRows * d + kRows * kDwCols);
+size_t dx_smem(int d, bool mem) {
+  return sizeof(float) * (2 * kRows * d + (mem ? 2 : 1) *
+                          (kChunk * (kCols + 1) + kRows * kCols));
+}
+size_t dw_smem(int d, bool mem) {
+  return sizeof(float) * ((mem ? 3 : 2) * d * kDwCols + kRows * d +
+                          kRows * kDwCols);
+}
+
+template <bool kMem>
+int launch_fwd(const float* xn, const float* wn, const float* memn,
+               const float* lam, const int* labels, const float* t,
+               const float* tcos, const float* scale, const float* ab,
+               float* lse, float* tlogit, float* higher, int n, int d, int c,
+               int mode, int has_clamp, float clamp_eps, void* stream) {
+  const size_t smem = fwd_smem(d, kMem);
+  auto* kernel = kMem ? fused_ce_fwd_mem_kernel : fused_ce_fwd_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + kRows - 1) / kRows;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xn, wn, memn, lam, labels, t, tcos, scale, ab, lse, tlogit, higher, n,
+      d, c, mode, has_clamp, clamp_eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMem>
+int launch_bwd_dx(const float* xn, const float* wn, const float* memn,
+                  const float* lam, const int* labels, const float* t,
+                  const float* scale, const float* ab, const float* lse,
+                  const float* g_lse, const float* g_t, float* dx, float* dt,
+                  float* dscale, int n, int d, int c, int mode, int has_clamp,
+                  float clamp_eps, void* stream) {
+  const size_t smem = dx_smem(d, kMem);
+  auto* kernel = kMem ? fused_ce_bwd_dx_mem_kernel : fused_ce_bwd_dx_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + kRows - 1) / kRows;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse, g_t, dx, dt,
+      dscale, n, d, c, mode, has_clamp, clamp_eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMem>
+int launch_bwd_dw(const float* xn, const float* wn, const float* memn,
+                  const float* lam, const int* labels, const float* t,
+                  const float* scale, const float* ab, const float* lse,
+                  const float* g_lse, float* dw, int n, int d, int c, int mode,
+                  int has_clamp, float clamp_eps, void* stream) {
+  const size_t smem = dw_smem(d, kMem);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_bwd_dw_kernel<kMem>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (c + kDwCols - 1) / kDwCols;
+  fused_ce_bwd_dw_kernel<kMem><<<blocks, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse, dw, n, d, c, mode,
+      has_clamp, clamp_eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -440,9 +639,12 @@ size_t dw_smem(int d) {
 extern "C" {
 
 // Shared-memory bytes each kernel needs at embedding width d; the wrapper
-// refuses widths whose need exceeds the card's per-block limit.
+// refuses widths whose need exceeds the card's per-block limit. which: 0 fwd,
+// 1 bwd_dx, 2 bwd_dw; 3, 4, 5 the same with the memory blend.
 size_t fused_ce_smem_bytes(int which, int d) {
-  return which == 0 ? fwd_smem(d) : which == 1 ? dx_smem(d) : dw_smem(d);
+  const bool mem = which >= 3;
+  const int k = which % 3;
+  return k == 0 ? fwd_smem(d, mem) : k == 1 ? dx_smem(d, mem) : dw_smem(d, mem);
 }
 
 int fused_ce_fwd(const float* xn, const float* wn, const int* labels,
@@ -450,17 +652,9 @@ int fused_ce_fwd(const float* xn, const float* wn, const int* labels,
                  const float* ab, float* lse, float* tlogit, float* higher,
                  int n, int d, int c, int mode, int has_clamp, float clamp_eps,
                  void* stream) {
-  const size_t smem = fwd_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kRows - 1) / kRows;
-  fused_ce_fwd_kernel<<<blocks, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      xn, wn, labels, t, tcos, scale, ab, lse, tlogit, higher, n, d, c, mode,
-      has_clamp, clamp_eps);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(xn, wn, nullptr, nullptr, labels, t, tcos, scale,
+                           ab, lse, tlogit, higher, n, d, c, mode, has_clamp,
+                           clamp_eps, stream);
 }
 
 int fused_ce_bwd_dx(const float* xn, const float* wn, const int* labels,
@@ -468,17 +662,9 @@ int fused_ce_bwd_dx(const float* xn, const float* wn, const int* labels,
                     const float* lse, const float* g_lse, const float* g_t,
                     float* dx, float* dt, float* dscale, int n, int d, int c,
                     int mode, int has_clamp, float clamp_eps, void* stream) {
-  const size_t smem = dx_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kRows - 1) / kRows;
-  fused_ce_bwd_dx_kernel<<<blocks, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      xn, wn, labels, t, scale, ab, lse, g_lse, g_t, dx, dt, dscale, n, d, c,
-      mode, has_clamp, clamp_eps);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd_dx<false>(xn, wn, nullptr, nullptr, labels, t, scale, ab,
+                              lse, g_lse, g_t, dx, dt, dscale, n, d, c, mode,
+                              has_clamp, clamp_eps, stream);
 }
 
 int fused_ce_bwd_dw(const float* xn, const float* wn, const int* labels,
@@ -486,17 +672,43 @@ int fused_ce_bwd_dw(const float* xn, const float* wn, const int* labels,
                     const float* lse, const float* g_lse, float* dw, int n,
                     int d, int c, int mode, int has_clamp, float clamp_eps,
                     void* stream) {
-  const size_t smem = dw_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (c + kDwCols - 1) / kDwCols;
-  fused_ce_bwd_dw_kernel<<<blocks, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      xn, wn, labels, t, scale, ab, lse, g_lse, dw, n, d, c, mode, has_clamp,
-      clamp_eps);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd_dw<false>(xn, wn, nullptr, nullptr, labels, t, scale, ab,
+                              lse, g_lse, dw, n, d, c, mode, has_clamp,
+                              clamp_eps, stream);
+}
+
+int fused_ce_fwd_mem(const float* xn, const float* wn, const float* memn,
+                     const float* lam, const int* labels, const float* t,
+                     const float* tcos, const float* scale, const float* ab,
+                     float* lse, float* tlogit, float* higher, int n, int d,
+                     int c, int mode, int has_clamp, float clamp_eps,
+                     void* stream) {
+  return launch_fwd<true>(xn, wn, memn, lam, labels, t, tcos, scale, ab, lse,
+                          tlogit, higher, n, d, c, mode, has_clamp, clamp_eps,
+                          stream);
+}
+
+int fused_ce_bwd_dx_mem(const float* xn, const float* wn, const float* memn,
+                        const float* lam, const int* labels, const float* t,
+                        const float* scale, const float* ab, const float* lse,
+                        const float* g_lse, const float* g_t, float* dx,
+                        float* dt, float* dscale, int n, int d, int c,
+                        int mode, int has_clamp, float clamp_eps,
+                        void* stream) {
+  return launch_bwd_dx<true>(xn, wn, memn, lam, labels, t, scale, ab, lse,
+                             g_lse, g_t, dx, dt, dscale, n, d, c, mode,
+                             has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_bwd_dw_mem(const float* xn, const float* wn, const float* memn,
+                        const float* lam, const int* labels, const float* t,
+                        const float* scale, const float* ab, const float* lse,
+                        const float* g_lse, float* dw, int n, int d, int c,
+                        int mode, int has_clamp, float clamp_eps,
+                        void* stream) {
+  return launch_bwd_dw<true>(xn, wn, memn, lam, labels, t, scale, ab, lse,
+                             g_lse, dw, n, d, c, mode, has_clamp, clamp_eps,
+                             stream);
 }
 
 }  // extern "C"

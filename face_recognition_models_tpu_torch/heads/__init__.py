@@ -1,4 +1,5 @@
-"""Margin heads of the port (ArcFace so far) and their fused-kernel path."""
+"""Margin heads of the port (ArcFace, VPL-ArcFace, QAFace) and their
+fused-kernel path."""
 
 from face_recognition_models_tpu_torch.heads import margins  # noqa: F401  (registers)
 from face_recognition_models_tpu_torch.heads.base import (  # noqa: F401

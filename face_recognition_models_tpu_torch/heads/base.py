@@ -4,8 +4,11 @@ Port of face_recognition_models_tpu/heads/base.py. A head is a bundle of
 plain functions over tensors:
 
     kernel = init_kernel(cfg, generator, device)   # [D, C] class prototypes
-    state  = init_state(cfg)                       # head state (or None)
-    out    = apply(cfg, kernel, feats, labels, state)
+    state  = init_state(cfg, device)               # head state (or None)
+    out    = apply(cfg, kernel, feats, labels, state, minput=None)
+
+`minput` is the feature of a second, degraded view of the batch; only heads
+with `requires_minput` (QAFace) read it.
 
 All head math is fp32 whatever the backbone's compute dtype.
 """
@@ -31,6 +34,7 @@ class Head(NamedTuple):
     init_kernel: Callable[..., torch.Tensor]
     init_state: Callable[..., Any]
     apply: Callable[..., HeadOutput]
+    requires_minput: bool = False  # QAFace needs a second (degraded) view
 
 
 _REGISTRY: Dict[str, Head] = {}

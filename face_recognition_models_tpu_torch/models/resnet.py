@@ -13,11 +13,16 @@ affine math are fp32 with flax's momentum 0.9 / eps 1e-5, and the running
 variance is updated with the *biased* batch variance (nn.BatchNorm2d would
 use the unbiased one). The stem is the plain 7x7/2 conv: the JAX package's
 default space-to-depth stem is numerically the same conv.
+
+`running_stats_frozen(model)` runs train-mode forwards (batch statistics)
+that leave the running buffers as they are: the JAX train step runs QAFace's
+degraded view in train mode and drops the statistics it mutates.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Type
+import contextlib
+from typing import Iterator, Optional, Sequence, Type
 
 import torch
 import torch.nn.functional as F
@@ -28,8 +33,9 @@ class BatchNorm(nn.Module):
     """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) in fp32, NCHW.
 
     Output is fp32 whatever the input dtype. In training mode it normalises
-    with the batch statistics and moves the running averages as
-    ra = 0.9 * ra + 0.1 * batch_stat, with the biased variance."""
+    with the batch statistics and, unless `update_stats` is False, moves the
+    running averages as ra = 0.9 * ra + 0.1 * batch_stat, with the biased
+    variance."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -41,19 +47,35 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
-            self.num_batches_tracked.add_(1)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+                self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(model: nn.Module) -> Iterator[None]:
+    """Inside the block, train-mode forwards of `model` normalise with batch
+    statistics but move no running_mean / running_var / num_batches_tracked."""
+    norms = [mod for mod in model.modules() if isinstance(mod, BatchNorm)]
+    for mod in norms:
+        mod.update_stats = False
+    try:
+        yield
+    finally:
+        for mod in norms:
+            mod.update_stats = True
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:

@@ -12,11 +12,21 @@ per-row logsumexp, the target logit and `higher` (#non-target classes whose
 cosine beats the target's, for top-k accuracy) without materialising the
 [N, C] logits on the card.
 
-On CUDA tensors the three kernels of `csrc/fused_head.cu` run:
-`fused_ce_fwd`, then `fused_ce_bwd_dx` and `fused_ce_bwd_dw` for the
-gradient. On CPU tensors the wrappers compute the same function with the
-plain [N, C] PyTorch versions below, which are also the reference the card
-is checked against. There is no fallback from the card to the plain code.
+The memory-blended heads (VPL-ArcFace, QAFace) use `fused_margin_ce_mem`,
+where every column's cosine is blended, before the clamp, with a per-class
+memory:
+
+    cos[i, j] = (1 - lam[j]) * (xn @ wn)[i, j] + lam[j] * (xn @ memn)[i, j]
+
+memn [D, C] and lam [C] are constants: dx flows through both products, dw
+only through the (1 - lam) share.
+
+On CUDA tensors the kernels of `csrc/fused_head.cu` run: `fused_ce_fwd`,
+then `fused_ce_bwd_dx` and `fused_ce_bwd_dw` for the gradient, or their
+`_mem` variants. On CPU tensors the wrappers compute the same function with
+the plain [N, C] PyTorch versions below, which are also the reference the
+card is checked against. There is no fallback from the card to the plain
+code.
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ MODE_CURRICULAR = 2
 
 # Launches per kernel since the last reset_launch_counts(); bumped only where
 # a wrapper launches its kernel.
-launch_counts = {"fused_ce_fwd": 0, "fused_ce_bwd_dx": 0, "fused_ce_bwd_dw": 0}
+launch_counts = {"fused_ce_fwd": 0, "fused_ce_bwd_dx": 0, "fused_ce_bwd_dw": 0,
+                 "fused_ce_fwd_mem": 0, "fused_ce_bwd_dx_mem": 0,
+                 "fused_ce_bwd_dw_mem": 0}
 # Per-block shared memory of an H100 (bytes); bounds the embedding width.
 _MAX_SMEM = 232_448
 
@@ -73,8 +85,12 @@ def _h_grad(mode: int, cos, a, b):
     raise ValueError(mode)
 
 
-def _cos(xn, wn, clamp_eps):
+def _cos(xn, wn, clamp_eps, memn=None, lam=None):
+    """(cos before the clamp, cos after it); blended with the memory first
+    when memn is given."""
     cos_raw = torch.matmul(xn, wn)
+    if memn is not None:
+        cos_raw = (1.0 - lam) * cos_raw + lam * torch.matmul(xn, memn)
     if clamp_eps is None:
         return cos_raw, cos_raw
     return cos_raw, cos_raw.clamp(-1.0 + clamp_eps, 1.0 - clamp_eps)
@@ -85,10 +101,9 @@ def _target_mask(labels, c):
     return cols[None, :] == labels[:, None].long()
 
 
-def fused_margin_ce_plain(xn, wn, labels, t, tcos, scale, ab, mode: int,
-                          clamp_eps: Optional[float] = None) -> FusedHeadOut:
-    """Forward as a straightforward [N, C] fp32 computation."""
-    _, cos = _cos(xn, wn, clamp_eps)
+def _fwd_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
+               clamp_eps) -> FusedHeadOut:
+    _, cos = _cos(xn, wn, clamp_eps, memn, lam)
     is_t = _target_mask(labels, wn.shape[1])
     a, b = ab[:, :1], ab[:, 1:]
     logits = scale[:, None] * torch.where(is_t, t[:, None], _h(mode, cos, a, b))
@@ -96,9 +111,27 @@ def fused_margin_ce_plain(xn, wn, labels, t, tcos, scale, ab, mode: int,
     return FusedHeadOut(torch.logsumexp(logits, 1), scale * t, higher)
 
 
-def _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode, clamp_eps):
-    """(dcos [N, C], dt without the direct term, dscale without it)."""
-    cos_raw, cos = _cos(xn, wn, clamp_eps)
+def fused_margin_ce_plain(xn, wn, labels, t, tcos, scale, ab, mode: int,
+                          clamp_eps: Optional[float] = None) -> FusedHeadOut:
+    """Forward as a straightforward [N, C] fp32 computation."""
+    return _fwd_plain(xn, wn, None, None, labels, t, tcos, scale, ab, mode,
+                      clamp_eps)
+
+
+def fused_margin_ce_mem_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab,
+                              mode: int, clamp_eps: Optional[float] = None
+                              ) -> FusedHeadOut:
+    """Memory-blended forward as a straightforward [N, C] fp32 computation:
+    the blend comes before the clamp."""
+    return _fwd_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
+                      clamp_eps)
+
+
+def _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode, clamp_eps,
+                memn=None, lam=None):
+    """(dcos [N, C], dt without the direct term, dscale without it). dcos
+    is the gradient of the (blended) cosine before the blend is split."""
+    cos_raw, cos = _cos(xn, wn, clamp_eps, memn, lam)
     is_t = _target_mask(labels, wn.shape[1])
     a, b = ab[:, :1], ab[:, 1:]
     h = _h(mode, cos, a, b)
@@ -141,6 +174,27 @@ def fused_ce_bwd_dw_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
     return xn.T @ dcos
 
 
+def fused_ce_bwd_dx_mem_plain(xn, wn, memn, lam, labels, t, scale, ab, lse,
+                              g_lse, g_t, mode: int,
+                              clamp_eps: Optional[float] = None):
+    """Plain version of fused_ce_bwd_dx_mem: (dx, dt, dscale), with dcos
+    split as dcos * (1 - lam) into wn and dcos * lam into memn."""
+    dcos, dt, dscale = _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
+                                   mode, clamp_eps, memn, lam)
+    dx = (dcos * (1.0 - lam)) @ wn.T + (dcos * lam) @ memn.T
+    return dx, dt + g_t * scale, dscale + g_t * t
+
+
+def fused_ce_bwd_dw_mem_plain(xn, wn, memn, lam, labels, t, scale, ab, lse,
+                              g_lse, mode: int,
+                              clamp_eps: Optional[float] = None):
+    """Plain version of fused_ce_bwd_dw_mem: dw takes only the
+    dcos * (1 - lam) share."""
+    dcos, _, _ = _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode,
+                             clamp_eps, memn, lam)
+    return xn.T @ (dcos * (1.0 - lam))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -156,21 +210,30 @@ def _lib():
 
     lib = _build.load("fused_head")
     if not getattr(lib, "_typed", False):
-        lib.fused_ce_fwd.argtypes = [_P] * 10 + [_I] * 5 + [_F, _P]
-        lib.fused_ce_bwd_dx.argtypes = [_P] * 12 + [_I] * 5 + [_F, _P]
-        lib.fused_ce_bwd_dw.argtypes = [_P] * 9 + [_I] * 5 + [_F, _P]
-        for fn in (lib.fused_ce_fwd, lib.fused_ce_bwd_dx, lib.fused_ce_bwd_dw):
-            fn.restype = _I
+        # each _mem entry takes memn and lam right after wn
+        for name, ptrs in (("fused_ce_fwd", 10), ("fused_ce_bwd_dx", 12),
+                           ("fused_ce_bwd_dw", 9)):
+            for fn, extra in ((getattr(lib, name), 0),
+                              (getattr(lib, name + "_mem"), 2)):
+                fn.argtypes = [_P] * (ptrs + extra) + [_I] * 5 + [_F, _P]
+                fn.restype = _I
         lib.fused_ce_smem_bytes.argtypes = [_I, _I]
         lib.fused_ce_smem_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
 
-def _check(name, xn, wn, labels, rows, ab):
+def _check(name, xn, wn, labels, rows, ab, mem=()):
+    """Device, type, shape and contiguity of a wrapper's inputs; `mem` is ()
+    or (memn, lam)."""
     n, d = xn.shape
     if wn.dim() != 2 or wn.shape[0] != d:
         raise ValueError(f"{name}: wn must be [D={d}, C], got {tuple(wn.shape)}")
+    if mem:
+        memn, lam = mem
+        if memn.shape != wn.shape or lam.shape != (wn.shape[1],):
+            raise ValueError(f"{name}: memn must be [D, C] like wn and lam "
+                             f"[C={wn.shape[1]}]")
     if labels.shape != (n,) or labels.dtype != torch.int32:
         raise ValueError(f"{name}: labels must be int32 [N={n}]")
     if ab.shape != (n, 2):
@@ -178,10 +241,10 @@ def _check(name, xn, wn, labels, rows, ab):
     for r in rows:
         if r.shape != (n,):
             raise ValueError(f"{name}: row scalars must be [N={n}]")
-    for x in (xn, wn, ab, *rows):
+    for x in (xn, wn, ab, *rows, *mem):
         if x.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32, got {x.dtype}")
-    for x in (xn, wn, labels, ab, *rows):
+    for x in (xn, wn, labels, ab, *rows, *mem):
         if x.device != xn.device:
             raise ValueError(f"{name}: all inputs must be on {xn.device}")
         if not x.is_contiguous():
@@ -212,22 +275,58 @@ def _eps_args(clamp_eps):
     return (0, 0.0) if clamp_eps is None else (1, float(clamp_eps))
 
 
+def _fwd(name, which, xn, wn, mem, labels, t, tcos, scale, ab, mode,
+         clamp_eps) -> FusedHeadOut:
+    _check(name, xn, wn, labels, (t, tcos, scale), ab, mem)
+    n, d = xn.shape
+    out = torch.empty((3, n), dtype=torch.float32, device=xn.device)
+    if n:
+        with torch.cuda.device(xn.device):
+            _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
+                    _ptr(labels), _ptr(t), _ptr(tcos), _ptr(scale), _ptr(ab),
+                    _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), n, d,
+                    wn.shape[1], mode, *_eps_args(clamp_eps))
+    return FusedHeadOut(out[0], out[1], out[2])
+
+
+def _bwd_dx(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, g_t,
+            mode, clamp_eps):
+    _check(name, xn, wn, labels, (t, scale, lse, g_lse, g_t), ab, mem)
+    n, d = xn.shape
+    dx = torch.empty_like(xn)
+    rows = torch.empty((2, n), dtype=torch.float32, device=xn.device)
+    if n:
+        with torch.cuda.device(xn.device):
+            _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
+                    _ptr(labels), _ptr(t), _ptr(scale), _ptr(ab), _ptr(lse),
+                    _ptr(g_lse), _ptr(g_t), _ptr(dx), _ptr(rows[0]),
+                    _ptr(rows[1]), n, d, wn.shape[1], mode,
+                    *_eps_args(clamp_eps))
+    return dx, rows[0], rows[1]
+
+
+def _bwd_dw(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, mode,
+            clamp_eps):
+    _check(name, xn, wn, labels, (t, scale, lse, g_lse), ab, mem)
+    n, d = xn.shape
+    dw = torch.zeros_like(wn) if n == 0 else torch.empty_like(wn)
+    if n:
+        with torch.cuda.device(xn.device):
+            _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
+                    _ptr(labels), _ptr(t), _ptr(scale), _ptr(ab), _ptr(lse),
+                    _ptr(g_lse), _ptr(dw), n, d, wn.shape[1], mode,
+                    *_eps_args(clamp_eps))
+    return dw
+
+
 def fused_ce_fwd(xn, wn, labels, t, tcos, scale, ab, mode: int,
                  clamp_eps: Optional[float] = None) -> FusedHeadOut:
     """Forward statistics (lse, target_logit, higher), each [N] fp32."""
     if xn.device.type == "cpu":
         return fused_margin_ce_plain(xn, wn, labels, t, tcos, scale, ab, mode,
                                      clamp_eps)
-    _check("fused_ce_fwd", xn, wn, labels, (t, tcos, scale), ab)
-    n, d = xn.shape
-    out = torch.empty((3, n), dtype=torch.float32, device=xn.device)
-    if n:
-        with torch.cuda.device(xn.device):
-            _launch("fused_ce_fwd", 0, d, _ptr(xn), _ptr(wn),
-                    _ptr(labels), _ptr(t), _ptr(tcos), _ptr(scale), _ptr(ab),
-                    _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), n, d,
-                    wn.shape[1], mode, *_eps_args(clamp_eps))
-    return FusedHeadOut(out[0], out[1], out[2])
+    return _fwd("fused_ce_fwd", 0, xn, wn, (), labels, t, tcos, scale, ab,
+                mode, clamp_eps)
 
 
 def fused_ce_bwd_dx(xn, wn, labels, t, scale, ab, lse, g_lse, g_t, mode: int,
@@ -236,18 +335,8 @@ def fused_ce_bwd_dx(xn, wn, labels, t, scale, ab, lse, g_lse, g_t, mode: int,
     if xn.device.type == "cpu":
         return fused_ce_bwd_dx_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
                                      g_t, mode, clamp_eps)
-    _check("fused_ce_bwd_dx", xn, wn, labels, (t, scale, lse, g_lse, g_t), ab)
-    n, d = xn.shape
-    dx = torch.empty_like(xn)
-    rows = torch.empty((2, n), dtype=torch.float32, device=xn.device)
-    if n:
-        with torch.cuda.device(xn.device):
-            _launch("fused_ce_bwd_dx", 1, d, _ptr(xn),
-                    _ptr(wn), _ptr(labels), _ptr(t), _ptr(scale), _ptr(ab),
-                    _ptr(lse), _ptr(g_lse), _ptr(g_t), _ptr(dx),
-                    _ptr(rows[0]), _ptr(rows[1]), n, d, wn.shape[1], mode,
-                    *_eps_args(clamp_eps))
-    return dx, rows[0], rows[1]
+    return _bwd_dx("fused_ce_bwd_dx", 1, xn, wn, (), labels, t, scale, ab,
+                   lse, g_lse, g_t, mode, clamp_eps)
 
 
 def fused_ce_bwd_dw(xn, wn, labels, t, scale, ab, lse, g_lse, mode: int,
@@ -256,21 +345,52 @@ def fused_ce_bwd_dw(xn, wn, labels, t, scale, ab, lse, g_lse, mode: int,
     if xn.device.type == "cpu":
         return fused_ce_bwd_dw_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
                                      mode, clamp_eps)
-    _check("fused_ce_bwd_dw", xn, wn, labels, (t, scale, lse, g_lse), ab)
-    n, d = xn.shape
-    dw = torch.zeros_like(wn) if n == 0 else torch.empty_like(wn)
-    if n:
-        with torch.cuda.device(xn.device):
-            _launch("fused_ce_bwd_dw", 2, d, _ptr(xn),
-                    _ptr(wn), _ptr(labels), _ptr(t), _ptr(scale), _ptr(ab),
-                    _ptr(lse), _ptr(g_lse), _ptr(dw), n, d, wn.shape[1],
-                    mode, *_eps_args(clamp_eps))
-    return dw
+    return _bwd_dw("fused_ce_bwd_dw", 2, xn, wn, (), labels, t, scale, ab,
+                   lse, g_lse, mode, clamp_eps)
+
+
+def fused_ce_fwd_mem(xn, wn, memn, lam, labels, t, tcos, scale, ab,
+                     mode: int, clamp_eps: Optional[float] = None
+                     ) -> FusedHeadOut:
+    """Memory-blended forward statistics (lse, target_logit, higher)."""
+    if xn.device.type == "cpu":
+        return fused_margin_ce_mem_plain(xn, wn, memn, lam, labels, t, tcos,
+                                         scale, ab, mode, clamp_eps)
+    return _fwd("fused_ce_fwd_mem", 3, xn, wn, (memn, lam), labels, t, tcos,
+                scale, ab, mode, clamp_eps)
+
+
+def fused_ce_bwd_dx_mem(xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse,
+                        g_t, mode: int, clamp_eps: Optional[float] = None):
+    """(dx, dt, dscale) of the memory-blended head."""
+    if xn.device.type == "cpu":
+        return fused_ce_bwd_dx_mem_plain(xn, wn, memn, lam, labels, t, scale,
+                                         ab, lse, g_lse, g_t, mode, clamp_eps)
+    return _bwd_dx("fused_ce_bwd_dx_mem", 4, xn, wn, (memn, lam), labels, t,
+                   scale, ab, lse, g_lse, g_t, mode, clamp_eps)
+
+
+def fused_ce_bwd_dw_mem(xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse,
+                        mode: int, clamp_eps: Optional[float] = None):
+    """dw [D, C] of the memory-blended head (the (1 - lam) share)."""
+    if xn.device.type == "cpu":
+        return fused_ce_bwd_dw_mem_plain(xn, wn, memn, lam, labels, t, scale,
+                                         ab, lse, g_lse, mode, clamp_eps)
+    return _bwd_dw("fused_ce_bwd_dw_mem", 5, xn, wn, (memn, lam), labels, t,
+                   scale, ab, lse, g_lse, mode, clamp_eps)
 
 
 # ---------------------------------------------------------------------------
 # Autograd
 # ---------------------------------------------------------------------------
+
+
+def _row_grads(g_lse, g_t, lse):
+    """Upstream gradients of lse and target_logit as contiguous fp32 [N]."""
+    def grad(g):
+        return (torch.zeros_like(lse) if g is None
+                else g.contiguous().float())
+    return grad(g_lse), grad(g_t)
 
 
 class _FusedMarginCE(torch.autograd.Function):
@@ -291,10 +411,7 @@ class _FusedMarginCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_lse, g_t, _g_higher):
         xn, wn, labels, t, scale, ab, lse = ctx.saved_tensors
-        g_lse = (torch.zeros_like(lse) if g_lse is None
-                 else g_lse.contiguous().float())
-        g_t = (torch.zeros_like(lse) if g_t is None
-               else g_t.contiguous().float())
+        g_lse, g_t = _row_grads(g_lse, g_t, lse)
         dx, dt, dscale = fused_ce_bwd_dx(xn, wn, labels, t, scale, ab, lse,
                                          g_lse, g_t, ctx.mode, ctx.clamp_eps)
         dw = fused_ce_bwd_dw(xn, wn, labels, t, scale, ab, lse, g_lse,
@@ -316,4 +433,50 @@ def fused_margin_ce(xn, wn, labels, t, tcos, scale, ab, mode: int,
     lse, tlogit, higher = _FusedMarginCE.apply(
         f32(xn), f32(wn), labels.to(torch.int32).contiguous(), f32(t),
         f32(tcos), f32(scale), f32(ab), mode, clamp_eps)
+    return FusedHeadOut(lse, tlogit, higher)
+
+
+class _FusedMarginCEMem(torch.autograd.Function):
+    """The memory-blended head with the JAX VJP's contract: gradients for xn,
+    wn, t and scale; None for memn, lam, labels, tcos and ab (the heads
+    update their memories without gradient)."""
+
+    @staticmethod
+    def forward(ctx, xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
+                clamp_eps):
+        out = fused_ce_fwd_mem(xn, wn, memn, lam, labels, t, tcos, scale, ab,
+                               mode, clamp_eps)
+        ctx.save_for_backward(xn, wn, memn, lam, labels, t, scale, ab,
+                              out.lse)
+        ctx.mode, ctx.clamp_eps = mode, clamp_eps
+        ctx.mark_non_differentiable(out.higher)
+        return out.lse, out.target_logit, out.higher
+
+    @staticmethod
+    def backward(ctx, g_lse, g_t, _g_higher):
+        xn, wn, memn, lam, labels, t, scale, ab, lse = ctx.saved_tensors
+        g_lse, g_t = _row_grads(g_lse, g_t, lse)
+        dx, dt, dscale = fused_ce_bwd_dx_mem(xn, wn, memn, lam, labels, t,
+                                             scale, ab, lse, g_lse, g_t,
+                                             ctx.mode, ctx.clamp_eps)
+        dw = fused_ce_bwd_dw_mem(xn, wn, memn, lam, labels, t, scale, ab, lse,
+                                 g_lse, ctx.mode, ctx.clamp_eps)
+        return (dx, dw, None, None, None, dt, None, dscale, None, None, None)
+
+
+def fused_margin_ce_mem(xn, wn, memn, lam, labels, t, tcos, scale, ab,
+                        mode: int, clamp_eps: Optional[float] = None
+                        ) -> FusedHeadOut:
+    """Fused margin + cross-entropy with a per-class memory blend on every
+    column (the target column's logit is scale * t whatever its blend).
+
+    memn [D, C] column-normalised memory prototypes; lam [C] blend weights
+    (0 leaves a class unblended). The other arguments and the result are
+    those of `fused_margin_ce`.
+    """
+    f32 = lambda x: x.to(torch.float32).contiguous()
+    lse, tlogit, higher = _FusedMarginCEMem.apply(
+        f32(xn), f32(wn), f32(memn), f32(lam),
+        labels.to(torch.int32).contiguous(), f32(t), f32(tcos), f32(scale),
+        f32(ab), mode, clamp_eps)
     return FusedHeadOut(lse, tlogit, higher)

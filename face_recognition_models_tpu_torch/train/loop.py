@@ -2,7 +2,8 @@
 loop.py, without mesh, partial-FC, EMA, distillation or checkpoints yet.
 
 Metrics stay on the device and are read (which waits for the card) only at
-`print_freq` steps and at the end of each epoch.
+`print_freq` steps and at the end of each epoch. Heads that need a second
+view of the batch (QAFace) get `degrade_images` of it, made on the device.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from dataclasses import dataclass, field
 from typing import Any, List
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from face_recognition_models_tpu_torch import config as cfg_lib
 from face_recognition_models_tpu_torch.train.schedules import get_schedule
@@ -32,6 +35,27 @@ class FitResult:
     # the next (they include the wait for the card only at print_freq steps)
     losses: List[float] = field(default_factory=list)
     step_seconds: List[float] = field(default_factory=list)
+
+
+def degrade_images(images: torch.Tensor) -> torch.Tensor:
+    """Quality-degraded view for QAFace's `minput`: a 2x down / up bilinear
+    resample of NHWC images on their device, antialiased as
+    jax.image.resize is.
+
+    Keeps the input dtype: a uint8 batch comes back uint8 (rounded, in
+    [0, 255]) so the step normalises both views alike; a float batch stays
+    float.
+    """
+    _, h, w, _ = images.shape
+    x = images.permute(0, 3, 1, 2).to(torch.float32)
+    small = F.interpolate(x, size=(h // 2, w // 2), mode="bilinear",
+                          align_corners=False, antialias=True)
+    out = F.interpolate(small, size=(h, w), mode="bilinear",
+                        align_corners=False, antialias=True)
+    out = out.permute(0, 2, 3, 1)
+    if images.dtype == torch.uint8:
+        out = out.round().clamp(0, 255).to(torch.uint8)
+    return out
 
 
 def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
@@ -63,7 +87,12 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     for epoch in range(1, cfg.epochs + 1):
         losses = []
         for i, (images, labels) in enumerate(loader.epoch(epoch)):
-            state, metrics = step_fn(state, images, labels)
+            images = torch.as_tensor(images).to(device, non_blocking=True)
+            if head.requires_minput:
+                state, metrics = step_fn(state, images, labels,
+                                         degrade_images(images))
+            else:
+                state, metrics = step_fn(state, images, labels)
             losses.append(metrics["loss"])
             total_images += len(images)
             if i % cfg.print_freq == 0:

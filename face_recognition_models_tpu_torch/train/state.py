@@ -49,5 +49,5 @@ def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device):
                               nesterov=opt.nesterov)
     state = TrainState(backbone=backbone, kernel_w=kernel_w,
                        optimizer=optimizer,
-                       head_state=head.init_state(head_cfg))
+                       head_state=head.init_state(head_cfg, device))
     return backbone, head, state

@@ -1,9 +1,10 @@
 """Where a train step's device time goes, from a torch.profiler trace.
 
-    python -m face_recognition_models_tpu_torch.utils.profiling
+    python -m face_recognition_models_tpu_torch.utils.profiling [--head NAME]
 
-Runs the default recipe (resnet18 + fused ArcFace, C=10,575, batch 512,
-112 px, bf16) on the card: 3 warm-up steps, then 5 profiled steps. Prints one
+Runs the default recipe (resnet18 + fused ArcFace, or the head named,
+C=10,575, batch 512, 112 px, bf16) on the card: 3 warm-up steps, then 5
+profiled steps; QAFace's steps get the degraded view `fit` gives them. Prints one
 JSON line: host ms/step over the profiled steps, device kernel ms/step by
 category, the device's idle share (1 - kernel time / wall time; kernels of
 one stream do not overlap) and the top kernels by device time.
@@ -11,6 +12,7 @@ one stream do not overlap) and the top kernels by device time.
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -19,6 +21,7 @@ import torch
 
 from face_recognition_models_tpu_torch import config as cfg_lib
 from face_recognition_models_tpu_torch.heads import get_head
+from face_recognition_models_tpu_torch.train.loop import degrade_images
 from face_recognition_models_tpu_torch.train.state import create_train_state
 from face_recognition_models_tpu_torch.train.step import make_train_step
 from face_recognition_models_tpu_torch.utils.device import resolve_device
@@ -48,13 +51,22 @@ def profile_train_step(cfg: cfg_lib.TrainConfig, device=None,
                        warmup: int = 3, steps: int = 5) -> dict:
     device = resolve_device(device)
     head_cfg = cfg_lib.make_head_config(cfg.head, num_classes=cfg.num_classes)
-    _, _, state = create_train_state(cfg, head_cfg, device)
-    step = make_train_step(get_head(cfg.head), head_cfg,
-                           use_fused_head=cfg.use_fused_head, device=device)
+    _, head, state = create_train_state(cfg, head_cfg, device)
+    train_step = make_train_step(head, head_cfg,
+                                 use_fused_head=cfg.use_fused_head,
+                                 device=device)
     rs = np.random.RandomState(cfg.seed)
     size = cfg.data.image_size
     images = rs.randint(0, 256, (cfg.batch_size, size, size, 3), np.uint8)
     labels = rs.randint(0, cfg.num_classes, cfg.batch_size).astype(np.int32)
+
+    def step(state, images, labels):
+        # as `fit` runs it: the batch on the device, then the step
+        images = torch.as_tensor(images).to(device, non_blocking=True)
+        if head.requires_minput:
+            return train_step(state, images, labels, degrade_images(images))
+        return train_step(state, images, labels)
+
     for _ in range(warmup):
         step(state, images, labels)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -79,7 +91,8 @@ def profile_train_step(cfg: cfg_lib.TrainConfig, device=None,
         by_cat[cat] = by_cat.get(cat, 0.0) + dev_us / 1e3 / steps
     busy = sum(by_cat.values())
     kernels.sort(reverse=True)
-    return {"device": (torch.cuda.get_device_name(device)
+    return {"head": cfg.head,
+            "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
             "steps": steps, "ms_per_step": wall_ms / steps,
             "device_ms_per_step": busy, "by_category_ms": by_cat,
@@ -89,4 +102,8 @@ def profile_train_step(cfg: cfg_lib.TrainConfig, device=None,
 
 
 if __name__ == "__main__":
-    print(json.dumps(profile_train_step(cfg_lib.TrainConfig())))
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--head", default="arcface",
+                        choices=sorted(cfg_lib.HEAD_CONFIGS))
+    args = parser.parse_args()
+    print(json.dumps(profile_train_step(cfg_lib.TrainConfig(head=args.head))))

@@ -1,5 +1,8 @@
 """A 6-step training trajectory of the port against the JAX package's fused
-train step, from the same weights on the same batches.
+train step, from the same weights on the same batches, for each ported head
+(arcface, vpl_arcface, qaface). QAFace's degraded view is made once with the
+JAX package's `degrade_images` and handed to both steps (the port's own
+`degrade_images` is held to it in tests/test_torch_mem_heads.py).
 
 JAX runs `make_train_step(use_fused_head=True)` with its Pallas kernels in
 interpret mode (block_n=16, block_c=64), the way tests/test_fused_trajectory.py
@@ -7,8 +10,9 @@ does; the port runs on the CPU, where its kernel wrappers compute their plain
 versions. Tiny ResNet in fp32, N=16, D=32, C=128, 16 px, SGD lr 0.05
 momentum 0.9 wd 5e-4. Bounds are those of tests/test_fused_trajectory.py:
 per-step loss 1e-4 relative, feat_norm rtol 1e-4 (atol 1e-5), final
-parameters rtol 5e-3 atol 2e-3 (per-step rounding drift of two fp32
-programs, compounded over momentum-SGD steps).
+parameters and BatchNorm buffers rtol 5e-3 atol 2e-3 (per-step rounding
+drift of two fp32 programs, compounded over momentum-SGD steps), head state
+the same.
 """
 
 import numpy as np
@@ -25,6 +29,8 @@ from face_recognition_models_tpu.models.resnet import ResNet as JResNet
 from face_recognition_models_tpu.train import TrainState as JTrainState
 from face_recognition_models_tpu.train import get_optimizer as jget_optimizer
 from face_recognition_models_tpu.train import make_train_step as jmake_step
+from face_recognition_models_tpu.train.loop import (
+    degrade_images as jdegrade_images)
 from face_recognition_models_tpu.train.schedules import (
     get_schedule as jget_schedule)
 from face_recognition_models_tpu_torch import config as tcfg
@@ -34,7 +40,10 @@ from face_recognition_models_tpu_torch.train.optim import get_optimizer
 from face_recognition_models_tpu_torch.train.schedules import get_schedule
 from face_recognition_models_tpu_torch.train.state import TrainState
 from face_recognition_models_tpu_torch.train.step import make_train_step
-from face_recognition_models_tpu_torch.utils.weights import from_jax
+from face_recognition_models_tpu_torch.utils.weights import (
+    from_jax,
+    head_state_from_jax,
+)
 
 N, D, C = 16, 32, 128
 IMAGE = 16
@@ -62,9 +71,9 @@ def _host(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 
 
-def _jax_setup():
-    cfg = jcfg.make_head_config("arcface", feature_dim=D, num_classes=C)
-    head = jget_head("arcface")
+def _jax_setup(name):
+    cfg = jcfg.make_head_config(name, feature_dim=D, num_classes=C)
+    head = jget_head(name)
     backbone = JResNet(stage_sizes=(1, 1), block=JBasic, embed_dim=D,
                        num_filters=8, dtype=jnp.float32)
     rng = jax.random.PRNGKey(42)
@@ -83,7 +92,7 @@ def _jax_setup():
     return state, step
 
 
-def _port_state(jstate, use_fused):
+def _port_state(name, jstate, use_fused):
     sd, kernel_w = from_jax(_host(jstate.params), _host(jstate.batch_stats))
     backbone = ResNet((1, 1), BasicBlock, embed_dim=D, num_filters=8,
                       dtype=torch.float32)
@@ -91,24 +100,38 @@ def _port_state(jstate, use_fused):
     kernel_w = torch.nn.Parameter(kernel_w)
     opt = get_optimizer("sgd", [*backbone.parameters(), kernel_w], LR,
                         momentum=0.9, weight_decay=5e-4)
-    cfg = tcfg.make_head_config("arcface", feature_dim=D, num_classes=C)
-    step = make_train_step(get_head("arcface"), cfg,
-                           use_fused_head=use_fused, device="cpu")
-    return TrainState(backbone=backbone, kernel_w=kernel_w,
-                      optimizer=opt), step
+    cfg = tcfg.make_head_config(name, feature_dim=D, num_classes=C)
+    step = make_train_step(get_head(name), cfg, use_fused_head=use_fused,
+                           device="cpu")
+    return TrainState(backbone=backbone, kernel_w=kernel_w, optimizer=opt,
+                      head_state=head_state_from_jax(
+                          name, _host(jstate.head_state))), step
 
 
-@pytest.mark.parametrize("use_fused", [True, False],
-                         ids=["fused", "eager"])
-def test_trajectory_matches_jax_fused_step(use_fused, interpret_fused):
-    jstate, jstep = _jax_setup()
-    tstate, tstep = _port_state(jstate, use_fused)
+# arcface keeps the ids it had before the other heads were ported
+CASES = [pytest.param("arcface", True, id="fused"),
+         pytest.param("arcface", False, id="eager")] + [
+    pytest.param(name, fused, id=f"{name}-{'fused' if fused else 'eager'}")
+    for name in ("vpl_arcface", "qaface") for fused in (True, False)]
+
+
+@pytest.mark.parametrize("name,use_fused", CASES)
+def test_trajectory_matches_jax_fused_step(name, use_fused, interpret_fused):
+    jstate, jstep = _jax_setup(name)
+    tstate, tstep = _port_state(name, jstate, use_fused)
     rs = np.random.RandomState(3)
     for k in range(STEPS):
         images = rs.randint(0, 256, (N, IMAGE, IMAGE, 3), np.uint8)
         labels = rs.randint(0, C, N).astype(np.int32)
-        jstate, jm = jstep(jstate, jnp.asarray(images), jnp.asarray(labels))
-        tstate, tm = tstep(tstate, images, labels)
+        if get_head(name).requires_minput:
+            view = np.array(jdegrade_images(jnp.asarray(images)))
+            jstate, jm = jstep(jstate, jnp.asarray(images),
+                               jnp.asarray(labels), jnp.asarray(view))
+            tstate, tm = tstep(tstate, images, labels, view)
+        else:
+            jstate, jm = jstep(jstate, jnp.asarray(images),
+                               jnp.asarray(labels))
+            tstate, tm = tstep(tstate, images, labels)
         lj, lt = float(jm["loss"]), float(tm["loss"])
         assert abs(lt - lj) <= 1e-4 * max(1.0, abs(lj)), \
             f"step {k}: port loss {lt:.6f} vs jax {lj:.6f}"
@@ -129,6 +152,13 @@ def test_trajectory_matches_jax_fused_step(use_fused, interpret_fused):
                                    rtol=5e-3, atol=2e-3, err_msg=key)
     np.testing.assert_allclose(tstate.kernel_w.detach().numpy(),
                                want_kernel.numpy(), rtol=5e-3, atol=2e-3)
+    if tstate.head_state is not None:
+        want_state = head_state_from_jax(name, _host(jstate.head_state))
+        for field, got_x, want_x in zip(want_state._fields,
+                                        tstate.head_state, want_state):
+            # the memory is a batch mean of features: the parameters' bound
+            np.testing.assert_allclose(got_x.numpy(), want_x.numpy(),
+                                       rtol=5e-3, atol=2e-3, err_msg=field)
 
 
 def test_customstep_lr_sequence_matches_jax():
