@@ -14,10 +14,16 @@ and no result line:
              three margin modes with an out-of-range label, and the backward
              at N=4,096; the memory-blended (_mem) kernels at N=24 / C=100
              with lam mixing 0, 0.15 and 1, and at the training shape with
-             lam and memory from a VPL state after one step. Times (CUDA
+             lam and memory from a VPL state after one step. The same for
+             the bf16 tensor-core kernels (_bf16, mm_dtype=torch.bfloat16),
+             plus N=40 / D=72 / C=300 (D not a multiple of 16). Times (CUDA
              events, after warm-up) of the kernel, its plain version and the
              eager library head, beside the bound.
-4. train   - the port's `fit` at full width (resnet18, C=10,575, batch 512,
+4. conv    - the implicit-GEMM 3x3 conv against its plain version at small
+             fp32 and bf16 shapes, then at the ResNet-50 stage shapes of its
+             benchmark (b512 bf16: 28x28x128, 14x14x256, 7x7x512), timed
+             beside its plain version and cuDNN's channels-last conv.
+5. train   - the port's `fit` at full width (resnet18, C=10,575, batch 512,
              112 px, bf16), 5 steps each of the ArcFace, VPL-ArcFace and
              QAFace heads. Each path's launch counters must equal the steps
              and the other kernels' stay 0; VPL must have active memory
@@ -25,30 +31,43 @@ and no result line:
              the kernels and through the eager head (ArcFace, VPL-ArcFace),
              and QAFace's BatchNorm buffers after a step with its degraded
              view against a step without it.
+6. head_bf16 - one forward and backward through the public
+             `fused_margin_ce` and `fused_margin_ce_mem` with
+             mm_dtype=torch.bfloat16 at the training shape: one launch of
+             each bf16 kernel and none of the fp32 ones; the loss within 5%
+             of the fp32 loss.
+7. conv3x3_bench - the conv's benchmark entry point
+             (`scripts/bench_conv3x3.bench`) on the card at 14x14x256, b512:
+             the kernel path and the cuDNN path.
 
-The line before the last is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+The line before the last is {"kernels": [...]} (each kernel's launches from
+the phase that runs its entry point: train, head_bf16, conv3x3_bench), the
+last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import math
-import subprocess
 import sys
 import time
 
 import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: fp32 outside
-# the tensor cores, and HBM3 bandwidth.
+# the tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 N_MAIN, D_MAIN, C_MAIN = 512, 512, 10575
 TRAIN_STEPS = 5
+CONV_SHAPES = ((28, 128), (14, 256), (7, 512))   # (H = W, C = C_out) at b512
+CONV_MAIN = (14, 256)   # the benchmark phase's shape, and the kernels line's
 SOURCE = "face_recognition_models_tpu_torch/csrc/fused_head.cu"
+CONV_SOURCE = "face_recognition_models_tpu_torch/csrc/conv3x3.cu"
 REPLACES = {
     "fused_ce_fwd": "face_recognition_models_tpu/ops/fused_head.py:95",
     "fused_ce_bwd_dx": "face_recognition_models_tpu/ops/fused_head.py:315",
@@ -59,10 +78,24 @@ REPLACES = {
         "face_recognition_models_tpu/ops/fused_head.py:395",
     "fused_ce_bwd_dw_mem":
         "face_recognition_models_tpu/ops/fused_head.py:401",
+    # mm_dtype=bfloat16: the casts before each product of the same kernels
+    "fused_ce_fwd_bf16": "face_recognition_models_tpu/ops/fused_head.py:119",
+    "fused_ce_bwd_dx_bf16":
+        "face_recognition_models_tpu/ops/fused_head.py:242",
+    "fused_ce_bwd_dw_bf16":
+        "face_recognition_models_tpu/ops/fused_head.py:307",
+    "fused_ce_fwd_mem_bf16":
+        "face_recognition_models_tpu/ops/fused_head.py:123",
+    "fused_ce_bwd_dx_mem_bf16":
+        "face_recognition_models_tpu/ops/fused_head.py:237",
+    "fused_ce_bwd_dw_mem_bf16":
+        "face_recognition_models_tpu/ops/fused_head.py:305",
+    "conv3x3_same": "face_recognition_models_tpu/ops/conv3x3.py:42",
 }
 PLAIN_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dx", "fused_ce_bwd_dw")
 MEM_KERNELS = ("fused_ce_fwd_mem", "fused_ce_bwd_dx_mem",
                "fused_ce_bwd_dw_mem")
+BF16_KERNELS = tuple(k + "_bf16" for k in PLAIN_KERNELS + MEM_KERNELS)
 # kernel vs plain, both IEEE fp32 on the card: the sums run in different
 # orders (10^4 exp terms, 512-deep dot products), a few ulps apart.
 TOL_STATS = dict(rtol=1e-5, atol=1e-5)
@@ -70,6 +103,18 @@ TOL_GRAD_RTOL = 1e-3     # plus an atol of 1e-5 x the output's largest value
 TOLERANCE = {"lse_target_logit": TOL_STATS,
              "gradients": {"rtol": TOL_GRAD_RTOL, "atol": "1e-5 x max|plain|"},
              "higher": "differs by at most 1 per row"}
+# bf16 products: dcos is rounded to bf16 after an fp32 computation whose
+# order differs between kernel and plain version, so a dcos within that
+# difference of a rounding boundary rounds one way in one and the other way
+# in the other, moving one term of dx or dw by one bf16 ulp (2^-7 of it).
+# The gradient atol adds one ulp of each element's largest product term.
+BF16_ULP = 2.0 ** -7
+TOLERANCE_BF16 = {**TOLERANCE, "gradients": {
+    "rtol": TOL_GRAD_RTOL,
+    "atol": "1e-5 x max|plain| + 2^-7 x the element's largest product term"}}
+# the conv, rtol = atol: fp32 sums in different orders; bf16 outputs a bf16
+# ulp or two apart (0.03 at |y| of 4-8)
+TOL_CONV = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
@@ -77,18 +122,25 @@ def emit(obj) -> None:
 
 
 def close(name, got, want, rtol, atol):
+    """Max abs error of `got` against `want`; raises past atol + rtol x
+    |want| (atol a number or a tensor of `want`'s shape)."""
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
     if bool(bad.any()):
+        big = float(atol.max()) if hasattr(atol, "max") else atol
         raise AssertionError(
             f"{name}: {int(bad.sum())} elements out of tolerance, max abs err "
-            f"{float(err.max()):.3e} (rtol {rtol}, atol {atol:.3e})")
+            f"{float(err.max()):.3e} (rtol {rtol}, atol up to {big:.3e})")
     return float(err.max())
 
 
-def close_grad(name, got, want):
-    return close(name, got, want, TOL_GRAD_RTOL,
-                 1e-5 * float(want.abs().max()))
+def close_grad(name, got, want, term=None):
+    """The gradient tolerance; `term` (bf16 products only) is each element's
+    largest product term, of which one bf16 ulp is allowed on top."""
+    atol = 1e-5 * float(want.abs().max())
+    if term is not None:
+        atol = atol + BF16_ULP * term
+    return close(name, got, want, TOL_GRAD_RTOL, atol)
 
 
 def close_higher(name, got, want):
@@ -165,20 +217,29 @@ def make_inputs(n, d, c, mode, seed, oor_label=False, mem=None):
     return x
 
 
-def kernel_fns(mem):
+def kernel_fns(mem, bf16=False):
     """(names, [(kernel, plain) for fwd, bwd_dx, bwd_dw]) of the plain or
-    the memory-blended family."""
+    the memory-blended family, with fp32 or (bf16) bf16 products."""
+    import torch
+
     from face_recognition_models_tpu_torch.ops import fused_head as fh
 
     if mem:
-        return MEM_KERNELS, [
+        names, fns = MEM_KERNELS, [
             (fh.fused_ce_fwd_mem, fh.fused_margin_ce_mem_plain),
             (fh.fused_ce_bwd_dx_mem, fh.fused_ce_bwd_dx_mem_plain),
             (fh.fused_ce_bwd_dw_mem, fh.fused_ce_bwd_dw_mem_plain)]
-    return PLAIN_KERNELS, [
-        (fh.fused_ce_fwd, fh.fused_margin_ce_plain),
-        (fh.fused_ce_bwd_dx, fh.fused_ce_bwd_dx_plain),
-        (fh.fused_ce_bwd_dw, fh.fused_ce_bwd_dw_plain)]
+    else:
+        names, fns = PLAIN_KERNELS, [
+            (fh.fused_ce_fwd, fh.fused_margin_ce_plain),
+            (fh.fused_ce_bwd_dx, fh.fused_ce_bwd_dx_plain),
+            (fh.fused_ce_bwd_dw, fh.fused_ce_bwd_dw_plain)]
+    if not bf16:
+        return names, fns
+    bf = functools.partial
+    return tuple(k + "_bf16" for k in names), [
+        (bf(k, mm_dtype=torch.bfloat16), bf(p, mm_dtype=torch.bfloat16))
+        for k, p in fns]
 
 
 def kernel_args(x, mode, clamp_eps, lse=None):
@@ -190,11 +251,40 @@ def kernel_args(x, mode, clamp_eps, lse=None):
     return fwd, (*bwd, x["g_t"], mode, clamp_eps), (*bwd, mode, clamp_eps)
 
 
-def check_case(x, mode, clamp_eps):
+def bf16_terms(x, mode, clamp_eps, lse):
+    """(dx, dw) of each element's largest product term with bf16 operands:
+    max |dcos| of the row (column) times max |wn or memn| (|xn|) of the
+    other factor."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+
+    dcos, _, _ = fh._dcos_plain(x["xn"], x["wn"], x["labels"], x["t"],
+                                x["scale"], x["ab"], lse, x["g_lse"], mode,
+                                clamp_eps, x.get("memn"), x.get("lam"),
+                                torch.bfloat16)
+    dcos = dcos.abs()
+    w = x["wn"].abs().amax(1)
+    if "memn" in x:
+        w = torch.maximum(w, x["memn"].abs().amax(1))
+    return (dcos.amax(1)[:, None] * w[None, :],
+            x["xn"].abs().amax(0)[:, None] * dcos.amax(0)[None, :])
+
+
+def past_fp32_tol(got, want):
+    """Elements of a gradient outside the fp32 tolerance: those that needed
+    the bf16 ulp allowance."""
+    err = (got - want).abs()
+    return int((err > TOL_GRAD_RTOL * want.abs()
+                + 1e-5 * float(want.abs().max())).sum())
+
+
+def check_case(x, mode, clamp_eps, bf16=False):
     """Each kernel against its plain version on inputs `x` (the _mem family
-    when `x` holds memn); returns (max abs err per kernel, number of rows
-    where `higher` differs)."""
-    names, fns = kernel_fns("memn" in x)
+    when `x` holds memn, the bf16 products with `bf16`); returns (max abs
+    err per kernel, number of rows where `higher` differs, and with `bf16`
+    {"dx": n, "dw": n} elements that needed the ulp allowance)."""
+    names, fns = kernel_fns("memn" in x, bf16)
     fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
     out = fns[0][0](*fwd_args)
     ref = fns[0][1](*fwd_args)
@@ -204,25 +294,32 @@ def check_case(x, mode, clamp_eps):
               **TOL_STATS))}
     flips = close_higher("higher", out.higher, ref.higher)
     _, dx_args, dw_args = kernel_args(x, mode, clamp_eps, ref.lse)
+    dx_term, dw_term = (bf16_terms(x, mode, clamp_eps, ref.lse) if bf16
+                        else (None, None))
     dx, dt, dscale = fns[1][0](*dx_args)
     rdx, rdt, rdscale = fns[1][1](*dx_args)
-    errs[names[1]] = max(close_grad("dx", dx, rdx),
+    errs[names[1]] = max(close_grad("dx", dx, rdx, dx_term),
                          close_grad("dt", dt, rdt),
                          close_grad("dscale", dscale, rdscale))
     dw = fns[2][0](*dw_args)
-    errs[names[2]] = close_grad("dw", dw, fns[2][1](*dw_args))
+    rdw = fns[2][1](*dw_args)
+    errs[names[2]] = close_grad("dw", dw, rdw, dw_term)
+    ulp = ({"dx": past_fp32_tol(dx, rdx), "dw": past_fp32_tol(dw, rdw)}
+           if bf16 else {})
     if "lam" in x and bool((x["lam"] == 1).any()):
         # a column fully replaced by its memory takes no dw
         if float(dw[:, x["lam"] == 1].abs().max()) != 0.0:
             raise AssertionError("dw is not 0 in lam = 1 columns")
-    return errs, flips
+    return errs, flips, ulp
 
 
-def library_head_ms(x, clamp_eps=None):
+def library_head_ms(x, clamp_eps=None, bf16=False):
     """The eager head as the yardstick: torch.matmul + the margin select +
     F.cross_entropy, forward and backward timed apart (CUDA events). With
     memn in `x`, the eager VPL head: two torch.matmul + the blend (+ the
-    clamp) before the select."""
+    clamp) before the select. With `bf16`, each torch.matmul takes bf16
+    operands (cast in the timed region, as the kernels cast as they stage)
+    and its bf16 result is taken on in fp32."""
     import torch
     import torch.nn.functional as F
 
@@ -231,11 +328,15 @@ def library_head_ms(x, clamp_eps=None):
     labels = x["labels"].long()
     onehot = F.one_hot(labels, wn.shape[1]).bool()
 
+    def mm(a, b):
+        if not bf16:
+            return torch.matmul(a, b)
+        return torch.matmul(a.bfloat16(), b.bfloat16()).float()
+
     def forward():
-        cos = torch.matmul(xn, wn)
+        cos = mm(xn, wn)
         if "memn" in x:
-            cos = (1.0 - x["lam"]) * cos + x["lam"] * torch.matmul(xn,
-                                                                   x["memn"])
+            cos = (1.0 - x["lam"]) * cos + x["lam"] * mm(xn, x["memn"])
         if clamp_eps is not None:
             cos = cos.clamp(-1.0 + clamp_eps, 1.0 - clamp_eps)
         logits = x["scale"][:, None] * torch.where(onehot, x["t"][:, None],
@@ -260,12 +361,13 @@ def library_head_ms(x, clamp_eps=None):
     return fwd_ms, total / iters
 
 
-def bound_rows(x, names, errs, ms, library):
+def bound_rows(x, names, errs, ms, library, peak=PEAK_FP32_FLOPS):
     """The `kernels` line entries of one family at the shape of `x`, with
     the bound from this run's inputs: inputs read once, outputs written once,
-    and the products these inputs need. With the memory blend a column with
-    lam = 0 needs no memory product and one with lam = 1 no weight product,
-    so the products are counted over the columns that need them."""
+    and the products these inputs need at `peak` FLOP/s. With the memory
+    blend a column with lam = 0 needs no memory product and one with lam = 1
+    no weight product, so the products are counted over the columns that
+    need them."""
     n, d = x["xn"].shape
     c = x["wn"].shape[1]
     product = 2.0 * n * d * c
@@ -286,7 +388,7 @@ def bound_rows(x, names, errs, ms, library):
     flops = [cos, 2 * cos, cos + product * fw]
     rows = []
     for k, name in enumerate(names):
-        t_ops = flops[k] / PEAK_FP32_FLOPS * 1e3
+        t_ops = flops[k] / peak * 1e3
         t_bytes = bytes_[k] / PEAK_BYTES * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
@@ -298,9 +400,9 @@ def bound_rows(x, names, errs, ms, library):
     return rows
 
 
-def time_family(x, mode, clamp_eps):
+def time_family(x, mode, clamp_eps, bf16=False):
     """{name: (kernel ms, plain ms)} of one family on inputs `x`."""
-    names, fns = kernel_fns("memn" in x)
+    names, fns = kernel_fns("memn" in x, bf16)
     fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
     lse = fns[0][1](*fwd_args).lse
     args = kernel_args(x, mode, clamp_eps, lse)
@@ -315,21 +417,35 @@ def phase_kernels():
 
     fh.reset_launch_counts()
     # small shapes: every mode, an out-of-range label, C not a tile multiple;
-    # the _mem family with lam mixing 0, 0.15 and 1
-    for mem in (None, "mixed"):
-        for mode, eps in ((fh.MODE_IDENTITY, None), (fh.MODE_MV, 1e-7),
-                          (fh.MODE_CURRICULAR, 0.0)):
-            x = make_inputs(24, 64, 100, mode, seed=mode + (10 if mem else 0),
-                            oor_label=True, mem=mem)
-            errs, flips = check_case(x, mode, eps)
-            emit({"phase": "kernels",
-                  "case": f"N24_D64_C100_mode{mode}" + ("_mem" if mem
-                                                        else ""),
-                  "max_abs_err": errs, "higher_flips": flips,
-                  "tolerance": TOLERANCE, "ok": True})
+    # the _mem family with lam mixing 0, 0.15 and 1; fp32 and bf16 products,
+    # and the bf16 kernels at a D that is not a multiple of 16
+    for bf16 in (False, True):
+        sfx = "_bf16" if bf16 else ""
+        tol = TOLERANCE_BF16 if bf16 else TOLERANCE
+        for mem in (None, "mixed"):
+            msfx = "_mem" if mem else ""
+            for mode, eps in ((fh.MODE_IDENTITY, None), (fh.MODE_MV, 1e-7),
+                              (fh.MODE_CURRICULAR, 0.0)):
+                x = make_inputs(24, 64, 100, mode,
+                                seed=mode + (10 if mem else 0),
+                                oor_label=True, mem=mem)
+                errs, flips, ulp = check_case(x, mode, eps, bf16)
+                emit({"phase": "kernels",
+                      "case": f"N24_D64_C100_mode{mode}{msfx}{sfx}",
+                      "max_abs_err": errs, "higher_flips": flips,
+                      **({"bf16_ulp_elems": ulp} if bf16 else {}),
+                      "tolerance": tol, "ok": True})
+            if bf16:
+                x = make_inputs(40, 72, 300, fh.MODE_MV, seed=21,
+                                oor_label=True, mem=mem)
+                errs, flips, ulp = check_case(x, fh.MODE_MV, 1e-7, bf16)
+                emit({"phase": "kernels",
+                      "case": f"N40_D72_C300_mode1{msfx}{sfx}",
+                      "max_abs_err": errs, "higher_flips": flips,
+                      "bf16_ulp_elems": ulp, "tolerance": tol, "ok": True})
     # backward where the JAX package switches to its two-kernel form (K3)
     x = make_inputs(4096, D_MAIN, C_MAIN, fh.MODE_IDENTITY, seed=11)
-    errs, flips = check_case(x, fh.MODE_IDENTITY, None)
+    errs, flips, _ = check_case(x, fh.MODE_IDENTITY, None)
     ms = time_family(x, fh.MODE_IDENTITY, None)
     _, lib_bwd = library_head_ms(x)
     k3 = bound_rows(x, PLAIN_KERNELS, errs, ms, (None, lib_bwd, lib_bwd))
@@ -343,31 +459,108 @@ def phase_kernels():
     del x
     torch.cuda.empty_cache()
     # the training shape, with times: ArcFace's kernels, then the _mem
-    # kernels with the memory and lam of a VPL state after one step
+    # kernels with the memory and lam of a VPL state after one step; each
+    # with fp32 and with bf16 products (the library head then with bf16
+    # torch.matmul, the bound at the bf16 tensor-core peak)
     rows = []
     for mem, mode, eps, case in (
             (None, fh.MODE_IDENTITY, None, "N512_D512_C10575_identity"),
             ("vpl", fh.MODE_IDENTITY, 1e-7, "N512_D512_C10575_vpl_mem")):
         x = make_inputs(N_MAIN, D_MAIN, C_MAIN, mode, seed=7, mem=mem)
-        names, _ = kernel_fns(mem)
-        errs, flips = check_case(x, mode, eps)
-        ms = time_family(x, mode, eps)
-        lib_fwd, lib_bwd = library_head_ms(x, eps)
-        fam = bound_rows(x, names, errs, ms, (lib_fwd, lib_bwd, lib_bwd))
-        extra = ({"active_classes": int((x["lam"] > 0).sum())} if mem
-                 else {})
-        emit({"phase": "kernels", "case": case, **extra,
-              "max_abs_err": errs, "higher_flips": flips,
-              "tolerance": TOLERANCE,
-              "kernel_ms": {r["name"]: r["ms"] for r in fam},
-              "plain_ms": {r["name"]: r["plain_ms"] for r in fam},
-              "library_ms": {"head_fwd": lib_fwd, "head_bwd": lib_bwd},
-              "bound_ms": {r["name"]: r["bound_ms"] for r in fam},
-              "ok": True})
-        rows += fam
+        for bf16 in (False, True):
+            names, _ = kernel_fns(mem, bf16)
+            errs, flips, ulp = check_case(x, mode, eps, bf16)
+            ms = time_family(x, mode, eps, bf16)
+            lib_fwd, lib_bwd = library_head_ms(x, eps, bf16)
+            fam = bound_rows(x, names, errs, ms, (lib_fwd, lib_bwd, lib_bwd),
+                             PEAK_BF16_TC_FLOPS if bf16 else PEAK_FP32_FLOPS)
+            extra = ({"active_classes": int((x["lam"] > 0).sum())} if mem
+                     else {})
+            emit({"phase": "kernels", "case": case + ("_bf16" if bf16
+                                                      else ""), **extra,
+                  "max_abs_err": errs, "higher_flips": flips,
+                  **({"bf16_ulp_elems": ulp} if bf16 else {}),
+                  "tolerance": TOLERANCE_BF16 if bf16 else TOLERANCE,
+                  "kernel_ms": {r["name"]: r["ms"] for r in fam},
+                  "plain_ms": {r["name"]: r["plain_ms"] for r in fam},
+                  "library_ms": {"head_fwd": lib_fwd, "head_bwd": lib_bwd},
+                  "bound_ms": {r["name"]: r["bound_ms"] for r in fam},
+                  "ok": True})
+            rows += fam
         del x
         torch.cuda.empty_cache()
     return rows
+
+
+def conv_case(n, h, w, c, co, dtype, seed):
+    """(x, kernel) on the card: x ~ N(0, 1), kernel ~ 0.05 N(0, 1)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, h, w, c, device="cuda", generator=g).to(dtype)
+    k = 0.05 * torch.randn(3, 3, c, co, device="cuda", generator=g)
+    return x, k.to(dtype)
+
+
+def phase_conv():
+    """The conv against its plain version: small fp32 and bf16 shapes, then
+    the ResNet-50 stage shapes at b512 bf16, timed beside its plain version
+    and cuDNN's channels-last conv (TF32 off), the library yardstick.
+    Returns the kernels line entry at CONV_MAIN."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import conv3x3
+    from face_recognition_models_tpu_torch.scripts import bench_conv3x3
+
+    conv3x3.reset_launch_counts()
+    for i, (n, h, w, c, co, dtype) in enumerate((
+            (4, 7, 7, 16, 24, torch.float32), (2, 5, 9, 4, 12, torch.float32),
+            (6, 4, 4, 8, 8, torch.float32), (16, 7, 7, 72, 40, torch.float32),
+            (2, 7, 7, 32, 16, torch.bfloat16),
+            (8, 14, 14, 40, 24, torch.bfloat16))):
+        x, k = conv_case(n, h, w, c, co, dtype, seed=i)
+        dname = str(dtype).split(".")[1]
+        tol = TOL_CONV[dname]
+        err = close("conv3x3", conv3x3.conv3x3_same(x, k, block_n=n).float(),
+                    conv3x3.conv3x3_same_plain(x, k).float(), tol, tol)
+        emit({"phase": "conv", "case": f"N{n}_H{h}_W{w}_C{c}_Co{co}_{dname}",
+              "max_abs_err": err, "tolerance": {"rtol": tol, "atol": tol},
+              "ok": True})
+    row = None
+    for h, c in CONV_SHAPES:
+        n = 512
+        x, k = conv_case(n, h, h, c, c, torch.bfloat16, seed=h)
+        err = close("conv3x3", conv3x3.conv3x3_same(x, k).float(),
+                    conv3x3.conv3x3_same_plain(x, k).float(),
+                    TOL_CONV["bfloat16"], TOL_CONV["bfloat16"])
+        ms = cuda_ms(lambda: conv3x3.conv3x3_same(x, k))
+        plain_ms = cuda_ms(lambda: conv3x3.conv3x3_same_plain(x, k))
+        cudnn = bench_conv3x3.conv_fn("cudnn", k, 16)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            lib_ms = cuda_ms(lambda: cudnn(x))
+        flops = 2.0 * n * h * h * 9 * c * c
+        bytes_ = 2.0 * (2 * n * h * h * c + 9 * c * c)
+        t_ops = flops / PEAK_BF16_TC_FLOPS * 1e3
+        t_bytes = bytes_ / PEAK_BYTES * 1e3
+        emit({"phase": "conv", "case": f"N{n}_H{h}_C{c}_bf16",
+              "max_abs_err": err,
+              "tolerance": {"rtol": TOL_CONV["bfloat16"],
+                            "atol": TOL_CONV["bfloat16"]},
+              "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+              "bound_ms": max(t_ops, t_bytes), "kernel_tflops":
+              flops / ms / 1e9, "library_tflops": flops / lib_ms / 1e9,
+              "ok": True})
+        if (h, c) == CONV_MAIN:
+            row = {"name": "conv3x3_same", "route": "cuda",
+                   "source": CONV_SOURCE,
+                   "replaces": REPLACES["conv3x3_same"], "launches": 0,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": lib_ms}
+        del x, k
+        torch.cuda.empty_cache()
+    return row
 
 
 def train_batches(steps, bs, size, seed=0):
@@ -562,6 +755,87 @@ def phase_train():
             **{k: vpl[k] for k in MEM_KERNELS}}
 
 
+def phase_head_bf16():
+    """One forward and backward through the public fused_margin_ce and
+    fused_margin_ce_mem with mm_dtype=torch.bfloat16 at the training shape
+    (ArcFace-like margin, scale 64; the _mem family with a VPL state after
+    one step). Returns {kernel: launches}."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+
+    cases = []
+    for mem, eps in ((None, None), ("vpl", 1e-7)):
+        x = make_inputs(N_MAIN, D_MAIN, C_MAIN, fh.MODE_IDENTITY, seed=13,
+                        mem=mem)
+        cases.append((x, eps))
+    fh.reset_launch_counts()
+    out = []
+    for x, eps in cases:
+        xn = x["xn"].clone().requires_grad_(True)
+        wn = x["wn"].clone().requires_grad_(True)
+        mem = (x["memn"], x["lam"]) if "memn" in x else ()
+        fn = fh.fused_margin_ce_mem if mem else fh.fused_margin_ce
+        res = fn(xn, wn, *mem, x["labels"], x["t"], x["tcos"], x["scale"],
+                 x["ab"], fh.MODE_IDENTITY, eps, mm_dtype=torch.bfloat16)
+        loss = (res.lse - res.target_logit).mean()
+        loss.backward()
+        out.append((x, eps, loss.detach(), xn.grad, wn.grad))
+    torch.cuda.synchronize()
+    launches = dict(fh.launch_counts)
+    for name, count in launches.items():
+        want = 1 if name in BF16_KERNELS else 0
+        if count != want:
+            raise AssertionError(f"head_bf16: {name} launched {count} times, "
+                                 f"not {want}")
+    losses = {}
+    for x, eps, loss16, gx, gw in out:
+        family = "mem" if "memn" in x else "plain"
+        if not (bool(torch.isfinite(gx).all())
+                and bool(torch.isfinite(gw).all())):
+            raise AssertionError(f"head_bf16 {family}: non-finite gradient")
+        mem = (x["memn"], x["lam"]) if "memn" in x else ()
+        plain = (fh.fused_margin_ce_mem_plain if mem
+                 else fh.fused_margin_ce_plain)
+        ref = plain(x["xn"], x["wn"], *mem, x["labels"], x["t"], x["tcos"],
+                    x["scale"], x["ab"], fh.MODE_IDENTITY, eps)
+        loss32 = float((ref.lse - ref.target_logit).mean())
+        rel = abs(float(loss16) - loss32) / abs(loss32)
+        # the JAX package's contract for the option (its
+        # test_bf16_matmul_variant_close): within 5% of the fp32 loss
+        if not rel < 0.05:
+            raise AssertionError(f"head_bf16 {family}: loss {float(loss16)} "
+                                 f"vs fp32 {loss32}")
+        losses[family] = {"bf16": float(loss16), "fp32": loss32,
+                          "rel_diff": rel}
+    emit({"phase": "head_bf16", "losses": losses, "launches": launches,
+          "ok": True})
+    return {k: launches[k] for k in BF16_KERNELS}
+
+
+def phase_conv_bench():
+    """The conv's benchmark entry point on the card at CONV_MAIN, b512:
+    the kernel path (its launches counted) and the cuDNN path."""
+    from face_recognition_models_tpu_torch.ops import conv3x3
+    from face_recognition_models_tpu_torch.scripts import bench_conv3x3
+
+    shape = ",".join(map(str, CONV_MAIN))
+    iters = 10
+    conv3x3.reset_launch_counts()
+    res = bench_conv3x3.bench(shape, 512, "kernel", iters, device="cuda")
+    launches = conv3x3.launch_counts["conv3x3_same"]
+    want = (1 + bench_conv3x3.N_REPS) * iters
+    if launches != want:
+        raise AssertionError(f"conv3x3_bench: {launches} launches, not "
+                             f"{want}")
+    lib = bench_conv3x3.bench(shape, 512, "cudnn", iters, device="cuda")
+    for r in (res, lib):
+        if not (r["ms"] > 0 and math.isfinite(r["tflops"])):
+            raise AssertionError(f"conv3x3_bench: {r}")
+        emit({"phase": "conv3x3_bench", **r, "ok": True})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -569,11 +843,9 @@ def main() -> int:
         print("error: no CUDA device", file=sys.stderr)
         return 1
     from face_recognition_models_tpu_torch.ops import _build
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -589,7 +861,10 @@ def main() -> int:
                     for k, v in reports.items()}})
 
     rows = phase_kernels()
+    rows.append(phase_conv())
     launches = phase_train()
+    launches.update(phase_head_bf16())
+    launches["conv3x3_same"] = phase_conv_bench()
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"kernels": rows})

@@ -1,2 +1,3 @@
-"""Tensor ops of the port: normalisation, image preprocessing and the fused
-margin + cross-entropy head with its CUDA kernels."""
+"""Tensor ops of the port: normalisation, image preprocessing, the fused
+margin + cross-entropy head and the implicit-GEMM 3x3 conv, with their CUDA
+kernels."""

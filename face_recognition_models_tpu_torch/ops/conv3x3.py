@@ -1,0 +1,112 @@
+"""3x3, stride 1, SAME-padded NHWC convolution as an implicit GEMM.
+
+Port of face_recognition_models_tpu/ops/conv3x3.py. Over the flattened rows
+r = n*H*W + h*W + w,
+
+    y[r] = sum_{a, b in {-1, 0, 1}} x[n, h + a, w + b] @ K[a + 1, b + 1]
+
+with x taken as zero outside the image. On CUDA tensors the kernel of
+`csrc/conv3x3.cu` runs (bf16 on the tensor cores, fp32 in IEEE fp32 on the
+CUDA cores); on CPU tensors `conv3x3_same_plain`, which is also the reference
+the card is checked against. There is no fallback from the card to the plain
+code. As in the JAX package, no model uses it: the trunks' convolutions are
+cuDNN's, and this op is reached through its benchmark,
+`python -m face_recognition_models_tpu_torch.scripts.bench_conv3x3`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+# Launches since the last reset_launch_counts(); bumped only where the
+# wrapper launches its kernel.
+launch_counts = {"conv3x3_same": 0}
+_ENTRIES = {torch.bfloat16: "conv3x3_same_bf16",
+            torch.float32: "conv3x3_same_f32"}
+_TAPS = tuple((a, b) for a in (-1, 0, 1) for b in (-1, 0, 1))
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _check_shapes(x, kernel, block_n):
+    """The JAX function's contract: NHWC x, HWIO [3, 3, C, C_out] kernel,
+    N divisible by block_n."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC [N, H, W, C], got {tuple(x.shape)}")
+    n, _, _, c = x.shape
+    if kernel.dim() != 4 or tuple(kernel.shape[:3]) != (3, 3, c):
+        raise ValueError(f"need [3, 3, {c}, *] kernel, got "
+                         f"{tuple(kernel.shape)}")
+    if n % block_n:
+        raise ValueError(f"batch {n} must divide by block_n {block_n}")
+
+
+def conv3x3_same_plain(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The formula above as 9 shifted fp32 matmuls over a zero-padded NHWC
+    copy of x; the kernel is cast to x.dtype first, the sum to x.dtype last."""
+    _, h, w, _ = x.shape
+    k = kernel.to(x.dtype).to(torch.float32)
+    xp = F.pad(x.to(torch.float32), (0, 0, 1, 1, 1, 1))
+    y = None
+    for a, b in _TAPS:
+        tap = xp[:, 1 + a:1 + a + h, 1 + b:1 + b + w, :] @ k[a + 1, b + 1]
+        y = tap if y is None else y + tap
+    return y.to(x.dtype)
+
+
+def _lib():
+    from face_recognition_models_tpu_torch.ops import _build
+
+    lib = _build.load("conv3x3")
+    if not getattr(lib, "_typed", False):
+        for name in _ENTRIES.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor, *,
+                 block_n: int = 16) -> torch.Tensor:
+    """3x3, stride 1, SAME padding, NHWC conv. `x` [N, H, W, C] (bf16 or
+    fp32 on the card; bf16 is the benchmarked case), `kernel` [3, 3, C,
+    C_out], cast to x.dtype; fp32 accumulation, output [N, H, W, C_out] in
+    x.dtype.
+
+    `block_n` is the JAX function's images-per-block and stays part of the
+    contract (N must divide by it, else ValueError); the CUDA kernel tiles
+    the flattened rows as it likes and does not otherwise read it.
+    """
+    _check_shapes(x, kernel, block_n)
+    if x.device.type == "cpu":
+        return conv3x3_same_plain(x, kernel)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_same: expected CUDA or CPU tensors, got "
+                         f"{x.device}")
+    if x.dtype not in _ENTRIES:
+        raise ValueError(f"conv3x3_same: x must be bfloat16 or float32 on "
+                         f"the card, got {x.dtype}")
+    if kernel.device != x.device:
+        raise ValueError(f"conv3x3_same: kernel must be on {x.device}")
+    n, h, w, c = x.shape
+    co = kernel.shape[3]
+    x = x.contiguous()
+    w9 = kernel.to(x.dtype).reshape(9, c, co).contiguous()
+    y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+    if y.numel():
+        with torch.cuda.device(x.device):
+            err = getattr(_lib(), _ENTRIES[x.dtype])(
+                x.data_ptr(), w9.data_ptr(), y.data_ptr(), n, h, w, c, co,
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"conv3x3_same: CUDA error {err} at launch")
+        launch_counts["conv3x3_same"] += 1
+    return y

@@ -27,6 +27,15 @@ then `fused_ce_bwd_dx` and `fused_ce_bwd_dw` for the gradient, or their
 the plain [N, C] PyTorch versions below, which are also the reference the
 card is checked against. There is no fallback from the card to the plain
 code.
+
+`mm_dtype=torch.bfloat16` (the JAX package's `mm_dtype=jnp.bfloat16`) runs
+every product on bf16 operands with fp32 accumulation: the `_bf16` kernels
+on the tensor cores. The operands are rounded to bf16 (round to nearest
+even) at exactly six places, and everything else stays fp32: xn and wn
+before every cosine product, memn, dcos before the dx and dw products, and,
+with the blend, dcos * (1 - lam) and dcos * lam, each rounded on its own.
+The plain versions round at the same places and multiply in fp32, which is
+what a bf16 x bf16 product with an fp32 accumulator computes.
 """
 
 from __future__ import annotations
@@ -42,9 +51,10 @@ MODE_CURRICULAR = 2
 
 # Launches per kernel since the last reset_launch_counts(); bumped only where
 # a wrapper launches its kernel.
-launch_counts = {"fused_ce_fwd": 0, "fused_ce_bwd_dx": 0, "fused_ce_bwd_dw": 0,
-                 "fused_ce_fwd_mem": 0, "fused_ce_bwd_dx_mem": 0,
-                 "fused_ce_bwd_dw_mem": 0}
+_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
+            "fused_ce_fwd_mem", "fused_ce_bwd_dx_mem", "fused_ce_bwd_dw_mem")
+launch_counts = {name + suffix: 0 for suffix in ("", "_bf16")
+                 for name in _KERNELS}
 # Per-block shared memory of an H100 (bytes); bounds the embedding width.
 _MAX_SMEM = 232_448
 
@@ -85,12 +95,28 @@ def _h_grad(mode: int, cos, a, b):
     raise ValueError(mode)
 
 
-def _cos(xn, wn, clamp_eps, memn=None, lam=None):
+def _check_mm_dtype(mm_dtype):
+    if mm_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mm_dtype must be torch.float32 or torch.bfloat16, "
+                         f"got {mm_dtype}")
+
+
+def _mm(x, mm_dtype):
+    """x as a product operand: rounded to bf16 (and back to fp32) when the
+    products run in bf16."""
+    if mm_dtype == torch.float32:
+        return x
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _cos(xn, wn, clamp_eps, memn=None, lam=None, mm_dtype=torch.float32):
     """(cos before the clamp, cos after it); blended with the memory first
     when memn is given."""
-    cos_raw = torch.matmul(xn, wn)
+    xm = _mm(xn, mm_dtype)
+    cos_raw = torch.matmul(xm, _mm(wn, mm_dtype))
     if memn is not None:
-        cos_raw = (1.0 - lam) * cos_raw + lam * torch.matmul(xn, memn)
+        cos_raw = ((1.0 - lam) * cos_raw
+                   + lam * torch.matmul(xm, _mm(memn, mm_dtype)))
     if clamp_eps is None:
         return cos_raw, cos_raw
     return cos_raw, cos_raw.clamp(-1.0 + clamp_eps, 1.0 - clamp_eps)
@@ -102,8 +128,9 @@ def _target_mask(labels, c):
 
 
 def _fwd_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
-               clamp_eps) -> FusedHeadOut:
-    _, cos = _cos(xn, wn, clamp_eps, memn, lam)
+               clamp_eps, mm_dtype) -> FusedHeadOut:
+    _check_mm_dtype(mm_dtype)
+    _, cos = _cos(xn, wn, clamp_eps, memn, lam, mm_dtype)
     is_t = _target_mask(labels, wn.shape[1])
     a, b = ab[:, :1], ab[:, 1:]
     logits = scale[:, None] * torch.where(is_t, t[:, None], _h(mode, cos, a, b))
@@ -112,26 +139,29 @@ def _fwd_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
 
 
 def fused_margin_ce_plain(xn, wn, labels, t, tcos, scale, ab, mode: int,
-                          clamp_eps: Optional[float] = None) -> FusedHeadOut:
+                          clamp_eps: Optional[float] = None,
+                          mm_dtype=torch.float32) -> FusedHeadOut:
     """Forward as a straightforward [N, C] fp32 computation."""
     return _fwd_plain(xn, wn, None, None, labels, t, tcos, scale, ab, mode,
-                      clamp_eps)
+                      clamp_eps, mm_dtype)
 
 
 def fused_margin_ce_mem_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab,
-                              mode: int, clamp_eps: Optional[float] = None
-                              ) -> FusedHeadOut:
+                              mode: int, clamp_eps: Optional[float] = None,
+                              mm_dtype=torch.float32) -> FusedHeadOut:
     """Memory-blended forward as a straightforward [N, C] fp32 computation:
     the blend comes before the clamp."""
     return _fwd_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
-                      clamp_eps)
+                      clamp_eps, mm_dtype)
 
 
 def _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode, clamp_eps,
-                memn=None, lam=None):
+                memn=None, lam=None, mm_dtype=torch.float32):
     """(dcos [N, C], dt without the direct term, dscale without it). dcos
-    is the gradient of the (blended) cosine before the blend is split."""
-    cos_raw, cos = _cos(xn, wn, clamp_eps, memn, lam)
+    is the gradient of the (blended) cosine before the blend is split, in
+    fp32 (not yet rounded for a bf16 product)."""
+    _check_mm_dtype(mm_dtype)
+    cos_raw, cos = _cos(xn, wn, clamp_eps, memn, lam, mm_dtype)
     is_t = _target_mask(labels, wn.shape[1])
     a, b = ab[:, :1], ab[:, 1:]
     h = _h(mode, cos, a, b)
@@ -149,50 +179,60 @@ def _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode, clamp_eps,
 
 
 def fused_margin_ce_bwd_plain(xn, wn, labels, t, scale, ab, lse, g_lse, g_t,
-                              mode: int, clamp_eps: Optional[float] = None
+                              mode: int, clamp_eps: Optional[float] = None,
+                              mm_dtype=torch.float32
                               ) -> Tuple[torch.Tensor, ...]:
     """Backward as a straightforward [N, C] fp32 computation.
     Returns (dx [N, D], dw [D, C], dt [N], dscale [N])."""
-    dcos, dt, dscale = _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
-                                   mode, clamp_eps)
-    return (dcos @ wn.T, xn.T @ dcos, dt + g_t * scale, dscale + g_t * t)
+    dx, dt, dscale = fused_ce_bwd_dx_plain(xn, wn, labels, t, scale, ab, lse,
+                                           g_lse, g_t, mode, clamp_eps,
+                                           mm_dtype)
+    dw = fused_ce_bwd_dw_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
+                               mode, clamp_eps, mm_dtype)
+    return dx, dw, dt, dscale
 
 
 def fused_ce_bwd_dx_plain(xn, wn, labels, t, scale, ab, lse, g_lse, g_t,
-                          mode: int, clamp_eps: Optional[float] = None):
+                          mode: int, clamp_eps: Optional[float] = None,
+                          mm_dtype=torch.float32):
     """Plain version of fused_ce_bwd_dx: (dx, dt, dscale)."""
     dcos, dt, dscale = _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
-                                   mode, clamp_eps)
-    return dcos @ wn.T, dt + g_t * scale, dscale + g_t * t
+                                   mode, clamp_eps, mm_dtype=mm_dtype)
+    dx = _mm(dcos, mm_dtype) @ _mm(wn, mm_dtype).T
+    return dx, dt + g_t * scale, dscale + g_t * t
 
 
 def fused_ce_bwd_dw_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
-                          mode: int, clamp_eps: Optional[float] = None):
+                          mode: int, clamp_eps: Optional[float] = None,
+                          mm_dtype=torch.float32):
     """Plain version of fused_ce_bwd_dw: dw."""
     dcos, _, _ = _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode,
-                             clamp_eps)
-    return xn.T @ dcos
+                             clamp_eps, mm_dtype=mm_dtype)
+    return _mm(xn, mm_dtype).T @ _mm(dcos, mm_dtype)
 
 
 def fused_ce_bwd_dx_mem_plain(xn, wn, memn, lam, labels, t, scale, ab, lse,
                               g_lse, g_t, mode: int,
-                              clamp_eps: Optional[float] = None):
+                              clamp_eps: Optional[float] = None,
+                              mm_dtype=torch.float32):
     """Plain version of fused_ce_bwd_dx_mem: (dx, dt, dscale), with dcos
     split as dcos * (1 - lam) into wn and dcos * lam into memn."""
     dcos, dt, dscale = _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
-                                   mode, clamp_eps, memn, lam)
-    dx = (dcos * (1.0 - lam)) @ wn.T + (dcos * lam) @ memn.T
+                                   mode, clamp_eps, memn, lam, mm_dtype)
+    dx = (_mm(dcos * (1.0 - lam), mm_dtype) @ _mm(wn, mm_dtype).T
+          + _mm(dcos * lam, mm_dtype) @ _mm(memn, mm_dtype).T)
     return dx, dt + g_t * scale, dscale + g_t * t
 
 
 def fused_ce_bwd_dw_mem_plain(xn, wn, memn, lam, labels, t, scale, ab, lse,
                               g_lse, mode: int,
-                              clamp_eps: Optional[float] = None):
+                              clamp_eps: Optional[float] = None,
+                              mm_dtype=torch.float32):
     """Plain version of fused_ce_bwd_dw_mem: dw takes only the
     dcos * (1 - lam) share."""
     dcos, _, _ = _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode,
-                             clamp_eps, memn, lam)
-    return xn.T @ (dcos * (1.0 - lam))
+                             clamp_eps, memn, lam, mm_dtype)
+    return _mm(xn, mm_dtype).T @ _mm(dcos * (1.0 - lam), mm_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -210,13 +250,15 @@ def _lib():
 
     lib = _build.load("fused_head")
     if not getattr(lib, "_typed", False):
-        # each _mem entry takes memn and lam right after wn
+        # each _mem entry takes memn and lam right after wn; each _bf16
+        # entry the arguments of its fp32 counterpart
         for name, ptrs in (("fused_ce_fwd", 10), ("fused_ce_bwd_dx", 12),
                            ("fused_ce_bwd_dw", 9)):
-            for fn, extra in ((getattr(lib, name), 0),
-                              (getattr(lib, name + "_mem"), 2)):
-                fn.argtypes = [_P] * (ptrs + extra) + [_I] * 5 + [_F, _P]
-                fn.restype = _I
+            for mem, extra in (("", 0), ("_mem", 2)):
+                for bf16 in ("", "_bf16"):
+                    fn = getattr(lib, name + mem + bf16)
+                    fn.argtypes = [_P] * (ptrs + extra) + [_I] * 5 + [_F, _P]
+                    fn.restype = _I
         lib.fused_ce_smem_bytes.argtypes = [_I, _I]
         lib.fused_ce_smem_bytes.restype = ctypes.c_size_t
         lib._typed = True
@@ -254,6 +296,15 @@ def _check(name, xn, wn, labels, rows, ab, mem=()):
                          f"{xn.device}")
 
 
+def _kernel(name, which, mm_dtype):
+    """(entry name, shared-memory index) of the fp32 kernel `name` or its
+    bf16 counterpart."""
+    _check_mm_dtype(mm_dtype)
+    if mm_dtype == torch.bfloat16:
+        return name + "_bf16", which + 6
+    return name, which
+
+
 def _launch(name, which, d, *args):
     lib = _lib()
     need = lib.fused_ce_smem_bytes(which, d)
@@ -276,7 +327,8 @@ def _eps_args(clamp_eps):
 
 
 def _fwd(name, which, xn, wn, mem, labels, t, tcos, scale, ab, mode,
-         clamp_eps) -> FusedHeadOut:
+         clamp_eps, mm_dtype) -> FusedHeadOut:
+    name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, tcos, scale), ab, mem)
     n, d = xn.shape
     out = torch.empty((3, n), dtype=torch.float32, device=xn.device)
@@ -290,7 +342,8 @@ def _fwd(name, which, xn, wn, mem, labels, t, tcos, scale, ab, mode,
 
 
 def _bwd_dx(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, g_t,
-            mode, clamp_eps):
+            mode, clamp_eps, mm_dtype):
+    name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, scale, lse, g_lse, g_t), ab, mem)
     n, d = xn.shape
     dx = torch.empty_like(xn)
@@ -306,7 +359,8 @@ def _bwd_dx(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, g_t,
 
 
 def _bwd_dw(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, mode,
-            clamp_eps):
+            clamp_eps, mm_dtype):
+    name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, scale, lse, g_lse), ab, mem)
     n, d = xn.shape
     dw = torch.zeros_like(wn) if n == 0 else torch.empty_like(wn)
@@ -320,64 +374,72 @@ def _bwd_dw(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, mode,
 
 
 def fused_ce_fwd(xn, wn, labels, t, tcos, scale, ab, mode: int,
-                 clamp_eps: Optional[float] = None) -> FusedHeadOut:
-    """Forward statistics (lse, target_logit, higher), each [N] fp32."""
+                 clamp_eps: Optional[float] = None,
+                 mm_dtype=torch.float32) -> FusedHeadOut:
+    """Forward statistics (lse, target_logit, higher), each [N] fp32.
+    mm_dtype=torch.bfloat16 launches `fused_ce_fwd_bf16`."""
     if xn.device.type == "cpu":
         return fused_margin_ce_plain(xn, wn, labels, t, tcos, scale, ab, mode,
-                                     clamp_eps)
+                                     clamp_eps, mm_dtype)
     return _fwd("fused_ce_fwd", 0, xn, wn, (), labels, t, tcos, scale, ab,
-                mode, clamp_eps)
+                mode, clamp_eps, mm_dtype)
 
 
 def fused_ce_bwd_dx(xn, wn, labels, t, scale, ab, lse, g_lse, g_t, mode: int,
-                    clamp_eps: Optional[float] = None):
+                    clamp_eps: Optional[float] = None,
+                    mm_dtype=torch.float32):
     """(dx [N, D], dt [N], dscale [N]): the row-major half of the backward."""
     if xn.device.type == "cpu":
         return fused_ce_bwd_dx_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
-                                     g_t, mode, clamp_eps)
+                                     g_t, mode, clamp_eps, mm_dtype)
     return _bwd_dx("fused_ce_bwd_dx", 1, xn, wn, (), labels, t, scale, ab,
-                   lse, g_lse, g_t, mode, clamp_eps)
+                   lse, g_lse, g_t, mode, clamp_eps, mm_dtype)
 
 
 def fused_ce_bwd_dw(xn, wn, labels, t, scale, ab, lse, g_lse, mode: int,
-                    clamp_eps: Optional[float] = None):
+                    clamp_eps: Optional[float] = None,
+                    mm_dtype=torch.float32):
     """dw [D, C]: the class-major half of the backward."""
     if xn.device.type == "cpu":
         return fused_ce_bwd_dw_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
-                                     mode, clamp_eps)
+                                     mode, clamp_eps, mm_dtype)
     return _bwd_dw("fused_ce_bwd_dw", 2, xn, wn, (), labels, t, scale, ab,
-                   lse, g_lse, mode, clamp_eps)
+                   lse, g_lse, mode, clamp_eps, mm_dtype)
 
 
 def fused_ce_fwd_mem(xn, wn, memn, lam, labels, t, tcos, scale, ab,
-                     mode: int, clamp_eps: Optional[float] = None
-                     ) -> FusedHeadOut:
+                     mode: int, clamp_eps: Optional[float] = None,
+                     mm_dtype=torch.float32) -> FusedHeadOut:
     """Memory-blended forward statistics (lse, target_logit, higher)."""
     if xn.device.type == "cpu":
         return fused_margin_ce_mem_plain(xn, wn, memn, lam, labels, t, tcos,
-                                         scale, ab, mode, clamp_eps)
+                                         scale, ab, mode, clamp_eps, mm_dtype)
     return _fwd("fused_ce_fwd_mem", 3, xn, wn, (memn, lam), labels, t, tcos,
-                scale, ab, mode, clamp_eps)
+                scale, ab, mode, clamp_eps, mm_dtype)
 
 
 def fused_ce_bwd_dx_mem(xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse,
-                        g_t, mode: int, clamp_eps: Optional[float] = None):
+                        g_t, mode: int, clamp_eps: Optional[float] = None,
+                        mm_dtype=torch.float32):
     """(dx, dt, dscale) of the memory-blended head."""
     if xn.device.type == "cpu":
         return fused_ce_bwd_dx_mem_plain(xn, wn, memn, lam, labels, t, scale,
-                                         ab, lse, g_lse, g_t, mode, clamp_eps)
+                                         ab, lse, g_lse, g_t, mode, clamp_eps,
+                                         mm_dtype)
     return _bwd_dx("fused_ce_bwd_dx_mem", 4, xn, wn, (memn, lam), labels, t,
-                   scale, ab, lse, g_lse, g_t, mode, clamp_eps)
+                   scale, ab, lse, g_lse, g_t, mode, clamp_eps, mm_dtype)
 
 
 def fused_ce_bwd_dw_mem(xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse,
-                        mode: int, clamp_eps: Optional[float] = None):
+                        mode: int, clamp_eps: Optional[float] = None,
+                        mm_dtype=torch.float32):
     """dw [D, C] of the memory-blended head (the (1 - lam) share)."""
     if xn.device.type == "cpu":
         return fused_ce_bwd_dw_mem_plain(xn, wn, memn, lam, labels, t, scale,
-                                         ab, lse, g_lse, mode, clamp_eps)
+                                         ab, lse, g_lse, mode, clamp_eps,
+                                         mm_dtype)
     return _bwd_dw("fused_ce_bwd_dw_mem", 5, xn, wn, (memn, lam), labels, t,
-                   scale, ab, lse, g_lse, mode, clamp_eps)
+                   scale, ab, lse, g_lse, mode, clamp_eps, mm_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -400,11 +462,12 @@ class _FusedMarginCE(torch.autograd.Function):
     reaches a / b even where a depends on tcos."""
 
     @staticmethod
-    def forward(ctx, xn, wn, labels, t, tcos, scale, ab, mode, clamp_eps):
+    def forward(ctx, xn, wn, labels, t, tcos, scale, ab, mode, clamp_eps,
+                mm_dtype):
         out = fused_ce_fwd(xn, wn, labels, t, tcos, scale, ab, mode,
-                           clamp_eps)
+                           clamp_eps, mm_dtype)
         ctx.save_for_backward(xn, wn, labels, t, scale, ab, out.lse)
-        ctx.mode, ctx.clamp_eps = mode, clamp_eps
+        ctx.mode, ctx.clamp_eps, ctx.mm_dtype = mode, clamp_eps, mm_dtype
         ctx.mark_non_differentiable(out.higher)
         return out.lse, out.target_logit, out.higher
 
@@ -413,14 +476,16 @@ class _FusedMarginCE(torch.autograd.Function):
         xn, wn, labels, t, scale, ab, lse = ctx.saved_tensors
         g_lse, g_t = _row_grads(g_lse, g_t, lse)
         dx, dt, dscale = fused_ce_bwd_dx(xn, wn, labels, t, scale, ab, lse,
-                                         g_lse, g_t, ctx.mode, ctx.clamp_eps)
+                                         g_lse, g_t, ctx.mode, ctx.clamp_eps,
+                                         ctx.mm_dtype)
         dw = fused_ce_bwd_dw(xn, wn, labels, t, scale, ab, lse, g_lse,
-                             ctx.mode, ctx.clamp_eps)
-        return dx, dw, None, dt, None, dscale, None, None, None
+                             ctx.mode, ctx.clamp_eps, ctx.mm_dtype)
+        return dx, dw, None, dt, None, dscale, None, None, None, None
 
 
 def fused_margin_ce(xn, wn, labels, t, tcos, scale, ab, mode: int,
-                    clamp_eps: Optional[float] = None) -> FusedHeadOut:
+                    clamp_eps: Optional[float] = None,
+                    mm_dtype=torch.float32) -> FusedHeadOut:
     """Fused margin + cross-entropy statistics over all classes.
 
     xn [N, D] row-normalised embeddings; wn [D, C] column-normalised class
@@ -428,11 +493,15 @@ def fused_margin_ce(xn, wn, labels, t, tcos, scale, ab, mode: int,
     t [N] target value before scaling; tcos [N] target cosine before the
     margin; scale [N]; ab [N, 2] mode parameters. Returns
     (lse [N], target_logit [N], higher [N]), all fp32.
+
+    mm_dtype=torch.bfloat16 runs the products on bf16 operands with fp32
+    accumulation (the bf16 tensor-core kernels on the card): about 1e-2 of
+    logit error. The fp32 default keeps parity with the fp32 reference.
     """
     f32 = lambda x: x.to(torch.float32).contiguous()
     lse, tlogit, higher = _FusedMarginCE.apply(
         f32(xn), f32(wn), labels.to(torch.int32).contiguous(), f32(t),
-        f32(tcos), f32(scale), f32(ab), mode, clamp_eps)
+        f32(tcos), f32(scale), f32(ab), mode, clamp_eps, mm_dtype)
     return FusedHeadOut(lse, tlogit, higher)
 
 
@@ -443,12 +512,12 @@ class _FusedMarginCEMem(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
-                clamp_eps):
+                clamp_eps, mm_dtype):
         out = fused_ce_fwd_mem(xn, wn, memn, lam, labels, t, tcos, scale, ab,
-                               mode, clamp_eps)
+                               mode, clamp_eps, mm_dtype)
         ctx.save_for_backward(xn, wn, memn, lam, labels, t, scale, ab,
                               out.lse)
-        ctx.mode, ctx.clamp_eps = mode, clamp_eps
+        ctx.mode, ctx.clamp_eps, ctx.mm_dtype = mode, clamp_eps, mm_dtype
         ctx.mark_non_differentiable(out.higher)
         return out.lse, out.target_logit, out.higher
 
@@ -458,25 +527,27 @@ class _FusedMarginCEMem(torch.autograd.Function):
         g_lse, g_t = _row_grads(g_lse, g_t, lse)
         dx, dt, dscale = fused_ce_bwd_dx_mem(xn, wn, memn, lam, labels, t,
                                              scale, ab, lse, g_lse, g_t,
-                                             ctx.mode, ctx.clamp_eps)
+                                             ctx.mode, ctx.clamp_eps,
+                                             ctx.mm_dtype)
         dw = fused_ce_bwd_dw_mem(xn, wn, memn, lam, labels, t, scale, ab, lse,
-                                 g_lse, ctx.mode, ctx.clamp_eps)
-        return (dx, dw, None, None, None, dt, None, dscale, None, None, None)
+                                 g_lse, ctx.mode, ctx.clamp_eps, ctx.mm_dtype)
+        return (dx, dw, None, None, None, dt, None, dscale, None, None, None,
+                None)
 
 
 def fused_margin_ce_mem(xn, wn, memn, lam, labels, t, tcos, scale, ab,
-                        mode: int, clamp_eps: Optional[float] = None
-                        ) -> FusedHeadOut:
+                        mode: int, clamp_eps: Optional[float] = None,
+                        mm_dtype=torch.float32) -> FusedHeadOut:
     """Fused margin + cross-entropy with a per-class memory blend on every
     column (the target column's logit is scale * t whatever its blend).
 
     memn [D, C] column-normalised memory prototypes; lam [C] blend weights
-    (0 leaves a class unblended). The other arguments and the result are
-    those of `fused_margin_ce`.
+    (0 leaves a class unblended). The other arguments, mm_dtype among them,
+    and the result are those of `fused_margin_ce`.
     """
     f32 = lambda x: x.to(torch.float32).contiguous()
     lse, tlogit, higher = _FusedMarginCEMem.apply(
         f32(xn), f32(wn), f32(memn), f32(lam),
         labels.to(torch.int32).contiguous(), f32(t), f32(tcos), f32(scale),
-        f32(ab), mode, clamp_eps)
+        f32(ab), mode, clamp_eps, mm_dtype)
     return FusedHeadOut(lse, tlogit, higher)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -18,3 +19,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device available; pass device='cpu' (--device cpu) to "
             "run on the CPU")
     return dev
+
+
+def nvidia_smi() -> str:
+    """The first card's `name, power.limit` as nvidia-smi prints them: a
+    card may be set below its maximum power and then runs slower, so every
+    time measured on it is reported beside this line."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout
+    return out.strip().splitlines()[0]

@@ -1,19 +1,26 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: the three margin + CE kernels and their memory-blended (_mem)
-variants. Marked `cuda`: they skip where there is no CUDA device. On a machine
-with a card (the JAX package need not be installed there):
+card: the three margin + CE kernels, their memory-blended (_mem) variants,
+the bf16 tensor-core versions of all six (_bf16), and the implicit-GEMM
+3x3 conv. Marked `cuda`: they skip where there is no CUDA device. On a
+machine with a card (the JAX package need not be installed there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: kernel and plain version both run IEEE fp32 on the card and sum
 in different orders: statistics rtol = atol = 1e-5; gradients rtol 1e-3 with
 an atol of 1e-5 x the largest value; `higher` may flip by 1 where a cosine
-lies within rounding of the target's.
+lies within rounding of the target's. The bf16 gradients add one bf16 ulp
+(2^-7 of it) of the largest term of each output element: dcos is computed
+in fp32 in different orders, and one within that difference of a bf16
+rounding boundary rounds one way in the kernel and the other in the plain
+version. The conv: fp32 at rtol = atol = 1e-5, bf16 at 2e-2 (outputs
+rounded to bf16 one ulp apart), as tests/test_conv3x3.py.
 """
 
 import pytest
 import torch
 
+from face_recognition_models_tpu_torch.ops import conv3x3
 from face_recognition_models_tpu_torch.ops import fused_head as fh
 from face_recognition_models_tpu_torch.ops.normalize import l2_normalize
 
@@ -23,11 +30,13 @@ MODES = [(fh.MODE_IDENTITY, None), (fh.MODE_MV, 1e-7),
          (fh.MODE_CURRICULAR, 0.0)]
 PLAIN = ("fused_ce_fwd", "fused_ce_bwd_dx", "fused_ce_bwd_dw")
 MEM = ("fused_ce_fwd_mem", "fused_ce_bwd_dx_mem", "fused_ce_bwd_dw_mem")
+BF16 = tuple(k + "_bf16" for k in PLAIN + MEM)
+BF16_ULP = 2.0 ** -7
 
 
 def _counts(launched):
     """The launch counters expected after one launch of each of `launched`."""
-    return {k: int(k in launched) for k in PLAIN + MEM}
+    return {k: int(k in launched) for k in PLAIN + MEM + BF16}
 
 
 @pytest.fixture()
@@ -184,3 +193,115 @@ def test_wrappers_reject_bad_inputs(cuda):
             torch.zeros(8, d, device=cuda), torch.zeros(d, 50, device=cuda),
             torch.zeros(d, 50, device=cuda), lam, labels, t, scale, ab, t, t,
             0)
+
+
+def _bf16_grad_close(got, want, term):
+    """_grad_close plus one bf16 ulp of `term`, each output element's
+    largest product term (see the module docstring)."""
+    atol = 1e-5 * float(want.abs().max()) + BF16_ULP * term
+    bad = (got - want).abs() > 1e-3 * want.abs() + atol
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} elements out of tolerance, max abs err "
+        f"{float((got - want).abs().max()):.3e}")
+
+
+@pytest.mark.parametrize("n,d,c", [(24, 64, 100), (40, 72, 300),
+                                   (512, 512, 1000)])
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_bf16_kernels_match_plain(cuda, n, d, c, mode, clamp_eps, mem):
+    xn, wn, labels, t, tcos, scale, ab = _inputs(n, d, c, mode, n + mode,
+                                                 cuda)
+    extra = _mem_inputs(d, c, n + 7 * mode, cuda) if mem else ()
+    sfx = "_mem" if mem else ""
+    bf = dict(mm_dtype=torch.bfloat16)
+    fh.reset_launch_counts()
+    fwd = (xn, wn, *extra, labels, t, tcos, scale, ab, mode, clamp_eps)
+    out = getattr(fh, "fused_ce_fwd" + sfx)(*fwd, **bf)
+    ref = getattr(fh, f"fused_margin_ce{sfx}_plain")(*fwd, **bf)
+    torch.testing.assert_close(out.lse, ref.lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.target_logit, ref.target_logit,
+                               rtol=1e-5, atol=1e-5)
+    assert float((out.higher - ref.higher).abs().max()) <= 1
+    g_lse = torch.full_like(t, 1.0 / n)
+    g_t = torch.full_like(t, -1.0 / n)
+    args = (xn, wn, *extra, labels, t, scale, ab, ref.lse, g_lse)
+    dcos, _, _ = fh._dcos_plain(xn, wn, labels, t, scale, ab, ref.lse, g_lse,
+                                mode, clamp_eps, *(extra or (None, None)),
+                                torch.bfloat16)
+    wmax = torch.stack([w.abs().amax(1) for w in (wn, *extra[:1])]).amax(0)
+    got = getattr(fh, "fused_ce_bwd_dx" + sfx)(*args, g_t, mode, clamp_eps,
+                                               **bf)
+    want = getattr(fh, f"fused_ce_bwd_dx{sfx}_plain")(*args, g_t, mode,
+                                                      clamp_eps, **bf)
+    _bf16_grad_close(got[0], want[0],
+                     dcos.abs().amax(1)[:, None] * wmax[None, :])
+    for a, b in zip(got[1:], want[1:]):
+        _grad_close(a, b)
+    dw = getattr(fh, "fused_ce_bwd_dw" + sfx)(*args, mode, clamp_eps, **bf)
+    _bf16_grad_close(dw, getattr(fh, f"fused_ce_bwd_dw{sfx}_plain")(
+        *args, mode, clamp_eps, **bf),
+        xn.abs().amax(0)[:, None] * dcos.abs().amax(0)[None, :])
+    torch.cuda.synchronize()
+    if mem:
+        assert float(dw[:, extra[1] == 1].abs().max()) == 0.0
+    assert fh.launch_counts == _counts(
+        [k + sfx + "_bf16" for k in ("fused_ce_fwd", "fused_ce_bwd_dx",
+                                     "fused_ce_bwd_dw")])
+
+
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_bf16_autograd_runs_the_kernels(cuda, mem):
+    xn, wn, labels, t, tcos, scale, ab = _inputs(64, 128, 300, 0, 8, cuda)
+    extra = _mem_inputs(128, 300, 8, cuda) if mem else ()
+    leaves = [x.clone().requires_grad_(True) for x in (xn, wn, t, scale)]
+    fh.reset_launch_counts()
+    fn = fh.fused_margin_ce_mem if mem else fh.fused_margin_ce
+    out = fn(leaves[0], leaves[1], *extra, labels, leaves[2], tcos,
+             leaves[3], ab, fh.MODE_IDENTITY, 1e-7, mm_dtype=torch.bfloat16)
+    (out.lse - out.target_logit).mean().backward()
+    sfx = "_mem" if mem else ""
+    assert fh.launch_counts == _counts(
+        [k + sfx + "_bf16" for k in ("fused_ce_fwd", "fused_ce_bwd_dx",
+                                     "fused_ce_bwd_dw")])
+    assert all(bool(torch.isfinite(leaf.grad).all()) for leaf in leaves)
+
+
+def test_bf16_wrappers_reject_bad_inputs(cuda):
+    xn, wn, labels, t, tcos, scale, ab = _inputs(8, 64, 50, 0, 1, cuda)
+    with pytest.raises(ValueError, match="mm_dtype"):
+        fh.fused_ce_fwd(xn, wn, labels, t, tcos, scale, ab, 0,
+                        mm_dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32"):
+        fh.fused_ce_fwd(xn.bfloat16(), wn, labels, t, tcos, scale, ab, 0,
+                        mm_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "n,h,w,c,co,dtype",
+    [(4, 7, 7, 16, 24, torch.float32), (4, 14, 14, 8, 8, torch.float32),
+     (2, 5, 9, 4, 12, torch.float32), (6, 4, 4, 8, 8, torch.float32),
+     (2, 7, 7, 32, 16, torch.bfloat16), (32, 14, 14, 64, 96, torch.bfloat16),
+     (16, 7, 7, 72, 40, torch.float32)])
+def test_conv3x3_matches_plain(cuda, n, h, w, c, co, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n + c)
+    x = torch.randn(n, h, w, c, device=cuda, generator=g).to(dtype)
+    k = (0.1 * torch.randn(3, 3, c, co, device=cuda, generator=g)).to(dtype)
+    conv3x3.reset_launch_counts()
+    got = conv3x3.conv3x3_same(x, k, block_n=n // 2 if n % 2 == 0 else n)
+    want = conv3x3.conv3x3_same_plain(x, k)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n, h, w, co)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert conv3x3.launch_counts == {"conv3x3_same": 1}
+
+
+def test_conv3x3_rejects_bad_inputs(cuda):
+    x = torch.zeros(4, 7, 7, 8, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        conv3x3.conv3x3_same(x, torch.zeros(3, 3, 8, 8, device=cuda),
+                             block_n=4)
+    with pytest.raises(ValueError, match="block_n"):
+        conv3x3.conv3x3_same(x.float(), torch.zeros(3, 3, 8, 8, device=cuda),
+                             block_n=3)
