@@ -14,11 +14,17 @@ and no result line:
              three margin modes with an out-of-range label, and the backward
              at N=4,096; the memory-blended (_mem) kernels at N=24 / C=100
              with lam mixing 0, 0.15 and 1, and at the training shape with
-             lam and memory from a VPL state after one step. The same for
+             lam and memory from a VPL state after one step, and with a dense
+             lam (0.15 on every class, as after ~100 VPL steps). The same for
              the bf16 tensor-core kernels (_bf16, mm_dtype=torch.bfloat16),
-             plus N=40 / D=72 / C=300 (D not a multiple of 16). Times (CUDA
-             events, after warm-up) of the kernel, its plain version and the
-             eager library head, beside the bound.
+             plus N=40 / D=72 / C=300 (D not a multiple of 16). The split-C
+             fp32 fwd and bwd_dx also at shapes of several class ranges (N=1,
+             N not a multiple of 32, a ragged last range, D=72, a last range
+             holding only a target column): each range's partials and the
+             combine kernels against their plain versions, and two launches
+             of every fp32 entry bitwise equal. Times (CUDA events, after
+             warm-up) of the kernel, its plain version and the eager library
+             head, beside the bound.
 4. conv    - the implicit-GEMM 3x3 conv against its plain version at small
              fp32 and bf16 shapes, then at the ResNet-50 stage shapes of its
              benchmark (b512 bf16: 28x28x128, 14x14x256, 7x7x512), timed
@@ -171,8 +177,9 @@ def cuda_ms(fn, warmup=3, iters=20):
 def make_inputs(n, d, c, mode, seed, oor_label=False, mem=None):
     """Row-normalised xn, column-normalised wn and ArcFace-like row scalars
     on the card, from a seeded generator. mem="mixed" adds a random memn and
-    lam mixing 0, 0.15 and 1; mem="vpl" adds the memn and lam of a
-    VPL-ArcFace state after one step on random features."""
+    lam mixing 0, 0.15 and 1; mem="dense" a random memn and lam = 0.15 on
+    every class (VPL after ~100 steps at b512); mem="vpl" the memn and lam
+    of a VPL-ArcFace state after one step on random features."""
     import torch
 
     from face_recognition_models_tpu_torch.ops import fused_head as fh
@@ -197,11 +204,12 @@ def make_inputs(n, d, c, mode, seed, oor_label=False, mem=None):
     g_t = torch.full((n,), -1.0 / n, device=dev)
     x = dict(xn=xn, wn=wn, labels=labels, t=t, tcos=tcos, scale=scale,
              ab=ab.contiguous(), g_lse=g_lse, g_t=g_t)
-    if mem == "mixed":
+    if mem in ("mixed", "dense"):
         x["memn"] = l2_normalize(torch.randn(d, c, device=dev, generator=g),
                                  dim=0)
         pick = torch.randint(0, 3, (c,), device=dev, generator=g)
-        x["lam"] = torch.tensor([0.0, 0.15, 1.0], device=dev)[pick]
+        x["lam"] = (torch.tensor([0.0, 0.15, 1.0], device=dev)[pick]
+                    if mem == "mixed" else torch.full((c,), 0.15, device=dev))
     elif mem == "vpl":
         from face_recognition_models_tpu_torch import config as cfg_lib
         from face_recognition_models_tpu_torch.heads import get_head
@@ -279,14 +287,26 @@ def past_fp32_tol(got, want):
                 + 1e-5 * float(want.abs().max())).sum())
 
 
+def same(name, *pairs):
+    """Two launches on the same inputs must give bitwise-equal outputs."""
+    import torch
+
+    for a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two launches differ")
+
+
 def check_case(x, mode, clamp_eps, bf16=False):
     """Each kernel against its plain version on inputs `x` (the _mem family
     when `x` holds memn, the bf16 products with `bf16`); returns (max abs
     err per kernel, number of rows where `higher` differs, and with `bf16`
-    {"dx": n, "dw": n} elements that needed the ulp allowance)."""
+    {"dx": n, "dw": n} elements that needed the ulp allowance). The split-C
+    fp32 fwd and bwd_dx run twice and must agree bitwise."""
     names, fns = kernel_fns("memn" in x, bf16)
     fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
     out = fns[0][0](*fwd_args)
+    if not bf16:
+        same(names[0], *zip(out, fns[0][0](*fwd_args)))
     ref = fns[0][1](*fwd_args)
     errs = {names[0]: max(
         close("lse", out.lse, ref.lse, **TOL_STATS),
@@ -297,6 +317,8 @@ def check_case(x, mode, clamp_eps, bf16=False):
     dx_term, dw_term = (bf16_terms(x, mode, clamp_eps, ref.lse) if bf16
                         else (None, None))
     dx, dt, dscale = fns[1][0](*dx_args)
+    if not bf16:
+        same(names[1], *zip((dx, dt, dscale), fns[1][0](*dx_args)))
     rdx, rdt, rdscale = fns[1][1](*dx_args)
     errs[names[1]] = max(close_grad("dx", dx, rdx, dx_term),
                          close_grad("dt", dt, rdt),
@@ -311,6 +333,63 @@ def check_case(x, mode, clamp_eps, bf16=False):
         if float(dw[:, x["lam"] == 1].abs().max()) != 0.0:
             raise AssertionError("dw is not 0 in lam = 1 columns")
     return errs, flips, ulp
+
+
+def check_split(x, mode, clamp_eps):
+    """The split-C fp32 fwd and bwd_dx (the _mem ones when `x` holds memn)
+    on inputs `x`: each class range's partials from the kernel's workspace
+    against fused_ce_*_partials_plain, and the combine kernels, on the plain
+    partials, against their plain versions. Returns ({check: max abs err},
+    {"fwd": ranges, "bwd_dx": ranges})."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+
+    mem = ((x["memn"], x["lam"]) if "memn" in x else ())
+    kw = dict(memn=x["memn"], lam=x["lam"]) if mem else {}
+    sfx, which = ("_mem", 3) if mem else ("", 0)
+    (n, d), c = x["xn"].shape, x["wn"].shape[1]
+    splits, cols = fh.split_plan(n, c)
+    plan = dict(splits=splits, range_cols=cols)
+    ranges = {"fwd": splits}
+    fwd = (x["labels"], x["t"], x["tcos"], x["scale"], x["ab"], mode,
+           clamp_eps)
+    ws = []
+    fh._fwd("fused_ce_fwd" + sfx, which, x["xn"], x["wn"], mem, *fwd,
+            torch.float32, ws)
+    got = ws[0].view(splits, 3, n)
+    want = fh.fused_ce_fwd_partials_plain(x["xn"], x["wn"], *fwd, **plan,
+                                          **kw)
+    errs = {"fwd_partials": close("m, l", got[:, :2], want[:, :2],
+                                  **TOL_STATS)}
+    close_higher("range higher", got[:, 2], want[:, 2])
+    comb = fh.fused_ce_fwd_combine(want, x["t"], x["scale"])
+    ref = fh.fused_ce_fwd_combine_plain(want, x["t"], x["scale"])
+    errs["fwd_combine"] = max(
+        close("combined lse", comb.lse, ref.lse, **TOL_STATS),
+        close("combined target_logit", comb.target_logit, ref.target_logit,
+              **TOL_STATS))
+    close_higher("combined higher", comb.higher, ref.higher)
+    bwd = (x["labels"], x["t"], x["scale"], x["ab"], ref.lse, x["g_lse"])
+    splits, cols = fh.split_plan(n, c, dx=True)
+    plan = dict(splits=splits, range_cols=cols)
+    ranges["bwd_dx"] = splits
+    ws = []
+    fh._bwd_dx("fused_ce_bwd_dx" + sfx, which + 1, x["xn"], x["wn"], mem,
+               *bwd, x["g_t"], mode, clamp_eps, torch.float32, ws)
+    got_dx, got_rows = fh.dx_workspace_views(ws[0], splits, n, d)
+    want_dx, want_rows = fh.fused_ce_bwd_dx_partials_plain(
+        x["xn"], x["wn"], *bwd, mode, clamp_eps, **plan, **kw)
+    errs["dx_partials"] = max(close_grad("dx partials", got_dx, want_dx),
+                              close_grad("dt, dscale partials", got_rows,
+                                         want_rows))
+    comb = fh.fused_ce_bwd_dx_combine(want_dx, want_rows, x["t"],
+                                      x["scale"], x["g_t"])
+    ref = fh.fused_ce_bwd_dx_combine_plain(want_dx, want_rows, x["t"],
+                                           x["scale"], x["g_t"])
+    errs["dx_combine"] = max(close_grad("combined " + k, a, b) for k, a, b
+                             in zip(("dx", "dt", "dscale"), comb, ref))
+    return errs, ranges
 
 
 def library_head_ms(x, clamp_eps=None, bf16=False):
@@ -443,14 +522,35 @@ def phase_kernels():
                       "case": f"N40_D72_C300_mode1{msfx}{sfx}",
                       "max_abs_err": errs, "higher_flips": flips,
                       "bf16_ulp_elems": ulp, "tolerance": tol, "ok": True})
+    # the split-C fp32 fwd and bwd_dx over several class ranges: N = 1, N
+    # not a multiple of the 32-row tile, ragged last ranges, D = 72, and a
+    # last range of one column that is row 0's target
+    for mem in (None, "mixed"):
+        msfx = "_mem" if mem else ""
+        for n, d, c, last in ((1, 64, 300, False), (40, 72, 300, False),
+                              (70, 512, 2000, False), (1, 64, 257, True)):
+            x = make_inputs(n, d, c, fh.MODE_MV, seed=n + c, mem=mem)
+            if last:
+                x["labels"][0] = c - 1
+            errs, flips, _ = check_case(x, fh.MODE_MV, 1e-7)
+            split, splits = check_split(x, fh.MODE_MV, 1e-7)
+            emit({"phase": "kernels",
+                  "case": f"N{n}_D{d}_C{c}_mode1{msfx}_split"
+                          + ("_last_target" if last else ""),
+                  "splits": splits, "max_abs_err": {**errs, **split},
+                  "higher_flips": flips, "bitwise_repeat": True,
+                  "tolerance": TOLERANCE, "ok": True})
     # backward where the JAX package switches to its two-kernel form (K3)
     x = make_inputs(4096, D_MAIN, C_MAIN, fh.MODE_IDENTITY, seed=11)
     errs, flips, _ = check_case(x, fh.MODE_IDENTITY, None)
+    split, splits = check_split(x, fh.MODE_IDENTITY, None)
     ms = time_family(x, fh.MODE_IDENTITY, None)
     _, lib_bwd = library_head_ms(x)
     k3 = bound_rows(x, PLAIN_KERNELS, errs, ms, (None, lib_bwd, lib_bwd))
     emit({"phase": "kernels", "case": "N4096_D512_C10575_identity",
-          "max_abs_err": errs, "higher_flips": flips, "tolerance": TOLERANCE,
+          "splits": splits, "max_abs_err": {**errs, **split},
+          "higher_flips": flips, "bitwise_repeat": True,
+          "tolerance": TOLERANCE,
           "kernel_ms": {r["name"]: r["ms"] for r in k3[1:]},
           "plain_ms": {r["name"]: r["plain_ms"] for r in k3[1:]},
           "library_ms": {"head_bwd": lib_bwd},
@@ -461,24 +561,33 @@ def phase_kernels():
     # the training shape, with times: ArcFace's kernels, then the _mem
     # kernels with the memory and lam of a VPL state after one step; each
     # with fp32 and with bf16 products (the library head then with bf16
-    # torch.matmul, the bound at the bf16 tensor-core peak)
+    # torch.matmul, the bound at the bf16 tensor-core peak); then the fp32
+    # _mem kernels at a dense lam, the work of a VPL run past ~100 steps
     rows = []
     for mem, mode, eps, case in (
             (None, fh.MODE_IDENTITY, None, "N512_D512_C10575_identity"),
-            ("vpl", fh.MODE_IDENTITY, 1e-7, "N512_D512_C10575_vpl_mem")):
+            ("vpl", fh.MODE_IDENTITY, 1e-7, "N512_D512_C10575_vpl_mem"),
+            ("dense", fh.MODE_IDENTITY, 1e-7,
+             "N512_D512_C10575_vpl_mem_dense")):
         x = make_inputs(N_MAIN, D_MAIN, C_MAIN, mode, seed=7, mem=mem)
-        for bf16 in (False, True):
+        for bf16 in ((False,) if mem == "dense" else (False, True)):
             names, _ = kernel_fns(mem, bf16)
             errs, flips, ulp = check_case(x, mode, eps, bf16)
+            split = ({} if bf16 else
+                     dict(zip(("split", "splits"), check_split(x, mode, eps))))
             ms = time_family(x, mode, eps, bf16)
             lib_fwd, lib_bwd = library_head_ms(x, eps, bf16)
             fam = bound_rows(x, names, errs, ms, (lib_fwd, lib_bwd, lib_bwd),
                              PEAK_BF16_TC_FLOPS if bf16 else PEAK_FP32_FLOPS)
             extra = ({"active_classes": int((x["lam"] > 0).sum())} if mem
                      else {})
+            if split:
+                extra["splits"] = split["splits"]
+                errs = {**errs, **split["split"]}
             emit({"phase": "kernels", "case": case + ("_bf16" if bf16
                                                       else ""), **extra,
                   "max_abs_err": errs, "higher_flips": flips,
+                  **({} if bf16 else {"bitwise_repeat": True}),
                   **({"bf16_ulp_elems": ulp} if bf16 else {}),
                   "tolerance": TOLERANCE_BF16 if bf16 else TOLERANCE,
                   "kernel_ms": {r["name"]: r["ms"] for r in fam},
@@ -486,7 +595,8 @@ def phase_kernels():
                   "library_ms": {"head_fwd": lib_fwd, "head_bwd": lib_bwd},
                   "bound_ms": {r["name"]: r["bound_ms"] for r in fam},
                   "ok": True})
-            rows += fam
+            if mem != "dense":
+                rows += fam
         del x
         torch.cuda.empty_cache()
     return rows

@@ -34,39 +34,56 @@
 // What bounds them: at the training shape (N=512, D=512, C=10,575) one
 // product P = 2*N*D*C is 5.5 GFLOP (0.083 ms at 67 TFLOP/s fp32 outside the
 // tensor cores) against ~22 MB of wn (0.007 ms at 3.35 TB/s), so each kernel
-// is bound by fp32 operations, not by bytes. fwd needs P, bwd_dx and bwd_dw
-// 2P each (cos again, then their own product). With the blend each product
-// runs over wn and over memn: fwd_mem 2P (0.166 ms), bwd_dx_mem 4P
-// (0.331 ms), bwd_dw_mem 3P (0.248 ms), against 43 MB of wn + memn. The
-// kernels do this dense work; a column with lam = 0 needs no memory product
-// and one with lam = 1 no weight product, so with VPL's few active classes
-// the work the data needs is close to the unblended kernels' (chip_smoke.py
-// counts it so). The products run in IEEE fp32 on the CUDA cores, never
-// TF32: the acos-based margins downstream need full fp32 cosines, as the JAX
-// package runs this math at Precision.HIGHEST.
+// is bound by fp32 operations, not by bytes. fwd needs P (0.083 ms), bwd_dx
+// and bwd_dw 2P each (cos again, then their own product; 0.166 ms). With the
+// blend each product runs over wn and over memn: fwd_mem 2P (0.166 ms),
+// bwd_dx_mem 4P (0.331 ms), bwd_dw_mem 3P (0.248 ms), against 43 MB of wn +
+// memn. These are the dense counts: VPL's lam is 0.15 on ~99% of the classes
+// after ~100 steps at b512, and the kernels do the dense work whatever lam
+// holds. The products run in IEEE fp32 on the CUDA cores, never TF32: the
+// acos-based margins downstream need full fp32 cosines, as the JAX package
+// runs this math at Precision.HIGHEST.
 //
-// Design. On the TPU the class axis is a sequential grid axis and per-row
-// state (running max, sum, rank count; the dx accumulator) sits in VMEM
-// across it. Here blocks run in parallel and in no order, so:
-//   - fwd and bwd_dx give each block a tile of kRows rows and loop over class
-//     tiles inside the block; per-row state lives in registers;
-//   - the backward is two launches instead of K2's single sweep: bwd_dx
-//     reduces over C (row tiles), bwd_dw reduces over N (class tiles). A
-//     one-launch backward would need atomics for dx or dw, whose summation
-//     order changes from run to run. The price is a fourth product: cos is
-//     recomputed in both backward kernels.
-// Each product is a register-tiled SIMT loop over chunks of W staged in
-// shared memory. This is the simple, right form; tensor-core (3xTF32 or
-// split-bf16) variants and splitting C across blocks at small N are later
-// work. The memory blend is a compile-time switch (template <bool kMem>) on
-// the kernel bodies: the kMem = false instantiations are the ArcFace kernels
-// unchanged (same code, registers and launch bounds), and kMem = true stages
-// memn beside wn in the same loops.
+// fp32 forward and dx (fused_ce_fwd(_mem), fused_ce_bwd_dx(_mem)): split-C.
+// On the TPU the class axis is a sequential grid axis and per-row state
+// (running max, sum, rank count; the dx accumulator) sits in VMEM across it.
+// A block of 16 rows sweeping all of C would leave 100 of the 132 SMs idle
+// at N=512. Here:
+//   - the grid is row tiles (64 rows in fwd, 32 in bwd_dx) x class ranges;
+//     the number of ranges is chosen at launch from N, C and the SM count so
+//     that at least two blocks run per SM where C allows (range_cols); each
+//     block sweeps its range in 256-wide class tiles with the online
+//     logsumexp (fwd) or the dx accumulation (bwd_dx);
+//   - each range writes partials to a workspace the wrapper allocates (fwd:
+//     m, l, higher per row, O(S*N); bwd_dx: dx, dt, dscale per row, O(S*N*D))
+//     and a second launch from the same entry combines them in a fixed order
+//     (lse = M + log sum_s l_s e^(m_s - M), the rest summed): no atomics, so
+//     two launches on the same inputs give bitwise-equal results, and no
+//     [N, C] tensor reaches device memory. An empty range carries m = -1e30,
+//     l = 0, which combines to nothing;
+//   - the products are register-tiled IEEE fp32 FMA on the CUDA cores: a
+//     thread owns 8 rows x 8 classes of the fwd cosine tile (4 x 8 in
+//     bwd_dx), read as float4s from shared memory, 4 shared loads per 64
+//     FMAs (3 per 32); with the blend the memn product shares the xn
+//     operand. The epilogue runs on the accumulators in registers. bwd_dx
+//     keeps its dx accumulator (8 rows x 8 columns of D a thread) in
+//     registers across its whole range; dcos goes through a [256][32] shared
+//     tile between the two products, which with the blend run as one
+//     product over a doubled depth, [dcos (1 - lam) | dcos lam] x [wn; memn];
+//   - operands are staged with cp.async into a 3-stage ring, so the copies of
+//     stage k + 2 run under the products of stage k. The copies are 4 bytes
+//     each (cp.async.ca): C = 10,575 is odd, so rows of wn and memn are only
+//     4-byte aligned, and 4-byte copies also transpose xn into [k][row] on
+//     the way in. The same ring serves both products of bwd_dx: the cosine
+//     stages (16 deep in D) and the dx stages (8 classes, all of D).
+// bwd_dw (fused_ce_bwd_dw(_mem)) keeps its first form: a block per 32 classes
+// looping over row chunks, its own reduction over N, no atomics. The
+// backward is two launches instead of K2's single sweep (dx reduces over C,
+// dw over N); the price is a fourth product (cos recomputed in each).
 //
-// Shared memory per block at D = 512 (the limit is 232,448 B):
-//   fwd 49,280 B; fwd_mem 65,792 B (a second [kChunk][kCols + 1] chunk);
-//   bwd_dx 90,240 B; bwd_dx_mem 114,944 B (a memn chunk and a dcos * lam
-//   tile beside the dcos * (1 - lam) one);
+// Shared memory per block (the limit is 232,448 B): fwd 64,768 B, fwd_mem
+// 113,920 B, bwd_dx 90,112 B, bwd_dx_mem 172,032 B at any D up to 512 (the
+// widest bwd_dx takes: 8 warps x 64 columns of dx). At D = 512:
 //   bwd_dw 165,888 B; bwd_dw_mem 231,424 B: the memn tile [512][32] stays
 //   resident beside the wn tile (65,536 B more) and lam of the lane's column
 //   sits in a register, leaving 1,024 B. A width above 512 is refused by
@@ -79,9 +96,9 @@
 // bf16 products (K5: the mm_dtype=jnp.bfloat16 option of every kernel above,
 // fused_head.py:119-126, 192-196, 237-243, 269-276, 307, 352-360, 396-407):
 //   fused_ce_{fwd,bwd_dx,bwd_dw}_bf16 and fused_ce_{fwd,bwd_dx,bwd_dw}_mem_bf16
-// are the same bodies with a second template parameter (kBf16) that changes
-// only the products; the epilogues (margin, clamp, online logsumexp,
-// `higher`, dcos) are shared and the fp32 instantiations compile as before.
+// run on a grid of a block per 16 rows sweeping all of C (bwd_dw: a block
+// per 32 classes) with SIMT epilogues (margin, clamp, online logsumexp,
+// `higher`, dcos) on a warp's two rows x a lane's four columns.
 // The operands stay fp32 in device memory, as in JAX, and are rounded to
 // bf16 (__float2bfloat16_rn, round to nearest even) as they are staged in
 // shared memory, at exactly the six places of the Pallas kernels: xn and wn
@@ -103,8 +120,8 @@
 // (6.5 us at 3.35 TB/s): the forward is bound by bytes, the backward kernels
 // (two or three products) lie close to the line. These kernels stage every
 // operand through shared memory with synchronous loads and multiply with
-// wmma (no wgmma or TMA yet), on the fp32 kernels' grids (32 blocks for fwd
-// and bwd_dx at N=512), so they reach neither bound.
+// wmma (no wgmma or TMA yet), on grids of 32 blocks for fwd and bwd_dx at
+// N=512, so they reach neither bound.
 //
 // C interface: each entry launches on the given stream and returns
 // cudaGetLastError() (0 on success). All pointers are device pointers to
@@ -120,10 +137,10 @@ namespace {
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;   // 8 warps; warp w owns rows 2w and 2w + 1
+constexpr int kThreads = 256;   // 8 warps
+// bf16 fwd / bwd_dx and both bwd_dw: warp w owns rows 2w and 2w + 1
 constexpr int kRows = 16;       // rows per block tile
-constexpr int kCols = 128;      // class-tile width of fwd / bwd_dx (4 per lane)
-constexpr int kChunk = 32;      // depth of one W chunk staged in shared memory
+constexpr int kCols = 128;      // bf16 fwd / bwd_dx class tile (4 per lane)
 constexpr int kDwCols = 32;     // class-tile width of bwd_dw (1 per lane)
 constexpr float kNegInf = -1e30f;
 // bf16 (tensor-core) kernels
@@ -213,21 +230,6 @@ __device__ __forceinline__ void load_rows(float* xs, const float* xn, int row0,
   }
 }
 
-// Stage wn[d0:d0+kChunk, c0:c0+kCols] into ws [kChunk][kCols + 1] (padded so
-// that a lane walking one chunk row per lane hits distinct banks), zero past
-// D and C.
-__device__ __forceinline__ void load_chunk(float* ws, const float* wn, int d0,
-                                           int c0, int d, int c) {
-  for (int i = threadIdx.x; i < kChunk * kCols; i += kThreads) {
-    const int k = i / kCols;
-    const int j = i - k * kCols;
-    const int dd = d0 + k;
-    const int col = c0 + j;
-    ws[k * (kCols + 1) + j] =
-        (dd < d && col < c) ? wn[static_cast<size_t>(dd) * c + col] : 0.0f;
-  }
-}
-
 // lam of the lane's four columns (lane + 32 * i) of the tile at c0; 0 past C.
 __device__ __forceinline__ void load_lam(float lt[4], const float* lam, int c0,
                                          int c) {
@@ -236,52 +238,6 @@ __device__ __forceinline__ void load_lam(float lt[4], const float* lam, int c0,
   for (int i = 0; i < 4; ++i) {
     const int col = c0 + lane + 32 * i;
     lt[i] = col < c ? lam[col] : 0.0f;
-  }
-}
-
-// cos for the warp's two rows x the lane's four columns (lane + 32 * i) of
-// the class tile starting at c0. With kMem, the blended cosine
-// (1 - lt) * (x . wn) + lt * (x . memn), memn staged through `ms` as wn is
-// through `ws`.
-template <bool kMem>
-__device__ __forceinline__ void cos_tile(float acc[2][4], const float* xs,
-                                         float* ws, float* ms, const float* wn,
-                                         const float* memn, const float lt[4],
-                                         int c0, int d, int c, int r0) {
-  const int lane = threadIdx.x & 31;
-  float accm[2][4];
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[q][i] = accm[q][i] = 0.0f;
-  for (int d0 = 0; d0 < d; d0 += kChunk) {
-    __syncthreads();
-    load_chunk(ws, wn, d0, c0, d, c);
-    if constexpr (kMem) load_chunk(ms, memn, d0, c0, d, c);
-    __syncthreads();
-    const int kmax = min(kChunk, d - d0);
-    for (int k = 0; k < kmax; ++k) {
-      const float x0 = xs[r0 * d + d0 + k];
-      const float x1 = xs[(r0 + 1) * d + d0 + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float w = ws[k * (kCols + 1) + lane + 32 * i];
-        acc[0][i] = fmaf(x0, w, acc[0][i]);
-        acc[1][i] = fmaf(x1, w, acc[1][i]);
-        if constexpr (kMem) {
-          const float mv = ms[k * (kCols + 1) + lane + 32 * i];
-          accm[0][i] = fmaf(x0, mv, accm[0][i]);
-          accm[1][i] = fmaf(x1, mv, accm[1][i]);
-        }
-      }
-    }
-  }
-  if constexpr (kMem) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[q][i] = (1.0f - lt[i]) * acc[q][i] + lt[i] * accm[q][i];
   }
 }
 
@@ -482,14 +438,11 @@ __device__ __forceinline__ void dx_tile_bf16(const BfTiles& s,
   xn, wn, memn, lam, labels, t, tcos, scale, ab, lse_out, tlogit_out,     \
       higher_out, n, d, c, mode, has_clamp, clamp_eps
 
-template <bool kMem, bool kBf16>
-__device__ __forceinline__ void fwd_body(FWD_PARAMS) {
+// The bf16 forward: a block per kRows rows sweeping all of C.
+template <bool kMem>
+__device__ __forceinline__ void fwd_bf16_body(FWD_PARAMS) {
   extern __shared__ float smem[];
-  float* xs = smem;                    // [kRows][d]
-  float* ws = xs + kRows * d;          // [kChunk][kCols + 1]
-  float* ms = ws + kChunk * (kCols + 1);  // kMem: [kChunk][kCols + 1]
-  BfTiles bt;                          // kBf16: the bf16 layout instead
-  if constexpr (kBf16) bt = bf_tiles(smem, d, kMem, false);
+  const BfTiles bt = bf_tiles(smem, d, kMem, false);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -505,16 +458,12 @@ __device__ __forceinline__ void fwd_body(FWD_PARAMS) {
   float l[2] = {0.0f, 0.0f};
   float hi[2] = {0.0f, 0.0f};
 
-  if constexpr (kBf16) load_rows_bf16(bt.xb, xn, row0, n, d, bt.dp);
-  else load_rows(xs, xn, row0, n, d);
+  load_rows_bf16(bt.xb, xn, row0, n, d, bt.dp);
   for (int c0 = 0; c0 < c; c0 += kCols) {
     float lt[4];
     if constexpr (kMem) load_lam(lt, lam, c0, c);
     float acc[2][4];
-    if constexpr (kBf16)
-      cos_tile_bf16<kMem>(acc, bt, wn, memn, lt, c0, d, c, r0);
-    else
-      cos_tile<kMem>(acc, xs, ws, ms, wn, memn, lt, c0, d, c, r0);
+    cos_tile_bf16<kMem>(acc, bt, wn, memn, lt, c0, d, c, r0);
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       float logit[4];
@@ -560,21 +509,11 @@ __device__ __forceinline__ void fwd_body(FWD_PARAMS) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_ce_fwd_kernel(FWD_PARAMS) { fwd_body<false, false>(FWD_ARGS); }
-
-// The blend's second accumulators do not fit the 64 registers ptxas allots
-// a 256-thread block by default (it spilled); allowing one block per SM lets
-// it keep them in registers. At N = 512 there are 32 blocks for 132 SMs, so
-// the occupancy given up is not used anyway.
-__global__ void __launch_bounds__(kThreads, 1)
-fused_ce_fwd_mem_kernel(FWD_PARAMS) { fwd_body<true, false>(FWD_ARGS); }
-
 // The bf16 kernels hold wmma fragments beside the epilogue's state; one
-// block per SM, as for the _mem kernels.
+// block per SM (at N = 512 there are 32 blocks for 132 SMs anyway).
 template <bool kMem>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_ce_fwd_bf16_kernel(FWD_PARAMS) { fwd_body<kMem, true>(FWD_ARGS); }
+fused_ce_fwd_bf16_kernel(FWD_PARAMS) { fwd_bf16_body<kMem>(FWD_ARGS); }
 
 // dlogit-side epilogue shared by both backward kernels. Returns dcos and
 // adds the row's target / scale gradient terms to dt, dsc.
@@ -616,17 +555,12 @@ __device__ __forceinline__ float dcos_of(float cos_raw, int col, int c,
   xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse, g_t, dx, dt_out,   \
       dscale_out, n, d, c, mode, has_clamp, clamp_eps
 
-template <bool kMem, bool kBf16>
-__device__ __forceinline__ void bwd_dx_body(DX_PARAMS) {
+// The bf16 dx: a block per kRows rows sweeping all of C, the dx tile in
+// shared memory.
+template <bool kMem>
+__device__ __forceinline__ void bwd_dx_bf16_body(DX_PARAMS) {
   extern __shared__ float smem[];
-  float* xs = smem;                        // [kRows][d]
-  float* dxs = xs + kRows * d;             // [kRows][d] dx accumulator
-  float* ws = dxs + kRows * d;             // [kChunk][kCols + 1]
-  float* dcs = ws + kChunk * (kCols + 1);  // [kRows][kCols] dcos (* (1 - lam))
-  float* ms = dcs + kRows * kCols;         // kMem: [kChunk][kCols + 1]
-  float* dcm = ms + kChunk * (kCols + 1);  // kMem: [kRows][kCols] dcos * lam
-  BfTiles bt;                              // kBf16: the bf16 layout instead
-  if constexpr (kBf16) bt = bf_tiles(smem, d, kMem, true);
+  const BfTiles bt = bf_tiles(smem, d, kMem, true);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -641,91 +575,39 @@ __device__ __forceinline__ void bwd_dx_body(DX_PARAMS) {
   float dt[2] = {0.0f, 0.0f};
   float dsc[2] = {0.0f, 0.0f};
 
-  if constexpr (kBf16) {
-    load_rows_bf16(bt.xb, xn, row0, n, d, bt.dp);
-    for (int i = threadIdx.x; i < kRows * (bt.dp + 4); i += kThreads)
-      bt.dx[i] = 0.0f;
-  } else {
-    load_rows(xs, xn, row0, n, d);
-    for (int i = threadIdx.x; i < kRows * d; i += kThreads) dxs[i] = 0.0f;
-  }
+  load_rows_bf16(bt.xb, xn, row0, n, d, bt.dp);
+  for (int i = threadIdx.x; i < kRows * (bt.dp + 4); i += kThreads)
+    bt.dx[i] = 0.0f;
 
   for (int c0 = 0; c0 < c; c0 += kCols) {
     float lt[4];
     if constexpr (kMem) load_lam(lt, lam, c0, c);
     float acc[2][4];
-    if constexpr (kBf16)
-      cos_tile_bf16<kMem>(acc, bt, wn, memn, lt, c0, d, c, r0);
-    else
-      cos_tile<kMem>(acc, xs, ws, ms, wn, memn, lt, c0, d, c, r0);
+    cos_tile_bf16<kMem>(acc, bt, wn, memn, lt, c0, d, c, r0);
 #pragma unroll
     for (int q = 0; q < 2; ++q)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float g = dcos_of(acc[q][i], c0 + lane + 32 * i, c, rp[q], mode,
                                 has_clamp, clamp_eps, &dt[q], &dsc[q]);
-        if constexpr (kBf16) {
-          // rounded to bf16 for the product, each share on its own
-          const int at = (r0 + q) * kLdB + lane + 32 * i;
-          if constexpr (kMem) {
-            bt.dcb[at] = __float2bfloat16_rn(g * (1.0f - lt[i]));
-            bt.dcm[at] = __float2bfloat16_rn(g * lt[i]);
-          } else {
-            bt.dcb[at] = __float2bfloat16_rn(g);
-          }
-        } else {
-          const int at = (r0 + q) * kCols + lane + 32 * i;
-          if constexpr (kMem) {
-            dcs[at] = g * (1.0f - lt[i]);
-            dcm[at] = g * lt[i];
-          } else {
-            dcs[at] = g;
-          }
-        }
-      }
-    if constexpr (kBf16) {
-      dx_tile_bf16<kMem>(bt, wn, memn, c0, d, c);
-    } else {
-      // dx[rows, d0 + lane] += dcos[rows, :] . wn[d0 + lane, tile]
-      //                        (+ (dcos * lam)[rows, :] . memn[d0 + lane, tile])
-      for (int d0 = 0; d0 < d; d0 += kChunk) {
-        __syncthreads();  // dcs written; previous readers of ws done
-        load_chunk(ws, wn, d0, c0, d, c);
-        if constexpr (kMem) load_chunk(ms, memn, d0, c0, d, c);
-        __syncthreads();
-        float a0 = 0.0f, a1 = 0.0f;
-        const float* wrow = ws + lane * (kCols + 1);
-        const float* g0 = dcs + r0 * kCols;
-        const float* g1 = g0 + kCols;
-        for (int j = 0; j < kCols; ++j) {
-          a0 = fmaf(g0[j], wrow[j], a0);
-          a1 = fmaf(g1[j], wrow[j], a1);
-        }
+        // rounded to bf16 for the product, each share on its own
+        const int at = (r0 + q) * kLdB + lane + 32 * i;
         if constexpr (kMem) {
-          const float* mrow = ms + lane * (kCols + 1);
-          const float* h0 = dcm + r0 * kCols;
-          const float* h1 = h0 + kCols;
-          for (int j = 0; j < kCols; ++j) {
-            a0 = fmaf(h0[j], mrow[j], a0);
-            a1 = fmaf(h1[j], mrow[j], a1);
-          }
-        }
-        if (d0 + lane < d) {
-          dxs[r0 * d + d0 + lane] += a0;
-          dxs[(r0 + 1) * d + d0 + lane] += a1;
+          bt.dcb[at] = __float2bfloat16_rn(g * (1.0f - lt[i]));
+          bt.dcm[at] = __float2bfloat16_rn(g * lt[i]);
+        } else {
+          bt.dcb[at] = __float2bfloat16_rn(g);
         }
       }
-    }
+    dx_tile_bf16<kMem>(bt, wn, memn, c0, d, c);
   }
   __syncthreads();
-
   for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
     const int r = i / d;
     const int row = row0 + r;
     const int k = i - r * d;
     if (row < n)
-      dx[static_cast<size_t>(row) * d + k] =
-          kBf16 ? bt.dx[r * (bt.dp + 4) + k] : dxs[i];
+      dx[static_cast<size_t>(row) * d + k] = bt.dx[r * (bt.dp + 4) + k];
   }
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
@@ -740,16 +622,9 @@ __device__ __forceinline__ void bwd_dx_body(DX_PARAMS) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_ce_bwd_dx_kernel(DX_PARAMS) { bwd_dx_body<false, false>(DX_ARGS); }
-
-// one block per SM, for the reason given at fused_ce_fwd_mem_kernel
-__global__ void __launch_bounds__(kThreads, 1)
-fused_ce_bwd_dx_mem_kernel(DX_PARAMS) { bwd_dx_body<true, false>(DX_ARGS); }
-
 template <bool kMem>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_ce_bwd_dx_bf16_kernel(DX_PARAMS) { bwd_dx_body<kMem, true>(DX_ARGS); }
+fused_ce_bwd_dx_bf16_kernel(DX_PARAMS) { bwd_dx_bf16_body<kMem>(DX_ARGS); }
 
 // bwd_dw_mem fits the default register budget without spilling, so both
 // instantiations share one template kernel.
@@ -1009,13 +884,628 @@ fused_ce_bwd_dw_bf16_kernel(const float* __restrict__ xn,
       dw[static_cast<size_t>(k) * c + col] = dws[k * kLdP + lane];
 }
 
-size_t fwd_smem(int d, bool mem) {
-  return sizeof(float) * (kRows * d + (mem ? 2 : 1) * kChunk * (kCols + 1));
+// ---- fp32 split-C forward and dx (see the note at the head of the file) --
+//
+// Thread layout of the cosine tile [R rows][256 classes] (R = 64 in fwd, 32
+// in bwd_dx): warp w covers rows R/2 (w / 4) .. + R/2 - 1 and classes
+// 64 (w % 4) .. + 63; lane l within it rows 4 (l / 8) + 16 h + {0..3} (h <
+// R / 32) and classes 4 (l % 8) + {0..3, 32..35}, so a k step reads R/2 x 4 B
+// of xn and 256 B of wn per warp (broadcast across lanes) for its R/32 x
+// 1,024 FMAs. Each wn element staged from L2 feeds 2R FLOP: the forward's
+// 64-row tile halves the L2 traffic per FLOP of a 32-row one. The dx tile
+// [32 rows][D]: warp w covers D columns 64 w .. + 63; lane l rows 8 (l / 8)
+// .. + 7 and columns 4 (l % 8) + {0..3, 32..35}; its 64 accumulators leave
+// no room for a 64-row tile.
+
+constexpr int kFwdRows = 64;     // rows of a forward block tile
+constexpr int kDxRows = 32;      // rows of a bwd_dx block tile
+constexpr int kSplitCols = 256;  // class-tile width
+constexpr int kDepth = 16;       // D depth of one cosine stage
+constexpr int kDxDepth = 8;      // classes of one dx stage
+constexpr int kStages = 3;       // cp.async ring
+constexpr int kMaxSplitD = 512;  // widest D of the split dx kernels (8 x 64)
+static_assert(kSplitCols == kThreads, "one staged class column per thread");
+static_assert(kThreads == 256, "the 2 x 4 warp layout above");
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
 }
-size_t dx_smem(int d, bool mem) {
-  return sizeof(float) * (2 * kRows * d + (mem ? 2 : 1) *
-                          (kChunk * (kCols + 1) + kRows * kCols));
+__host__ __device__ constexpr int round4(int d) { return (d + 3) & ~3; }
+// pitch of a staged wn^T row: every warp's 64 columns, and 4 more so that
+// the 8 rows of a stage start on different banks
+__host__ __device__ constexpr int dx_pitch(int d) {
+  return ((d + 63) & ~63) + 4;
 }
+
+// Pitch of a staged xn^T chunk of R rows (float4 rows, 16-byte aligned).
+__host__ __device__ constexpr int xs_pitch(int rows) { return rows + 4; }
+__host__ __device__ constexpr int split_rows(bool dx) {
+  return dx ? kDxRows : kFwdRows;
+}
+
+// Floats of one ring slot: a cosine stage (xn^T [kDepth][xs_pitch], wn
+// [kDepth][kSplitCols], with kMem memn too) or, in bwd_dx, a dx stage (wn^T
+// [kDxDepth][dx_pitch], with kMem memn^T too), whichever is larger.
+__host__ __device__ inline int split_slot(int d, bool mem, bool dx) {
+  const int ops = mem ? 2 : 1;
+  const int cos =
+      kDepth * xs_pitch(split_rows(dx)) + ops * kDepth * kSplitCols;
+  const int dxs = dx ? ops * kDxDepth * dx_pitch(d) : 0;
+  return cos > dxs ? cos : dxs;
+}
+
+// Bytes: the block's Row scalars, the ring and, in bwd_dx, the dcos tiles
+// [kSplitCols][kDxRows] (with kMem dcos * (1 - lam) and dcos * lam).
+__host__ __device__ inline size_t split_smem(int d, bool mem, bool dx) {
+  const int tiles = dx ? (mem ? 2 : 1) * kSplitCols * kDxRows : 0;
+  return sizeof(Row) * split_rows(dx) +
+         sizeof(float) *
+             (kStages * static_cast<size_t>(split_slot(d, mem, dx)) + tiles);
+}
+
+// 4-byte asynchronous copy global -> shared; zero-fills when !pred (src is
+// then not read but must be a valid address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(at),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// First row and first class of the thread's share of an R-row cosine tile:
+// its row q is row0 + (q & 3) + 16 (q >> 2), its element e is in class
+// col0 + (e & 3) + 32 (e >> 2).
+template <int kRowsT>
+__device__ __forceinline__ int cos_row0() {
+  return kRowsT / 2 * (threadIdx.x >> 7) + 4 * ((threadIdx.x & 31) >> 3);
+}
+__device__ __forceinline__ int cos_row(int row0, int q) {
+  return row0 + (q & 3) + 16 * (q >> 2);
+}
+__device__ __forceinline__ int cos_col0() {
+  return 64 * ((threadIdx.x >> 5) & 3) + 4 * (threadIdx.x & 7);
+}
+__device__ __forceinline__ int elem_col(int col0, int e) {
+  return col0 + (e & 3) + 32 * (e >> 2);
+}
+
+// Stage xn[row0:row0+R, d0:d0+16] transposed into xs [kDepth][xs_pitch(R)]
+// and wn[d0:d0+16, c0:c0+256] into ws [kDepth][kSplitCols] (kMem: memn into
+// ms beside it), zero past N, D and C. xn is read 16 floats of a row per 16
+// lanes, wn one row of 256 classes per k.
+template <bool kMem, int kRowsT>
+__device__ __forceinline__ void stage_cos(float* slot, const float* xn,
+                                          const float* wn, const float* memn,
+                                          int row0, int n, int d, int c,
+                                          int c0, int d0) {
+  constexpr int kPitch = xs_pitch(kRowsT);
+  float* xs = slot;
+  float* ws = xs + kDepth * kPitch;
+  float* ms = ws + kDepth * kSplitCols;
+#pragma unroll
+  for (int it = 0; it < kDepth * kRowsT / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int k = i % kDepth;
+    const int r = i / kDepth;
+    const int row = row0 + r;
+    const bool in = row < n && d0 + k < d;
+    cp_async4(xs + k * kPitch + r,
+              in ? xn + static_cast<size_t>(row) * d + d0 + k : xn, in);
+  }
+  const int col = c0 + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kDepth; ++k) {
+    const bool in = d0 + k < d && col < c;
+    const size_t at = static_cast<size_t>(d0 + k) * c + col;
+    cp_async4(ws + k * kSplitCols + threadIdx.x, in ? wn + at : wn, in);
+    if constexpr (kMem)
+      cp_async4(ms + k * kSplitCols + threadIdx.x, in ? memn + at : memn, in);
+  }
+}
+
+// Stage wn[:, j0:j0+8] transposed into wt [kDxDepth][dx_pitch] (kMem: memn
+// into mt beside it), zero past C; columns of D past d are left as they are
+// (the dx accumulators they feed are never stored). 8 consecutive lanes read
+// 8 consecutive classes of one row of wn.
+template <bool kMem>
+__device__ __forceinline__ void stage_dx(float* slot, const float* wn,
+                                         const float* memn, int d, int c,
+                                         int j0) {
+  const int pitch = dx_pitch(d);
+  float* wt = slot;
+  float* mt = slot + kDxDepth * pitch;
+  for (int i = threadIdx.x; i < kDxDepth * d; i += kThreads) {
+    const int jj = i % kDxDepth;
+    const int k = i / kDxDepth;
+    const bool in = j0 + jj < c;
+    const size_t at = static_cast<size_t>(k) * c + j0 + jj;
+    cp_async4(wt + jj * pitch + k, in ? wn + at : wn, in);
+    if constexpr (kMem)
+      cp_async4(mt + jj * pitch + k, in ? memn + at : memn, in);
+  }
+}
+
+// acc[4h + q][e] += a[h][q] * (b0 | b1)[e]: a (4 kGroups) x 8 tile, the
+// operands as float4s.
+template <int kGroups>
+__device__ __forceinline__ void fma_tile(float acc[4 * kGroups][8],
+                                         const float4 (&a)[kGroups],
+                                         float4 b0, float4 b1) {
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int h = 0; h < kGroups; ++h) {
+    const float av[4] = {a[h].x, a[h].y, a[h].z, a[h].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[4 * h + q][e] = fmaf(av[q], bv[e], acc[4 * h + q][e]);
+  }
+}
+
+// One cosine stage: kDepth steps of xn . wn (kMem: and xn . memn, sharing
+// the xn operand) into the thread's (R / 8) x 8 tiles, in order of D.
+template <bool kMem, int kRowsT>
+__device__ __forceinline__ void cos_stage(float acc[kRowsT / 8][8],
+                                          float accm[kRowsT / 8][8],
+                                          const float* slot, int r0, int c0) {
+  constexpr int kPitch = xs_pitch(kRowsT);
+  constexpr int kGroups = kRowsT / 32;
+  const float* xs = slot;
+  const float* ws = xs + kDepth * kPitch;
+  const float* ms = ws + kDepth * kSplitCols;
+#pragma unroll
+  for (int k = 0; k < kDepth; ++k) {
+    float4 a[kGroups];
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h) a[h] = ld4(xs + k * kPitch + r0 + 16 * h);
+    const float* w = ws + k * kSplitCols + c0;
+    fma_tile<kGroups>(acc, a, ld4(w), ld4(w + 32));
+    if constexpr (kMem) {
+      const float* m = ms + k * kSplitCols + c0;
+      fma_tile<kGroups>(accm, a, ld4(m), ld4(m + 32));
+    }
+  }
+}
+
+// One dx stage: dx[8 rows, 8 columns of D] += dcos[rows, j] . wn[cols, j]
+// (kMem: + (dcos * lam)[rows, j] . memn[cols, j]) over the stage's 8
+// classes; r0 / k0 are the thread's first row and D column.
+template <bool kMem>
+__device__ __forceinline__ void dx_stage(float dxa[8][8], const float* slot,
+                                         const float* dct, const float* dmt,
+                                         int j0, int d, int r0, int k0) {
+  const int pitch = dx_pitch(d);
+  const float* wt = slot + k0;
+  const float* mt = wt + kDxDepth * pitch;
+#pragma unroll
+  for (int jj = 0; jj < kDxDepth; ++jj) {
+    const int at = (j0 + jj) * kDxRows + r0;
+    const float4 g[2] = {ld4(dct + at), ld4(dct + at + 4)};
+    fma_tile<2>(dxa, g, ld4(wt + jj * pitch), ld4(wt + jj * pitch + 32));
+    if constexpr (kMem) {
+      const float4 h[2] = {ld4(dmt + at), ld4(dmt + at + 4)};
+      fma_tile<2>(dxa, h, ld4(mt + jj * pitch), ld4(mt + jj * pitch + 32));
+    }
+  }
+}
+
+// Columns [c_lo, c_hi) of the block's class range; tiles of it.
+__device__ __forceinline__ int range_tiles(int c, int range_cols, int* c_lo) {
+  *c_lo = blockIdx.y * range_cols;
+  const int c_hi = min(c, *c_lo + range_cols);
+  return c_hi > *c_lo ? ceil_div(c_hi - *c_lo, kSplitCols) : 0;
+}
+
+// Sum over the 8 lanes of a row group (lanes 8g .. 8g + 7).
+__device__ __forceinline__ float sum8(float v) {
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The forward over one class range: per row the range's max logit m, sum
+// l = sum exp(logit - m) and `higher` count, into part [S][3][N]. One block
+// per SM: a thread's 64 accumulators (128 with the blend) and the epilogue
+// spilled at the 128 registers that two blocks would leave; one block ran as
+// fast as two (H100, chip_smoke.py's shapes).
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_fwd_split_kernel(const float* __restrict__ xn,
+                          const float* __restrict__ wn,
+                          const float* __restrict__ memn,
+                          const float* __restrict__ lam,
+                          const int* __restrict__ labels,
+                          const float* __restrict__ t,
+                          const float* __restrict__ tcos,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ ab,
+                          float* __restrict__ part, int n, int d, int c,
+                          int range_cols, int mode, int has_clamp,
+                          float clamp_eps) {
+  extern __shared__ float4 smem4[];
+  constexpr int kR = kFwdRows / 8;  // rows of the thread
+  Row* rows = reinterpret_cast<Row*>(smem4);
+  float* ring = reinterpret_cast<float*>(rows + kFwdRows);
+  const int slot = split_slot(d, kMem, false);
+  const int r0 = cos_row0<kFwdRows>();
+  const int col0 = cos_col0();
+  const int row0 = blockIdx.x * kFwdRows;
+  int c_lo;
+  const int nk = ceil_div(d, kDepth);
+  const int total = range_tiles(c, range_cols, &c_lo) * nk;
+  if (threadIdx.x < kFwdRows)
+    rows[threadIdx.x] = load_row(row0 + threadIdx.x, n, labels, t, tcos,
+                                 scale, ab, nullptr, nullptr, nullptr);
+
+  auto prefetch = [&](int i) {
+    stage_cos<kMem, kFwdRows>(ring + (i % kStages) * slot, xn, wn, memn,
+                              row0, n, d, c, c_lo + (i / nk) * kSplitCols,
+                              (i % nk) * kDepth);
+  };
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) prefetch(i);
+    cp_async_commit();
+  }
+  float acc[kR][8], accm[kR][8];
+  float m[kR], l[kR], hi[kR];
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+    m[q] = kNegInf;
+    l[q] = 0.0f;
+    hi[q] = 0.0f;
+  }
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage i landed; stage i - 1's readers done
+    if (i + kStages - 1 < total) prefetch(i + kStages - 1);
+    cp_async_commit();
+    const int k = i % nk;
+    if (k == 0) {
+#pragma unroll
+      for (int q = 0; q < kR; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[q][e] = accm[q][e] = 0.0f;
+    }
+    cos_stage<kMem, kFwdRows>(acc, accm, ring + (i % kStages) * slot, r0,
+                              col0);
+    if (k != nk - 1) continue;
+    // the class tile is complete: margin, online logsumexp and `higher`
+    // over the thread's own 8 columns
+    const int c0 = c_lo + (i / nk) * kSplitCols + col0;
+    if constexpr (kMem) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = elem_col(c0, e);
+        const float lt = col < c ? lam[col] : 0.0f;
+#pragma unroll
+        for (int q = 0; q < kR; ++q)
+          acc[q][e] = (1.0f - lt) * acc[q][e] + lt * accm[q][e];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      const Row& r = rows[cos_row(r0, q)];
+      float logit[8];
+      float tile_max = kNegInf;
+      float cnt = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = elem_col(c0, e);
+        float cs = acc[q][e];  // blended with the memory's above
+        if (has_clamp)
+          cs = fminf(fmaxf(cs, -1.0f + clamp_eps), 1.0f - clamp_eps);
+        const bool in_range = col < c;
+        const bool is_target = col == r.label;
+        logit[e] = in_range ? r.scale * (is_target ? r.t
+                                                   : h_fn(mode, cs, r.a, r.b))
+                            : kNegInf;
+        // pre-margin rank statistic for top-k accuracy (on the blended,
+        // clamped cos): the target column never counts itself
+        if (in_range && !is_target && cs > r.tcos) cnt += 1.0f;
+        tile_max = fmaxf(tile_max, logit[e]);
+      }
+      const float m_new = fmaxf(m[q], tile_max);
+      float s = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (elem_col(c0, e) < c) s += expf(logit[e] - m_new);
+      l[q] = l[q] * expf(m[q] - m_new) + s;
+      m[q] = m_new;
+      hi[q] += cnt;
+    }
+  }
+  cp_async_wait<0>();
+
+  // merge the row's (m, l, higher) over the 8 lanes of its row group (a
+  // butterfly), then over the 4 warps of its row half (in order of warp)
+#pragma unroll
+  for (int q = 0; q < kR; ++q) {
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[q], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[q], o);
+      const float mm = fmaxf(m[q], mo);
+      l[q] = l[q] * expf(m[q] - mm) + lo * expf(mo - mm);
+      m[q] = mm;
+    }
+    hi[q] = sum8(hi[q]);
+  }
+  __syncthreads();  // the ring is free: [4 warps][kFwdRows][3]
+  float* red = ring;
+  const int wc = (threadIdx.x >> 5) & 3;
+  if ((threadIdx.x & 7) == 0) {
+#pragma unroll
+    for (int q = 0; q < kR; ++q) {
+      float* p = red + (wc * kFwdRows + cos_row(r0, q)) * 3;
+      p[0] = m[q];
+      p[1] = l[q];
+      p[2] = hi[q];
+    }
+  }
+  __syncthreads();
+  const int row = row0 + threadIdx.x;
+  if (threadIdx.x < kFwdRows && row < n) {
+    float mq = kNegInf, lq = 0.0f, h = 0.0f;
+    for (int w = 0; w < 4; ++w) {
+      const float* p = red + (w * kFwdRows + threadIdx.x) * 3;
+      const float mm = fmaxf(mq, p[0]);
+      lq = lq * expf(mq - mm) + p[1] * expf(p[0] - mm);
+      mq = mm;
+      h += p[2];
+    }
+    float* out = part + static_cast<size_t>(blockIdx.y) * 3 * n + row;
+    out[0] = mq;
+    out[n] = lq;
+    out[2 * n] = h;
+  }
+}
+
+// lse = M + log sum_s l_s exp(m_s - M) with M = max_s m_s, higher = sum_s h_s,
+// in the order s = 0, 1, ...; target logit = scale * t.
+__global__ void __launch_bounds__(kThreads)
+fused_ce_fwd_combine_kernel(const float* __restrict__ part,
+                            const float* __restrict__ t,
+                            const float* __restrict__ scale,
+                            float* __restrict__ lse, float* __restrict__ tlogit,
+                            float* __restrict__ higher, int n, int splits) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  float top = kNegInf;
+  for (int s = 0; s < splits; ++s)
+    top = fmaxf(top, part[static_cast<size_t>(s) * 3 * n + row]);
+  float sum = 0.0f, h = 0.0f;
+  for (int s = 0; s < splits; ++s) {
+    const float* p = part + static_cast<size_t>(s) * 3 * n + row;
+    sum += p[n] * expf(p[0] - top);
+    h += p[2 * n];
+  }
+  lse[row] = top + logf(sum);
+  tlogit[row] = scale[row] * t[row];
+  higher[row] = h;
+}
+
+// dx over one class range: dx_part [S][N][round4(D)] and the range's dt,
+// dscale terms (without the direct path) row_part [S][2][N].
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_bwd_dx_split_kernel(const float* __restrict__ xn,
+                             const float* __restrict__ wn,
+                             const float* __restrict__ memn,
+                             const float* __restrict__ lam,
+                             const int* __restrict__ labels,
+                             const float* __restrict__ t,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ ab,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ g_lse,
+                             float* __restrict__ dx_part,
+                             float* __restrict__ row_part, int n, int d,
+                             int c, int range_cols, int mode, int has_clamp,
+                             float clamp_eps) {
+  constexpr int nj = kSplitCols / kDxDepth;
+  extern __shared__ float4 smem4[];
+  Row* rows = reinterpret_cast<Row*>(smem4);
+  float* ring = reinterpret_cast<float*>(rows + kDxRows);
+  const int slot = split_slot(d, kMem, true);
+  float* dct = ring + kStages * slot;          // dcos (* (1 - lam)) [j][row]
+  float* dmt = dct + kSplitCols * kDxRows;  // kMem: dcos * lam
+  const int r0 = cos_row0<kDxRows>();
+  const int col0 = cos_col0();
+  const int dr0 = 8 * ((threadIdx.x & 31) >> 3);  // dx rows and D columns
+  const int dk0 = 64 * (threadIdx.x >> 5) + 4 * (threadIdx.x & 7);
+  const bool dx_warp = 64 * (threadIdx.x >> 5) < d;
+  const int row0 = blockIdx.x * kDxRows;
+  int c_lo;
+  const int nk = ceil_div(d, kDepth);
+  const int per_tile = nk + nj;  // cosine stages, then dx stages
+  const int total = range_tiles(c, range_cols, &c_lo) * per_tile;
+  if (threadIdx.x < kDxRows)
+    rows[threadIdx.x] = load_row(row0 + threadIdx.x, n, labels, t, nullptr,
+                                 scale, ab, lse, g_lse, nullptr);
+
+  auto prefetch = [&](int i) {
+    float* sp = ring + (i % kStages) * slot;
+    const int c0 = c_lo + (i / per_tile) * kSplitCols;
+    const int sub = i % per_tile;
+    if (sub < nk)
+      stage_cos<kMem, kDxRows>(sp, xn, wn, memn, row0, n, d, c, c0,
+                               sub * kDepth);
+    else
+      stage_dx<kMem>(sp, wn, memn, d, c, c0 + (sub - nk) * kDxDepth);
+  };
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) prefetch(i);
+    cp_async_commit();
+  }
+  float acc[4][8], accm[4][8], dxa[8][8];
+  float dt[4], dsc[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) dt[q] = dsc[q] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dxa[q][e] = 0.0f;
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage i landed; stage i - 1's readers (and the
+                      // dcos tiles' writers) done
+    if (i + kStages - 1 < total) prefetch(i + kStages - 1);
+    cp_async_commit();
+    const float* sp = ring + (i % kStages) * slot;
+    const int sub = i % per_tile;
+    if (sub >= nk) {
+      if (dx_warp)
+        dx_stage<kMem>(dxa, sp, dct, dmt, (sub - nk) * kDxDepth, d, dr0, dk0);
+      continue;
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[q][e] = accm[q][e] = 0.0f;
+    }
+    cos_stage<kMem, kDxRows>(acc, accm, sp, r0, col0);
+    if (sub != nk - 1) continue;
+    // the cosine tile is complete: the thread's dcos into dct (and dmt),
+    // read by every warp in the dx stages that follow
+    const int c0 = c_lo + (i / per_tile) * kSplitCols;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int tc = elem_col(col0, e);
+      const int col = c0 + tc;
+      const float lt = kMem && col < c ? lam[col] : 0.0f;
+      float g[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float cs = acc[q][e];
+        if constexpr (kMem) cs = (1.0f - lt) * cs + lt * accm[q][e];
+        g[q] = dcos_of(cs, col, c, rows[r0 + q], mode, has_clamp, clamp_eps,
+                       &dt[q], &dsc[q]);
+      }
+      float4* out = reinterpret_cast<float4*>(dct + tc * kDxRows + r0);
+      if constexpr (kMem) {
+        *out = make_float4(g[0] * (1.0f - lt), g[1] * (1.0f - lt),
+                           g[2] * (1.0f - lt), g[3] * (1.0f - lt));
+        *reinterpret_cast<float4*>(dmt + tc * kDxRows + r0) =
+            make_float4(g[0] * lt, g[1] * lt, g[2] * lt, g[3] * lt);
+      } else {
+        *out = make_float4(g[0], g[1], g[2], g[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // dt, dscale of each row: over the 8 lanes of its row group, then over
+  // the 4 warps of its row half (in order of warp)
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    dt[q] = sum8(dt[q]);
+    dsc[q] = sum8(dsc[q]);
+  }
+  __syncthreads();  // the ring is free: [4 warps][32 rows][2]
+  float* red = ring;
+  const int wc = (threadIdx.x >> 5) & 3;
+  if ((threadIdx.x & 7) == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      red[(wc * kDxRows + r0 + q) * 2] = dt[q];
+      red[(wc * kDxRows + r0 + q) * 2 + 1] = dsc[q];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kDxRows && row0 + threadIdx.x < n) {
+    float st = 0.0f, ss = 0.0f;
+    for (int w = 0; w < 4; ++w) {
+      st += red[(w * kDxRows + threadIdx.x) * 2];
+      ss += red[(w * kDxRows + threadIdx.x) * 2 + 1];
+    }
+    float* p = row_part + static_cast<size_t>(blockIdx.y) * 2 * n + row0 +
+               threadIdx.x;
+    p[0] = st;
+    p[n] = ss;
+  }
+  if (!dx_warp) return;
+  const int dp = round4(d);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int row = row0 + dr0 + q;
+    if (row >= n) continue;
+    float* out = dx_part + (static_cast<size_t>(blockIdx.y) * n + row) * dp;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = dk0 + 32 * h;
+      if (k < d)
+        *reinterpret_cast<float4*>(out + k) =
+            make_float4(dxa[q][4 * h], dxa[q][4 * h + 1], dxa[q][4 * h + 2],
+                        dxa[q][4 * h + 3]);
+    }
+  }
+}
+
+// dx = sum_s dx_part[s], dt and dscale = sum_s row_part[s] plus the direct
+// path (target_logit = scale * t), in the order s = 0, 1, ...
+__global__ void __launch_bounds__(kThreads)
+fused_ce_bwd_dx_combine_kernel(const float* __restrict__ dx_part,
+                               const float* __restrict__ row_part,
+                               const float* __restrict__ t,
+                               const float* __restrict__ scale,
+                               const float* __restrict__ g_t,
+                               float* __restrict__ dx, float* __restrict__ dt,
+                               float* __restrict__ dscale, int n, int d,
+                               int splits) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(n) * d) return;
+  const int row = static_cast<int>(i / d);
+  const int k = static_cast<int>(i - static_cast<size_t>(row) * d);
+  const size_t dp = round4(d);
+  float sum = 0.0f;
+  for (int s = 0; s < splits; ++s)
+    sum += dx_part[(static_cast<size_t>(s) * n + row) * dp + k];
+  dx[i] = sum;
+  if (k == 0) {
+    float st = 0.0f, ss = 0.0f;
+    for (int s = 0; s < splits; ++s) {
+      st += row_part[static_cast<size_t>(s) * 2 * n + row];
+      ss += row_part[static_cast<size_t>(s) * 2 * n + n + row];
+    }
+    dt[row] = st + g_t[row] * scale[row];
+    dscale[row] = ss + g_t[row] * t[row];
+  }
+}
+
+// Columns per class range of the fwd (which 0, 3) or bwd_dx (1, 4): whole
+// 256-wide tiles, as many per range as keep at least two blocks per SM
+// (row tiles x ranges) where C allows it.
+int range_cols(int which, int n, int c) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int ctiles = ceil_div(c, kSplitCols);
+  const int want = ceil_div(2 * sms, ceil_div(n, split_rows(which % 3 == 1)));
+  return (want >= ctiles ? 1 : ctiles / want) * kSplitCols;
+}
+
+int num_splits(int c, int cols) { return c > 0 ? ceil_div(c, cols) : 1; }
+
+// Workspace floats of the fp32 fwd (which 0, 3) and bwd_dx (1, 4) entries.
+size_t workspace_floats(int which, int n, int d, int c) {
+  const size_t s = num_splits(c, range_cols(which, n, c));
+  if (which % 3 == 0) return 3 * s * n;
+  return s * n * round4(d) + 2 * s * n;
+}
+
 size_t dw_smem(int d, bool mem) {
   return sizeof(float) * ((mem ? 3 : 2) * d * kDwCols + kRows * d +
                           kRows * kDwCols);
@@ -1027,21 +1517,91 @@ size_t smem_bytes(int which, int d) {
   if (which >= 6)
     return k == 2 ? dw_bf16_layout(d, mem).total
                   : bf_layout(d, mem, k == 1).total;
-  return k == 0 ? fwd_smem(d, mem) : k == 1 ? dx_smem(d, mem) : dw_smem(d, mem);
+  return k == 2 ? dw_smem(d, mem) : split_smem(d, mem, k == 1);
 }
 
-template <bool kMem, bool kBf16>
+cudaError_t set_smem(const void* kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// fused_ce_fwd(_mem), the counterpart of _fwd_kernel (K1; with the blend,
+// its has_mem body, K4). Bound at N=512, D=512, C=10,575 by fp32 operations:
+// 0.083 ms (fwd_mem 0.166 ms dense) at 67 TFLOP/s. The split kernel puts
+// ceil(N / 64) x S blocks on the card, each sweeping one class range with
+// 8 x 8 register tiles fed by cp.async; the combine merges the ranges'
+// (m, l, higher) in order of range.
+template <bool kMem>
 int launch_fwd(const float* xn, const float* wn, const float* memn,
                const float* lam, const int* labels, const float* t,
                const float* tcos, const float* scale, const float* ab,
-               float* lse, float* tlogit, float* higher, int n, int d, int c,
-               int mode, int has_clamp, float clamp_eps, void* stream) {
-  const size_t smem = smem_bytes((kBf16 ? 6 : 0) + (kMem ? 3 : 0), d);
-  auto* kernel = kBf16 ? fused_ce_fwd_bf16_kernel<kMem>
-                 : kMem ? fused_ce_fwd_mem_kernel : fused_ce_fwd_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+               float* lse, float* tlogit, float* higher, float* ws, int n,
+               int d, int c, int mode, int has_clamp, float clamp_eps,
+               void* stream) {
+  const size_t smem = split_smem(d, kMem, false);
+  auto* kernel = fused_ce_fwd_split_kernel<kMem>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int cols = range_cols(0, n, c);
+  const int splits = num_splits(c, cols);
+  const auto st = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(ceil_div(n, kFwdRows), splits), kThreads, smem, st>>>(
+      xn, wn, memn, lam, labels, t, tcos, scale, ab, ws, n, d, c, cols, mode,
+      has_clamp, clamp_eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_ce_fwd_combine_kernel<<<ceil_div(n, kThreads), kThreads, 0, st>>>(
+      ws, t, scale, lse, tlogit, higher, n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fused_ce_bwd_dx(_mem), the counterpart of the dx half of _bwd_fused_kernel
+// (K2) and of _bwd_dx_kernel (K3a; with the blend their has_mem bodies,
+// K4). Bound by fp32 operations: 0.166 ms (bwd_dx_mem 0.331 ms dense) at
+// N=512, D=512, C=10,575. The split kernel puts ceil(N / 32) x S blocks on
+// the card, each recomputing the cosines of its range and adding dcos . wn^T
+// into a dx accumulator in registers; the combine sums the ranges' dx, dt
+// and dscale in order of range.
+template <bool kMem>
+int launch_bwd_dx(const float* xn, const float* wn, const float* memn,
+                  const float* lam, const int* labels, const float* t,
+                  const float* scale, const float* ab, const float* lse,
+                  const float* g_lse, const float* g_t, float* dx, float* dt,
+                  float* dscale, float* ws, int n, int d, int c, int mode,
+                  int has_clamp, float clamp_eps, void* stream) {
+  if (d > kMaxSplitD) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = split_smem(d, kMem, true);
+  auto* kernel = fused_ce_bwd_dx_split_kernel<kMem>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int cols = range_cols(1, n, c);
+  const int splits = num_splits(c, cols);
+  float* dx_part = ws;
+  float* row_part = ws + static_cast<size_t>(splits) * n * round4(d);
+  const auto st = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(ceil_div(n, kDxRows), splits), kThreads, smem, st>>>(
+      xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse, dx_part, row_part,
+      n, d, c, cols, mode, has_clamp, clamp_eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t elems = static_cast<size_t>(n) * d;
+  fused_ce_bwd_dx_combine_kernel<<<
+      static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
+      st>>>(dx_part, row_part, t, scale, g_t, dx, dt, dscale, n, d, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMem>
+int launch_fwd_bf16(const float* xn, const float* wn, const float* memn,
+                    const float* lam, const int* labels, const float* t,
+                    const float* tcos, const float* scale, const float* ab,
+                    float* lse, float* tlogit, float* higher, int n, int d,
+                    int c, int mode, int has_clamp, float clamp_eps,
+                    void* stream) {
+  const size_t smem = smem_bytes(6 + (kMem ? 3 : 0), d);
+  auto* kernel = fused_ce_fwd_bf16_kernel<kMem>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n + kRows - 1) / kRows;
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -1050,19 +1610,17 @@ int launch_fwd(const float* xn, const float* wn, const float* memn,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kMem, bool kBf16>
-int launch_bwd_dx(const float* xn, const float* wn, const float* memn,
-                  const float* lam, const int* labels, const float* t,
-                  const float* scale, const float* ab, const float* lse,
-                  const float* g_lse, const float* g_t, float* dx, float* dt,
-                  float* dscale, int n, int d, int c, int mode, int has_clamp,
-                  float clamp_eps, void* stream) {
-  const size_t smem = smem_bytes((kBf16 ? 7 : 1) + (kMem ? 3 : 0), d);
-  auto* kernel = kBf16 ? fused_ce_bwd_dx_bf16_kernel<kMem>
-                 : kMem ? fused_ce_bwd_dx_mem_kernel : fused_ce_bwd_dx_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+template <bool kMem>
+int launch_bwd_dx_bf16(const float* xn, const float* wn, const float* memn,
+                       const float* lam, const int* labels, const float* t,
+                       const float* scale, const float* ab, const float* lse,
+                       const float* g_lse, const float* g_t, float* dx,
+                       float* dt, float* dscale, int n, int d, int c,
+                       int mode, int has_clamp, float clamp_eps,
+                       void* stream) {
+  const size_t smem = smem_bytes(7 + (kMem ? 3 : 0), d);
+  auto* kernel = fused_ce_bwd_dx_bf16_kernel<kMem>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n + kRows - 1) / kRows;
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -1080,9 +1638,7 @@ int launch_bwd_dw(const float* xn, const float* wn, const float* memn,
   const size_t smem = smem_bytes((kBf16 ? 8 : 2) + (kMem ? 3 : 0), d);
   auto* kernel = kBf16 ? fused_ce_bwd_dw_bf16_kernel<kMem>
                        : fused_ce_bwd_dw_kernel<kMem>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (c + kDwCols - 1) / kDwCols;
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -1101,72 +1657,177 @@ extern "C" {
 // kernels in the same order.
 size_t fused_ce_smem_bytes(int which, int d) { return smem_bytes(which, d); }
 
-// The six entries, each once for IEEE fp32 products (SUFFIX empty, BF16
-// false) and once for bf16 tensor-core products (_bf16, true).
-#define FUSED_CE_ENTRIES(SUFFIX, BF16)                                       \
-  int fused_ce_fwd##SUFFIX(                                                  \
-      const float* xn, const float* wn, const int* labels, const float* t,   \
-      const float* tcos, const float* scale, const float* ab, float* lse,    \
-      float* tlogit, float* higher, int n, int d, int c, int mode,           \
-      int has_clamp, float clamp_eps, void* stream) {                        \
-    return launch_fwd<false, BF16>(xn, wn, nullptr, nullptr, labels, t,      \
-                                   tcos, scale, ab, lse, tlogit, higher, n,  \
-                                   d, c, mode, has_clamp, clamp_eps,         \
-                                   stream);                                  \
-  }                                                                          \
-  int fused_ce_bwd_dx##SUFFIX(                                               \
-      const float* xn, const float* wn, const int* labels, const float* t,   \
-      const float* scale, const float* ab, const float* lse,                 \
-      const float* g_lse, const float* g_t, float* dx, float* dt,            \
-      float* dscale, int n, int d, int c, int mode, int has_clamp,           \
-      float clamp_eps, void* stream) {                                       \
-    return launch_bwd_dx<false, BF16>(xn, wn, nullptr, nullptr, labels, t,   \
-                                      scale, ab, lse, g_lse, g_t, dx, dt,    \
-                                      dscale, n, d, c, mode, has_clamp,      \
-                                      clamp_eps, stream);                    \
-  }                                                                          \
-  int fused_ce_bwd_dw##SUFFIX(                                               \
-      const float* xn, const float* wn, const int* labels, const float* t,   \
-      const float* scale, const float* ab, const float* lse,                 \
-      const float* g_lse, float* dw, int n, int d, int c, int mode,          \
-      int has_clamp, float clamp_eps, void* stream) {                        \
-    return launch_bwd_dw<false, BF16>(xn, wn, nullptr, nullptr, labels, t,   \
-                                      scale, ab, lse, g_lse, dw, n, d, c,    \
-                                      mode, has_clamp, clamp_eps, stream);   \
-  }                                                                          \
-  int fused_ce_fwd_mem##SUFFIX(                                              \
-      const float* xn, const float* wn, const float* memn, const float* lam, \
-      const int* labels, const float* t, const float* tcos,                  \
-      const float* scale, const float* ab, float* lse, float* tlogit,        \
-      float* higher, int n, int d, int c, int mode, int has_clamp,           \
-      float clamp_eps, void* stream) {                                       \
-    return launch_fwd<true, BF16>(xn, wn, memn, lam, labels, t, tcos, scale, \
-                                  ab, lse, tlogit, higher, n, d, c, mode,    \
-                                  has_clamp, clamp_eps, stream);             \
-  }                                                                          \
-  int fused_ce_bwd_dx_mem##SUFFIX(                                           \
-      const float* xn, const float* wn, const float* memn, const float* lam, \
-      const int* labels, const float* t, const float* scale,                 \
-      const float* ab, const float* lse, const float* g_lse,                 \
-      const float* g_t, float* dx, float* dt, float* dscale, int n, int d,   \
-      int c, int mode, int has_clamp, float clamp_eps, void* stream) {       \
-    return launch_bwd_dx<true, BF16>(xn, wn, memn, lam, labels, t, scale,    \
-                                     ab, lse, g_lse, g_t, dx, dt, dscale, n, \
-                                     d, c, mode, has_clamp, clamp_eps,       \
-                                     stream);                                \
-  }                                                                          \
-  int fused_ce_bwd_dw_mem##SUFFIX(                                           \
-      const float* xn, const float* wn, const float* memn, const float* lam, \
-      const int* labels, const float* t, const float* scale,                 \
-      const float* ab, const float* lse, const float* g_lse, float* dw,      \
-      int n, int d, int c, int mode, int has_clamp, float clamp_eps,         \
-      void* stream) {                                                        \
-    return launch_bwd_dw<true, BF16>(xn, wn, memn, lam, labels, t, scale,    \
-                                     ab, lse, g_lse, dw, n, d, c, mode,      \
-                                     has_clamp, clamp_eps, stream);          \
-  }
+// Columns per class range of the split fp32 fwd (which 0, 3) or bwd_dx (1,
+// 4) at (n, c) on the current device; the number of ranges is
+// ceil(c / columns) (1 if c = 0).
+int fused_ce_range_cols(int which, int n, int c) {
+  return range_cols(which, n, c);
+}
 
-FUSED_CE_ENTRIES(, false)
-FUSED_CE_ENTRIES(_bf16, true)
+// Floats of the workspace the fp32 fwd (which 0, 3) or bwd_dx (1, 4) entry
+// takes: fwd [S][3][N] (m, l, higher per range); bwd_dx [S][N][round4(D)]
+// dx partials followed by [S][2][N] (dt, dscale without the direct path).
+size_t fused_ce_workspace_floats(int which, int n, int d, int c) {
+  return workspace_floats(which, n, d, c);
+}
+
+// The combine launches alone, on partials laid out as in the workspace.
+int fused_ce_fwd_combine(const float* part, const float* t,
+                         const float* scale, float* lse, float* tlogit,
+                         float* higher, int n, int splits, void* stream) {
+  fused_ce_fwd_combine_kernel<<<ceil_div(n, kThreads), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      part, t, scale, lse, tlogit, higher, n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fused_ce_bwd_dx_combine(const float* dx_part, const float* row_part,
+                            const float* t, const float* scale,
+                            const float* g_t, float* dx, float* dt,
+                            float* dscale, int n, int d, int splits,
+                            void* stream) {
+  const size_t elems = static_cast<size_t>(n) * d;
+  fused_ce_bwd_dx_combine_kernel<<<
+      static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
+      static_cast<cudaStream_t>(stream)>>>(dx_part, row_part, t, scale, g_t,
+                                           dx, dt, dscale, n, d, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// IEEE fp32 entries. fwd and bwd_dx take a workspace
+// (fused_ce_workspace_floats) after their outputs; each launches its split kernel and then its combine.
+int fused_ce_fwd(const float* xn, const float* wn, const int* labels,
+                 const float* t, const float* tcos, const float* scale,
+                 const float* ab, float* lse, float* tlogit, float* higher,
+                 float* ws, int n, int d, int c, int mode, int has_clamp,
+                 float clamp_eps, void* stream) {
+  return launch_fwd<false>(xn, wn, nullptr, nullptr, labels, t, tcos, scale,
+                           ab, lse, tlogit, higher, ws, n, d, c, mode,
+                           has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_bwd_dx(const float* xn, const float* wn, const int* labels,
+                    const float* t, const float* scale, const float* ab,
+                    const float* lse, const float* g_lse, const float* g_t,
+                    float* dx, float* dt, float* dscale, float* ws, int n,
+                    int d, int c, int mode, int has_clamp, float clamp_eps,
+                    void* stream) {
+  return launch_bwd_dx<false>(xn, wn, nullptr, nullptr, labels, t, scale, ab,
+                              lse, g_lse, g_t, dx, dt, dscale, ws, n, d, c,
+                              mode, has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_bwd_dw(const float* xn, const float* wn, const int* labels,
+                    const float* t, const float* scale, const float* ab,
+                    const float* lse, const float* g_lse, float* dw, int n,
+                    int d, int c, int mode, int has_clamp, float clamp_eps,
+                    void* stream) {
+  return launch_bwd_dw<false, false>(xn, wn, nullptr, nullptr, labels, t,
+                                     scale, ab, lse, g_lse, dw, n, d, c, mode,
+                                     has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_fwd_mem(const float* xn, const float* wn, const float* memn,
+                     const float* lam, const int* labels, const float* t,
+                     const float* tcos, const float* scale, const float* ab,
+                     float* lse, float* tlogit, float* higher, float* ws,
+                     int n, int d, int c, int mode, int has_clamp,
+                     float clamp_eps, void* stream) {
+  return launch_fwd<true>(xn, wn, memn, lam, labels, t, tcos, scale, ab, lse,
+                          tlogit, higher, ws, n, d, c, mode, has_clamp,
+                          clamp_eps, stream);
+}
+
+int fused_ce_bwd_dx_mem(const float* xn, const float* wn, const float* memn,
+                        const float* lam, const int* labels, const float* t,
+                        const float* scale, const float* ab, const float* lse,
+                        const float* g_lse, const float* g_t, float* dx,
+                        float* dt, float* dscale, float* ws, int n, int d,
+                        int c, int mode, int has_clamp, float clamp_eps,
+                        void* stream) {
+  return launch_bwd_dx<true>(xn, wn, memn, lam, labels, t, scale, ab, lse,
+                             g_lse, g_t, dx, dt, dscale, ws, n, d, c, mode,
+                             has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_bwd_dw_mem(const float* xn, const float* wn, const float* memn,
+                        const float* lam, const int* labels, const float* t,
+                        const float* scale, const float* ab, const float* lse,
+                        const float* g_lse, float* dw, int n, int d, int c,
+                        int mode, int has_clamp, float clamp_eps,
+                        void* stream) {
+  return launch_bwd_dw<true, false>(xn, wn, memn, lam, labels, t, scale, ab,
+                                    lse, g_lse, dw, n, d, c, mode, has_clamp,
+                                    clamp_eps, stream);
+}
+
+// bf16 tensor-core entries: the arguments of the fp32 ones, without
+// the workspace.
+int fused_ce_fwd_bf16(const float* xn, const float* wn, const int* labels,
+                      const float* t, const float* tcos, const float* scale,
+                      const float* ab, float* lse, float* tlogit,
+                      float* higher, int n, int d, int c, int mode,
+                      int has_clamp, float clamp_eps, void* stream) {
+  return launch_fwd_bf16<false>(xn, wn, nullptr, nullptr, labels, t, tcos,
+                                scale, ab, lse, tlogit, higher, n, d, c, mode,
+                                has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_bwd_dx_bf16(const float* xn, const float* wn, const int* labels,
+                         const float* t, const float* scale, const float* ab,
+                         const float* lse, const float* g_lse,
+                         const float* g_t, float* dx, float* dt,
+                         float* dscale, int n, int d, int c, int mode,
+                         int has_clamp, float clamp_eps, void* stream) {
+  return launch_bwd_dx_bf16<false>(xn, wn, nullptr, nullptr, labels, t, scale,
+                                   ab, lse, g_lse, g_t, dx, dt, dscale, n, d,
+                                   c, mode, has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_bwd_dw_bf16(const float* xn, const float* wn, const int* labels,
+                         const float* t, const float* scale, const float* ab,
+                         const float* lse, const float* g_lse, float* dw,
+                         int n, int d, int c, int mode, int has_clamp,
+                         float clamp_eps, void* stream) {
+  return launch_bwd_dw<false, true>(xn, wn, nullptr, nullptr, labels, t,
+                                    scale, ab, lse, g_lse, dw, n, d, c, mode,
+                                    has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_fwd_mem_bf16(const float* xn, const float* wn, const float* memn,
+                          const float* lam, const int* labels, const float* t,
+                          const float* tcos, const float* scale,
+                          const float* ab, float* lse, float* tlogit,
+                          float* higher, int n, int d, int c, int mode,
+                          int has_clamp, float clamp_eps, void* stream) {
+  return launch_fwd_bf16<true>(xn, wn, memn, lam, labels, t, tcos, scale, ab,
+                               lse, tlogit, higher, n, d, c, mode, has_clamp,
+                               clamp_eps, stream);
+}
+
+int fused_ce_bwd_dx_mem_bf16(const float* xn, const float* wn,
+                             const float* memn, const float* lam,
+                             const int* labels, const float* t,
+                             const float* scale, const float* ab,
+                             const float* lse, const float* g_lse,
+                             const float* g_t, float* dx, float* dt,
+                             float* dscale, int n, int d, int c, int mode,
+                             int has_clamp, float clamp_eps, void* stream) {
+  return launch_bwd_dx_bf16<true>(xn, wn, memn, lam, labels, t, scale, ab,
+                                  lse, g_lse, g_t, dx, dt, dscale, n, d, c,
+                                  mode, has_clamp, clamp_eps, stream);
+}
+
+int fused_ce_bwd_dw_mem_bf16(const float* xn, const float* wn,
+                             const float* memn, const float* lam,
+                             const int* labels, const float* t,
+                             const float* scale, const float* ab,
+                             const float* lse, const float* g_lse, float* dw,
+                             int n, int d, int c, int mode, int has_clamp,
+                             float clamp_eps, void* stream) {
+  return launch_bwd_dw<true, true>(xn, wn, memn, lam, labels, t, scale, ab,
+                                   lse, g_lse, dw, n, d, c, mode, has_clamp,
+                                   clamp_eps, stream);
+}
 
 }  // extern "C"

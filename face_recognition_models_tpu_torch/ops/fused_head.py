@@ -28,6 +28,15 @@ the plain [N, C] PyTorch versions below, which are also the reference the
 card is checked against. There is no fallback from the card to the plain
 code.
 
+The fp32 `fused_ce_fwd(_mem)` and `fused_ce_bwd_dx(_mem)` split the class
+axis into ranges (`split_ranges`), one block per row tile and range, and
+combine the ranges' partials in a second launch in a fixed order: per row
+(m, l, higher) with lse = M + log sum_s l_s exp(m_s - M), and dx, dt,
+dscale summed. The wrappers allocate the workspace of partials (O(S N) for
+the forward, O(S N D) for dx). `fused_ce_{fwd,bwd_dx}_partials_plain` and
+`fused_ce_{fwd,bwd_dx}_combine_plain` are that decomposition in plain
+PyTorch, for the tests and the card checks; the main path never calls them.
+
 `mm_dtype=torch.bfloat16` (the JAX package's `mm_dtype=jnp.bfloat16`) runs
 every product on bf16 operands with fp32 accumulation: the `_bf16` kernels
 on the tensor cores. The operands are rounded to bf16 (round to nearest
@@ -57,6 +66,11 @@ launch_counts = {name + suffix: 0 for suffix in ("", "_bf16")
                  for name in _KERNELS}
 # Per-block shared memory of an H100 (bytes); bounds the embedding width.
 _MAX_SMEM = 232_448
+# Widest embedding of the fp32 bwd_dx kernels: a lane holds its dx columns
+# in registers (at most 16 of 512).
+_MAX_DX_WIDTH = 512
+# A range with no valid column carries this max logit (the kernels' -1e30).
+_NEG_INF = -1e30
 
 
 def reset_launch_counts() -> None:
@@ -127,14 +141,23 @@ def _target_mask(labels, c):
     return cols[None, :] == labels[:, None].long()
 
 
-def _fwd_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
-               clamp_eps, mm_dtype) -> FusedHeadOut:
+def _logits_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
+                  clamp_eps, mm_dtype):
+    """(post-margin logits [N, C], the `higher` indicator [N, C]: non-target
+    columns whose cosine beats the target's)."""
     _check_mm_dtype(mm_dtype)
     _, cos = _cos(xn, wn, clamp_eps, memn, lam, mm_dtype)
     is_t = _target_mask(labels, wn.shape[1])
     a, b = ab[:, :1], ab[:, 1:]
     logits = scale[:, None] * torch.where(is_t, t[:, None], _h(mode, cos, a, b))
-    higher = ((cos > tcos[:, None]) & ~is_t).sum(1).to(torch.float32)
+    return logits, (cos > tcos[:, None]) & ~is_t
+
+
+def _fwd_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab, mode,
+               clamp_eps, mm_dtype) -> FusedHeadOut:
+    logits, above = _logits_plain(xn, wn, memn, lam, labels, t, tcos, scale,
+                                  ab, mode, clamp_eps, mm_dtype)
+    higher = above.sum(1).to(torch.float32)
     return FusedHeadOut(torch.logsumexp(logits, 1), scale * t, higher)
 
 
@@ -155,11 +178,10 @@ def fused_margin_ce_mem_plain(xn, wn, memn, lam, labels, t, tcos, scale, ab,
                       clamp_eps, mm_dtype)
 
 
-def _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode, clamp_eps,
-                memn=None, lam=None, mm_dtype=torch.float32):
-    """(dcos [N, C], dt without the direct term, dscale without it). dcos
-    is the gradient of the (blended) cosine before the blend is split, in
-    fp32 (not yet rounded for a bf16 product)."""
+def _dcos_terms_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode,
+                      clamp_eps, memn=None, lam=None, mm_dtype=torch.float32):
+    """(dcos, dt terms, dscale terms), each [N, C]; the row sums of the
+    terms are dt and dscale without the direct path."""
     _check_mm_dtype(mm_dtype)
     cos_raw, cos = _cos(xn, wn, clamp_eps, memn, lam, mm_dtype)
     is_t = _target_mask(labels, wn.shape[1])
@@ -173,9 +195,19 @@ def _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode, clamp_eps,
     if clamp_eps is not None:
         dcos = dcos * ((cos_raw >= -1.0 + clamp_eps)
                        & (cos_raw <= 1.0 - clamp_eps))
-    dt = torch.where(is_t, dl * s, torch.zeros_like(dl)).sum(1)
-    dscale = torch.where(is_t, dl * t[:, None], dl * h).sum(1)
-    return dcos, dt, dscale
+    return (dcos, torch.where(is_t, dl * s, torch.zeros_like(dl)),
+            torch.where(is_t, dl * t[:, None], dl * h))
+
+
+def _dcos_plain(xn, wn, labels, t, scale, ab, lse, g_lse, mode, clamp_eps,
+                memn=None, lam=None, mm_dtype=torch.float32):
+    """(dcos [N, C], dt without the direct term, dscale without it). dcos
+    is the gradient of the (blended) cosine before the blend is split, in
+    fp32 (not yet rounded for a bf16 product)."""
+    dcos, dt, dscale = _dcos_terms_plain(xn, wn, labels, t, scale, ab, lse,
+                                         g_lse, mode, clamp_eps, memn, lam,
+                                         mm_dtype)
+    return dcos, dt.sum(1), dscale.sum(1)
 
 
 def fused_margin_ce_bwd_plain(xn, wn, labels, t, scale, ab, lse, g_lse, g_t,
@@ -236,6 +268,81 @@ def fused_ce_bwd_dw_mem_plain(xn, wn, memn, lam, labels, t, scale, ab, lse,
 
 
 # ---------------------------------------------------------------------------
+# The split-C decomposition of the fp32 fwd and bwd_dx, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def split_ranges(c: int, splits: int, range_cols: int):
+    """[(lo, hi)] column bounds of the `splits` class ranges of `range_cols`
+    columns each; ranges past C are empty."""
+    return [(min(c, s * range_cols), min(c, (s + 1) * range_cols))
+            for s in range(splits)]
+
+
+def fused_ce_fwd_partials_plain(xn, wn, labels, t, tcos, scale, ab,
+                                mode: int, clamp_eps: Optional[float] = None,
+                                *, splits: int, range_cols: int, memn=None,
+                                lam=None) -> torch.Tensor:
+    """Per-range partials of the forward, [S, 3, N]: the range's max logit m
+    (-1e30 for an empty range), l = sum exp(logit - m) and the `higher`
+    count. With memn and lam, the memory-blended head."""
+    logits, above = _logits_plain(xn, wn, memn, lam, labels, t, tcos, scale,
+                                  ab, mode, clamp_eps, torch.float32)
+    parts = []
+    for lo, hi in split_ranges(wn.shape[1], splits, range_cols):
+        seg = logits[:, lo:hi]
+        if hi > lo:
+            m = seg.max(1).values
+            l = torch.exp(seg - m[:, None]).sum(1)
+        else:
+            m = torch.full_like(t, _NEG_INF)
+            l = torch.zeros_like(t)
+        parts.append(torch.stack([m, l, above[:, lo:hi].sum(1).float()]))
+    return torch.stack(parts)
+
+
+def fused_ce_fwd_combine_plain(parts, t, scale) -> FusedHeadOut:
+    """lse = M + log sum_s l_s exp(m_s - M) (M = max_s m_s), higher summed
+    over the ranges; target logit = scale * t."""
+    m, l, h = parts.unbind(1)
+    top = m.max(0).values
+    lse = top + torch.log((l * torch.exp(m - top)).sum(0))
+    return FusedHeadOut(lse, scale * t, h.sum(0))
+
+
+def fused_ce_bwd_dx_partials_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
+                                   mode: int,
+                                   clamp_eps: Optional[float] = None, *,
+                                   splits: int, range_cols: int, memn=None,
+                                   lam=None):
+    """Per-range partials of dx: (dx [S, N, D], (dt, dscale) [S, 2, N]
+    without the direct path). With memn and lam, dcos * (1 - lam) goes into
+    wn and dcos * lam into memn."""
+    dcos, dt, dscale = _dcos_terms_plain(xn, wn, labels, t, scale, ab, lse,
+                                         g_lse, mode, clamp_eps, memn, lam)
+    dx_parts, row_parts = [], []
+    for lo, hi in split_ranges(wn.shape[1], splits, range_cols):
+        g = dcos[:, lo:hi]
+        if memn is None:
+            dx = g @ wn[:, lo:hi].T
+        else:
+            lr = lam[lo:hi]
+            dx = ((g * (1.0 - lr)) @ wn[:, lo:hi].T
+                  + (g * lr) @ memn[:, lo:hi].T)
+        dx_parts.append(dx)
+        row_parts.append(torch.stack([dt[:, lo:hi].sum(1),
+                                      dscale[:, lo:hi].sum(1)]))
+    return torch.stack(dx_parts), torch.stack(row_parts)
+
+
+def fused_ce_bwd_dx_combine_plain(dx_parts, row_parts, t, scale, g_t):
+    """(dx, dt, dscale): the ranges' partials summed, plus the direct path
+    target_logit = scale * t."""
+    dt, dscale = row_parts.sum(0)
+    return dx_parts.sum(0), dt + g_t * scale, dscale + g_t * t
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -250,17 +357,28 @@ def _lib():
 
     lib = _build.load("fused_head")
     if not getattr(lib, "_typed", False):
-        # each _mem entry takes memn and lam right after wn; each _bf16
-        # entry the arguments of its fp32 counterpart
+        # each _mem entry takes memn and lam right after wn; the fp32 fwd
+        # and bwd_dx a workspace after their outputs; each _bf16 entry the
+        # arguments of its fp32 counterpart without the workspace
         for name, ptrs in (("fused_ce_fwd", 10), ("fused_ce_bwd_dx", 12),
                            ("fused_ce_bwd_dw", 9)):
             for mem, extra in (("", 0), ("_mem", 2)):
                 for bf16 in ("", "_bf16"):
+                    ws = int(not bf16 and name != "fused_ce_bwd_dw")
                     fn = getattr(lib, name + mem + bf16)
-                    fn.argtypes = [_P] * (ptrs + extra) + [_I] * 5 + [_F, _P]
+                    fn.argtypes = ([_P] * (ptrs + extra + ws) + [_I] * 5
+                                   + [_F, _P])
                     fn.restype = _I
         lib.fused_ce_smem_bytes.argtypes = [_I, _I]
         lib.fused_ce_smem_bytes.restype = ctypes.c_size_t
+        lib.fused_ce_range_cols.argtypes = [_I] * 3
+        lib.fused_ce_range_cols.restype = _I
+        lib.fused_ce_workspace_floats.argtypes = [_I] * 4
+        lib.fused_ce_workspace_floats.restype = ctypes.c_size_t
+        lib.fused_ce_fwd_combine.argtypes = [_P] * 6 + [_I] * 2 + [_P]
+        lib.fused_ce_fwd_combine.restype = _I
+        lib.fused_ce_bwd_dx_combine.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+        lib.fused_ce_bwd_dx_combine.restype = _I
         lib._typed = True
     return lib
 
@@ -326,35 +444,119 @@ def _eps_args(clamp_eps):
     return (0, 0.0) if clamp_eps is None else (1, float(clamp_eps))
 
 
+def split_plan(n: int, c: int, dx: bool = False,
+               device=None) -> Tuple[int, int]:
+    """(ranges S, columns per range) of the fp32 fwd (or, with `dx`, bwd_dx)
+    kernels at (n, c) on the card `device`: at least two blocks per SM where
+    C allows."""
+    with torch.cuda.device(device):
+        cols = _lib().fused_ce_range_cols(int(dx), n, c)
+    return max(1, -(-c // cols)), cols
+
+
+def _workspace(which, n, d, c, device):
+    """() for a bf16 entry; else the workspace of partials its fp32 fwd /
+    bwd_dx entry fills (fused_ce_workspace_floats)."""
+    if which >= 6:
+        return ()
+    floats = _lib().fused_ce_workspace_floats(which, n, d, c)
+    return (torch.empty(floats, dtype=torch.float32, device=device),)
+
+
 def _fwd(name, which, xn, wn, mem, labels, t, tcos, scale, ab, mode,
-         clamp_eps, mm_dtype) -> FusedHeadOut:
+         clamp_eps, mm_dtype, parts=None) -> FusedHeadOut:
+    """The forward entry; `parts`, a list, receives the workspace of
+    per-range partials of an fp32 launch ([S, 3, N] flattened)."""
     name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, tcos, scale), ab, mem)
     n, d = xn.shape
     out = torch.empty((3, n), dtype=torch.float32, device=xn.device)
     if n:
         with torch.cuda.device(xn.device):
+            ws = _workspace(which, n, d, wn.shape[1], xn.device)
             _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
                     _ptr(labels), _ptr(t), _ptr(tcos), _ptr(scale), _ptr(ab),
-                    _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), n, d,
-                    wn.shape[1], mode, *_eps_args(clamp_eps))
+                    _ptr(out[0]), _ptr(out[1]), _ptr(out[2]),
+                    *map(_ptr, ws), n, d, wn.shape[1], mode,
+                    *_eps_args(clamp_eps))
+            if parts is not None:
+                parts.extend(ws)
     return FusedHeadOut(out[0], out[1], out[2])
 
 
 def _bwd_dx(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, g_t,
-            mode, clamp_eps, mm_dtype):
+            mode, clamp_eps, mm_dtype, parts=None):
+    """The dx entry; `parts`, a list, receives the workspace of per-range
+    partials of an fp32 launch (dx [S, N, round4(D)], then [S, 2, N])."""
     name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, scale, lse, g_lse, g_t), ab, mem)
     n, d = xn.shape
+    if which < 6 and d > _MAX_DX_WIDTH:
+        raise ValueError(f"{name}: embedding width {d} above the kernel's "
+                         f"{_MAX_DX_WIDTH}")
     dx = torch.empty_like(xn)
     rows = torch.empty((2, n), dtype=torch.float32, device=xn.device)
     if n:
         with torch.cuda.device(xn.device):
+            ws = _workspace(which, n, d, wn.shape[1], xn.device)
             _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
                     _ptr(labels), _ptr(t), _ptr(scale), _ptr(ab), _ptr(lse),
                     _ptr(g_lse), _ptr(g_t), _ptr(dx), _ptr(rows[0]),
-                    _ptr(rows[1]), n, d, wn.shape[1], mode,
+                    _ptr(rows[1]), *map(_ptr, ws), n, d, wn.shape[1], mode,
                     *_eps_args(clamp_eps))
+            if parts is not None:
+                parts.extend(ws)
+    return dx, rows[0], rows[1]
+
+
+def dx_workspace_views(ws, splits: int, n: int, d: int):
+    """(dx [S, N, D], rows [S, 2, N]) views of a bwd_dx workspace."""
+    dp = -(-d // 4) * 4
+    dx = ws[:splits * n * dp].view(splits, n, dp)[:, :, :d]
+    return dx, ws[splits * n * dp:].view(splits, 2, n)
+
+
+def fused_ce_fwd_combine(parts, t, scale) -> FusedHeadOut:
+    """The forward's combine on partials [S, 3, N] (the combine kernel on
+    the card, `fused_ce_fwd_combine_plain` on the CPU). The fp32 forward
+    entries launch the same kernel themselves."""
+    if parts.device.type == "cpu":
+        return fused_ce_fwd_combine_plain(parts, t, scale)
+    splits, _, n = parts.shape
+    parts = parts.contiguous()
+    out = torch.empty((3, n), dtype=torch.float32, device=parts.device)
+    with torch.cuda.device(parts.device):
+        err = _lib().fused_ce_fwd_combine(
+            _ptr(parts), _ptr(t), _ptr(scale), _ptr(out[0]), _ptr(out[1]),
+            _ptr(out[2]), n, splits, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_ce_fwd_combine: CUDA error {err} at launch")
+    return FusedHeadOut(out[0], out[1], out[2])
+
+
+def fused_ce_bwd_dx_combine(dx_parts, row_parts, t, scale, g_t):
+    """dx's combine on partials dx [S, N, D], rows [S, 2, N] (the combine
+    kernel on the card, `fused_ce_bwd_dx_combine_plain` on the CPU)."""
+    if dx_parts.device.type == "cpu":
+        return fused_ce_bwd_dx_combine_plain(dx_parts, row_parts, t, scale,
+                                             g_t)
+    splits, n, d = dx_parts.shape
+    dp = -(-d // 4) * 4
+    ws = torch.zeros(splits * n * dp + 2 * splits * n, dtype=torch.float32,
+                     device=dx_parts.device)
+    ws_dx, ws_rows = dx_workspace_views(ws, splits, n, d)
+    ws_dx.copy_(dx_parts)
+    ws_rows.copy_(row_parts)
+    dx = torch.empty((n, d), dtype=torch.float32, device=dx_parts.device)
+    rows = torch.empty((2, n), dtype=torch.float32, device=dx_parts.device)
+    with torch.cuda.device(dx_parts.device):
+        err = _lib().fused_ce_bwd_dx_combine(
+            _ptr(ws), _ptr(ws_rows), _ptr(t), _ptr(scale), _ptr(g_t),
+            _ptr(dx), _ptr(rows[0]), _ptr(rows[1]), n, d, splits,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_ce_bwd_dx_combine: CUDA error {err} at "
+                           "launch")
     return dx, rows[0], rows[1]
 
 

@@ -1,5 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
 card: the three margin + CE kernels, their memory-blended (_mem) variants,
+the split-C decomposition of the fp32 fwd and bwd_dx (partials, combine,
+bitwise determinism),
 the bf16 tensor-core versions of all six (_bf16), and the implicit-GEMM
 3x3 conv. Marked `cuda`: they skip where there is no CUDA device. On a
 machine with a card (the JAX package need not be installed there):
@@ -193,6 +195,93 @@ def test_wrappers_reject_bad_inputs(cuda):
             torch.zeros(8, d, device=cuda), torch.zeros(d, 50, device=cuda),
             torch.zeros(d, 50, device=cuda), lam, labels, t, scale, ab, t, t,
             0)
+
+
+# The fp32 fwd / bwd_dx split C into ranges of whole 256-wide tiles. These
+# shapes give more than one range (split_plan): N = 1; N not a multiple of
+# the 32-row tile; a ragged last range; D = 72 and 200 (dx's narrow and wide
+# register layouts); and (last) a final range of one column, the target of
+# row 0.
+SPLIT_SHAPES = [(1, 64, 300, False), (40, 72, 300, False),
+                (33, 200, 600, False), (70, 512, 2000, False),
+                (1, 64, 257, True)]
+
+
+def _stats_close(got, want):
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,c,last", SPLIT_SHAPES)
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_split_kernels_partials_combine_determinism(cuda, n, d, c, last, mode,
+                                                    clamp_eps, mem):
+    """The fp32 fwd and bwd_dx entries: each range's partials against
+    fused_ce_*_partials_plain, the combine kernels against their plain
+    versions, the results against the unsplit plain versions, and two
+    launches bitwise equal."""
+    xn, wn, labels, t, tcos, scale, ab = _inputs(n, d, c, mode, n + d + mode,
+                                                 cuda)
+    if last:
+        labels[0] = c - 1
+    extra = _mem_inputs(d, c, n + 7 * mode, cuda) if mem else ()
+    kw = dict(memn=extra[0], lam=extra[1]) if mem else {}
+    sfx, which = ("_mem", 3) if mem else ("", 0)
+    splits, cols = fh.split_plan(n, c)
+    assert splits > 1
+    fwd = (labels, t, tcos, scale, ab, mode, clamp_eps)
+    ref = getattr(fh, f"fused_margin_ce{sfx}_plain")(xn, wn, *extra, *fwd)
+    outs, parts = [], []
+    for _ in range(2):
+        outs.append(fh._fwd("fused_ce_fwd" + sfx, which, xn, wn, extra, *fwd,
+                            torch.float32, parts))
+    got_parts = parts[0].view(splits, 3, n)
+    want_parts = fh.fused_ce_fwd_partials_plain(
+        xn, wn, *fwd, splits=splits, range_cols=cols, **kw)
+    _stats_close(got_parts[:, :2], want_parts[:, :2])
+    assert float((got_parts[:, 2] - want_parts[:, 2]).abs().max()) <= 1
+    comb = fh.fused_ce_fwd_combine(want_parts, t, scale)
+    for a, b in zip(comb, fh.fused_ce_fwd_combine_plain(want_parts, t,
+                                                         scale)):
+        _stats_close(a, b)
+    _stats_close(outs[0].lse, ref.lse)
+    _stats_close(outs[0].target_logit, ref.target_logit)
+    assert float((outs[0].higher - ref.higher).abs().max()) <= 1
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+    g_lse = torch.full_like(t, 1.0 / n)
+    g_t = torch.full_like(t, -1.0 / n)
+    bwd = (labels, t, scale, ab, ref.lse, g_lse)
+    want = getattr(fh, f"fused_ce_bwd_dx{sfx}_plain")(xn, wn, *extra, *bwd,
+                                                      g_t, mode, clamp_eps)
+    splits, cols = fh.split_plan(n, c, dx=True)
+    assert splits > 1
+    outs, parts = [], []
+    for _ in range(2):
+        outs.append(fh._bwd_dx("fused_ce_bwd_dx" + sfx, which + 1, xn, wn,
+                               extra, *bwd, g_t, mode, clamp_eps,
+                               torch.float32, parts))
+    got_dx, got_rows = fh.dx_workspace_views(parts[0], splits, n, d)
+    want_dx, want_rows = fh.fused_ce_bwd_dx_partials_plain(
+        xn, wn, *bwd, mode, clamp_eps, splits=splits, range_cols=cols, **kw)
+    _grad_close(got_dx, want_dx)
+    _grad_close(got_rows, want_rows)
+    comb = fh.fused_ce_bwd_dx_combine(want_dx, want_rows, t, scale, g_t)
+    for a, b in zip(comb, fh.fused_ce_bwd_dx_combine_plain(
+            want_dx, want_rows, t, scale, g_t)):
+        _grad_close(a, b)
+    for a, b in zip(outs[0], want):
+        _grad_close(a, b)
+        assert bool(torch.isfinite(a).all())
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_split_dx_rejects_wide_embeddings(cuda):
+    xn, wn, labels, t, tcos, scale, ab = _inputs(8, 64, 50, 0, 1, cuda)
+    wide = torch.zeros(8, 640, device=cuda)
+    with pytest.raises(ValueError, match="embedding width"):
+        fh.fused_ce_bwd_dx(wide, torch.zeros(640, 50, device=cuda), labels,
+                           t, scale, ab, t, t, t, 0)
 
 
 def _bf16_grad_close(got, want, term):
