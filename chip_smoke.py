@@ -17,14 +17,16 @@ and no result line:
              lam and memory from a VPL state after one step, and with a dense
              lam (0.15 on every class, as after ~100 VPL steps). The same for
              the bf16 tensor-core kernels (_bf16, mm_dtype=torch.bfloat16),
-             plus N=40 / D=72 / C=300 (D not a multiple of 16). The split-C
+             plus N=40 / D=72 / C=300 (D not a multiple of 16). The split
              fp32 fwd and bwd_dx also at shapes of several class ranges (N=1,
              N not a multiple of 32, a ragged last range, D=72, a last range
-             holding only a target column): each range's partials and the
-             combine kernels against their plain versions, and two launches
-             of every fp32 entry bitwise equal. Times (CUDA events, after
-             warm-up) of the kernel, its plain version and the eager library
-             head, beside the bound.
+             holding only a target column), and the fp32 bwd_dw at shapes of
+             several row ranges (N=600 and 520, a ragged last range): each
+             range's partials and the combine kernels against their plain
+             versions, and two launches of every fp32 entry bitwise equal.
+             Times (CUDA events, after warm-up) of the kernel, its plain
+             version and the eager library head (the median of 5 repeats,
+             with their spread), beside the bound.
 4. conv    - the implicit-GEMM 3x3 conv against its plain version at small
              fp32 and bf16 shapes, then at the ResNet-50 stage shapes of its
              benchmark (b512 bf16: 28x28x128, 14x14x256, 7x7x512), timed
@@ -70,6 +72,7 @@ PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 N_MAIN, D_MAIN, C_MAIN = 512, 512, 10575
 TRAIN_STEPS = 5
+LIB_REPEATS = 5   # repeats of the library head's timing; the median counts
 CONV_SHAPES = ((28, 128), (14, 256), (7, 512))   # (H = W, C = C_out) at b512
 CONV_MAIN = (14, 256)   # the benchmark phase's shape, and the kernels line's
 SOURCE = "face_recognition_models_tpu_torch/csrc/fused_head.cu"
@@ -300,8 +303,8 @@ def check_case(x, mode, clamp_eps, bf16=False):
     """Each kernel against its plain version on inputs `x` (the _mem family
     when `x` holds memn, the bf16 products with `bf16`); returns (max abs
     err per kernel, number of rows where `higher` differs, and with `bf16`
-    {"dx": n, "dw": n} elements that needed the ulp allowance). The split-C
-    fp32 fwd and bwd_dx run twice and must agree bitwise."""
+    {"dx": n, "dw": n} elements that needed the ulp allowance). The split
+    fp32 fwd, bwd_dx and bwd_dw run twice and must agree bitwise."""
     names, fns = kernel_fns("memn" in x, bf16)
     fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
     out = fns[0][0](*fwd_args)
@@ -324,6 +327,8 @@ def check_case(x, mode, clamp_eps, bf16=False):
                          close_grad("dt", dt, rdt),
                          close_grad("dscale", dscale, rdscale))
     dw = fns[2][0](*dw_args)
+    if not bf16:
+        same(names[2], (dw, fns[2][0](*dw_args)))
     rdw = fns[2][1](*dw_args)
     errs[names[2]] = close_grad("dw", dw, rdw, dw_term)
     ulp = ({"dx": past_fp32_tol(dx, rdx), "dw": past_fp32_tol(dw, rdw)}
@@ -336,11 +341,12 @@ def check_case(x, mode, clamp_eps, bf16=False):
 
 
 def check_split(x, mode, clamp_eps):
-    """The split-C fp32 fwd and bwd_dx (the _mem ones when `x` holds memn)
-    on inputs `x`: each class range's partials from the kernel's workspace
-    against fused_ce_*_partials_plain, and the combine kernels, on the plain
+    """The split fp32 fwd, bwd_dx and bwd_dw (the _mem ones when `x` holds
+    memn) on inputs `x`: each class range's (bwd_dw: row range's) partials
+    from the kernel's workspace (bwd_dw of one range: dw itself) against
+    fused_ce_*_partials_plain, and the combine kernels, on the plain
     partials, against their plain versions. Returns ({check: max abs err},
-    {"fwd": ranges, "bwd_dx": ranges})."""
+    {"fwd": ranges, "bwd_dx": ranges, "bwd_dw": ranges})."""
     import torch
 
     from face_recognition_models_tpu_torch.ops import fused_head as fh
@@ -389,6 +395,19 @@ def check_split(x, mode, clamp_eps):
                                            x["scale"], x["g_t"])
     errs["dx_combine"] = max(close_grad("combined " + k, a, b) for k, a, b
                              in zip(("dx", "dt", "dscale"), comb, ref))
+    splits, rows = fh.dw_split_plan(n, c)
+    ranges["bwd_dw"] = splits
+    ws = []
+    dw = fh._bwd_dw("fused_ce_bwd_dw" + sfx, which + 2, x["xn"], x["wn"], mem,
+                    *bwd, mode, clamp_eps, torch.float32, ws)
+    got = ws[0].view(splits, d, c) if splits > 1 else dw[None]
+    want = fh.fused_ce_bwd_dw_partials_plain(x["xn"], x["wn"], *bwd, mode,
+                                             clamp_eps, splits=splits,
+                                             range_rows=rows, **kw)
+    errs["dw_partials"] = close_grad("dw partials", got, want)
+    errs["dw_combine"] = close_grad("combined dw",
+                                    fh.fused_ce_bwd_dw_combine(want),
+                                    fh.fused_ce_bwd_dw_combine_plain(want))
     return errs, ranges
 
 
@@ -398,7 +417,9 @@ def library_head_ms(x, clamp_eps=None, bf16=False):
     memn in `x`, the eager VPL head: two torch.matmul + the blend (+ the
     clamp) before the select. With `bf16`, each torch.matmul takes bf16
     operands (cast in the timed region, as the kernels cast as they stage)
-    and its bf16 result is taken on in fp32."""
+    and its bf16 result is taken on in fp32. Each is timed LIB_REPEATS
+    times over 20 iterations; returns (forward ms, backward ms, spread), the
+    times the medians of the repeats, the spread their [min, max]."""
     import torch
     import torch.nn.functional as F
 
@@ -422,22 +443,27 @@ def library_head_ms(x, clamp_eps=None, bf16=False):
                                                    cos)
         return F.cross_entropy(logits, labels)
 
-    fwd_ms = cuda_ms(forward)
+    fwd = [cuda_ms(forward) for _ in range(LIB_REPEATS)]
     for _ in range(3):
         forward().backward()
     torch.cuda.synchronize()
-    total = 0.0
     iters = 20
-    for _ in range(iters):
-        loss = forward()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss.backward()
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return fwd_ms, total / iters
+    bwd = []
+    for _ in range(LIB_REPEATS):
+        total = 0.0
+        for _ in range(iters):
+            loss = forward()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss.backward()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        bwd.append(total / iters)
+    spread = {"fwd_ms": [min(fwd), max(fwd)], "bwd_ms": [min(bwd), max(bwd)],
+              "repeats": LIB_REPEATS}
+    return float(np.median(fwd)), float(np.median(bwd)), spread
 
 
 def bound_rows(x, names, errs, ms, library, peak=PEAK_FP32_FLOPS):
@@ -522,13 +548,16 @@ def phase_kernels():
                       "case": f"N40_D72_C300_mode1{msfx}{sfx}",
                       "max_abs_err": errs, "higher_flips": flips,
                       "bf16_ulp_elems": ulp, "tolerance": tol, "ok": True})
-    # the split-C fp32 fwd and bwd_dx over several class ranges: N = 1, N
+    # the split fp32 fwd and bwd_dx over several class ranges: N = 1, N
     # not a multiple of the 32-row tile, ragged last ranges, D = 72, and a
-    # last range of one column that is row 0's target
+    # last range of one column that is row 0's target; bwd_dw over 3 row
+    # ranges of 256-row tiles, the last ragged, at N = 600 and 520
     for mem in (None, "mixed"):
         msfx = "_mem" if mem else ""
         for n, d, c, last in ((1, 64, 300, False), (40, 72, 300, False),
-                              (70, 512, 2000, False), (1, 64, 257, True)):
+                              (70, 512, 2000, False), (1, 64, 257, True),
+                              (600, 72, 300, False),
+                              (520, 512, 1000, False)):
             x = make_inputs(n, d, c, fh.MODE_MV, seed=n + c, mem=mem)
             if last:
                 x["labels"][0] = c - 1
@@ -545,7 +574,7 @@ def phase_kernels():
     errs, flips, _ = check_case(x, fh.MODE_IDENTITY, None)
     split, splits = check_split(x, fh.MODE_IDENTITY, None)
     ms = time_family(x, fh.MODE_IDENTITY, None)
-    _, lib_bwd = library_head_ms(x)
+    _, lib_bwd, lib_spread = library_head_ms(x)
     k3 = bound_rows(x, PLAIN_KERNELS, errs, ms, (None, lib_bwd, lib_bwd))
     emit({"phase": "kernels", "case": "N4096_D512_C10575_identity",
           "splits": splits, "max_abs_err": {**errs, **split},
@@ -554,6 +583,7 @@ def phase_kernels():
           "kernel_ms": {r["name"]: r["ms"] for r in k3[1:]},
           "plain_ms": {r["name"]: r["plain_ms"] for r in k3[1:]},
           "library_ms": {"head_bwd": lib_bwd},
+          "library_spread": lib_spread,
           "bound_ms": {r["name"]: r["bound_ms"] for r in k3[1:]},
           "ok": True})
     del x
@@ -576,7 +606,7 @@ def phase_kernels():
             split = ({} if bf16 else
                      dict(zip(("split", "splits"), check_split(x, mode, eps))))
             ms = time_family(x, mode, eps, bf16)
-            lib_fwd, lib_bwd = library_head_ms(x, eps, bf16)
+            lib_fwd, lib_bwd, lib_spread = library_head_ms(x, eps, bf16)
             fam = bound_rows(x, names, errs, ms, (lib_fwd, lib_bwd, lib_bwd),
                              PEAK_BF16_TC_FLOPS if bf16 else PEAK_FP32_FLOPS)
             extra = ({"active_classes": int((x["lam"] > 0).sum())} if mem
@@ -593,6 +623,7 @@ def phase_kernels():
                   "kernel_ms": {r["name"]: r["ms"] for r in fam},
                   "plain_ms": {r["name"]: r["plain_ms"] for r in fam},
                   "library_ms": {"head_fwd": lib_fwd, "head_bwd": lib_bwd},
+                  "library_spread": lib_spread,
                   "bound_ms": {r["name"]: r["bound_ms"] for r in fam},
                   "ok": True})
             if mem != "dense":

@@ -76,18 +76,39 @@
 //     4-byte aligned, and 4-byte copies also transpose xn into [k][row] on
 //     the way in. The same ring serves both products of bwd_dx: the cosine
 //     stages (16 deep in D) and the dx stages (8 classes, all of D).
-// bwd_dw (fused_ce_bwd_dw(_mem)) keeps its first form: a block per 32 classes
-// looping over row chunks, its own reduction over N, no atomics. The
-// backward is two launches instead of K2's single sweep (dx reduces over C,
-// dw over N); the price is a fourth product (cos recomputed in each).
+// fp32 dw (fused_ce_bwd_dw(_mem)): class tiles x row ranges. It replaces
+// _bwd_dw_kernel (K3b) and the dw half of _bwd_fused_kernel (K2; with the
+// blend their has_mem bodies, K4), where dw [D, block_c] sits in VMEM while
+// the grid's sequential row axis sweeps N. The backward is two launches
+// instead of K2's single sweep (dx reduces over C, dw over N); the price is
+// a fourth product (cos recomputed in each). Bound by fp32 operations like
+// bwd_dx, with the roles of rows and classes swapped:
+//   - the grid is 32-wide class tiles x row ranges; a block keeps its
+//     tile's dw accumulator [D][32] in registers (8 columns of D x 8 classes
+//     a thread) while it sweeps its range in 256-row tiles, and stores it
+//     once, coalesced along C through shared memory. The number of ranges S
+//     is chosen at launch from N, C and the SM count (range_rows): at the
+//     training shape the 331 class tiles alone fill the card and S = 1; at
+//     small C or large N per class tile S > 1, each range writes dw
+//     partials [S][D][C] to a workspace the wrapper allocates and a combine
+//     launch sums them in range order (no atomics: two launches on the
+//     same inputs give bitwise-equal dw);
+//   - per row tile the block recomputes the cosine tile [256 rows][32
+//     classes] with 4 x 8 register tiles (3 float4 shared loads per 32
+//     FMAs; with the blend the memn product shares the xn operand), runs
+//     dcos_of on the accumulators, takes the (1 - lam) share with the
+//     blend, and passes dcos through a [256][32] shared tile to the dw
+//     product, which streams xn in stages of 8 rows x all of D (4 float4
+//     loads per 64 FMAs);
+//   - every operand is staged with 4-byte cp.async copies into the same
+//     3-stage ring as bwd_dx (C is odd; xn is transposed on the way in for
+//     the cosine product); no [N, C] tensor reaches device memory.
 //
 // Shared memory per block (the limit is 232,448 B): fwd 64,768 B, fwd_mem
-// 113,920 B, bwd_dx 90,112 B, bwd_dx_mem 172,032 B at any D up to 512 (the
-// widest bwd_dx takes: 8 warps x 64 columns of dx). At D = 512:
-//   bwd_dw 165,888 B; bwd_dw_mem 231,424 B: the memn tile [512][32] stays
-//   resident beside the wn tile (65,536 B more) and lam of the lane's column
-//   sits in a register, leaving 1,024 B. A width above 512 is refused by
-//   the wrapper (fused_ce_smem_bytes).
+// 113,920 B, bwd_dx 90,112 B, bwd_dx_mem 172,032 B, bwd_dw 92,928 B,
+// bwd_dw_mem 99,072 B at any D up to 512 (the widest the split dx and dw
+// kernels take: 8 warps x 64 columns of the accumulator). A width above 512
+// is refused by the wrapper.
 //   The bf16 kernels (layouts at BfLayout and DwLayout): fwd 59,904 B,
 //   fwd_mem 103,168 B, bwd_dx 97,280 B, bwd_dx_mem 144,896 B, bwd_dw
 //   141,824 B, bwd_dw_mem 192,000 B; the widest D they take is 624
@@ -138,10 +159,10 @@ namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;   // 8 warps
-// bf16 fwd / bwd_dx and both bwd_dw: warp w owns rows 2w and 2w + 1
+// the bf16 kernels: warp w owns rows 2w and 2w + 1
 constexpr int kRows = 16;       // rows per block tile
 constexpr int kCols = 128;      // bf16 fwd / bwd_dx class tile (4 per lane)
-constexpr int kDwCols = 32;     // class-tile width of bwd_dw (1 per lane)
+constexpr int kDwCols = 32;     // class-tile width of both bwd_dw
 constexpr float kNegInf = -1e30f;
 // bf16 (tensor-core) kernels
 constexpr int kChunkB = 128;        // depth of one bf16 W chunk (8 k-steps)
@@ -218,16 +239,6 @@ __device__ __forceinline__ Row load_row(int row, int n, const int* labels,
     r.g_t = 0.0f;
   }
   return r;
-}
-
-// Stage rows [row0, row0 + kRows) of xn [N, D] into xs [kRows][D].
-__device__ __forceinline__ void load_rows(float* xs, const float* xn, int row0,
-                                          int n, int d) {
-  for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
-    const int r = i / d;
-    const int row = row0 + r;
-    xs[i] = row < n ? xn[static_cast<size_t>(row) * d + (i - r * d)] : 0.0f;
-  }
 }
 
 // lam of the lane's four columns (lane + 32 * i) of the tile at c0; 0 past C.
@@ -626,101 +637,6 @@ template <bool kMem>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ce_bwd_dx_bf16_kernel(DX_PARAMS) { bwd_dx_bf16_body<kMem>(DX_ARGS); }
 
-// bwd_dw_mem fits the default register budget without spilling, so both
-// instantiations share one template kernel.
-template <bool kMem>
-__global__ void __launch_bounds__(kThreads)
-fused_ce_bwd_dw_kernel(const float* __restrict__ xn,
-                       const float* __restrict__ wn,
-                       const float* __restrict__ memn,
-                       const float* __restrict__ lam,
-                       const int* __restrict__ labels,
-                       const float* __restrict__ t,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ ab,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ g_lse,
-                       float* __restrict__ dw, int n, int d, int c, int mode,
-                       int has_clamp, float clamp_eps) {
-  extern __shared__ float smem[];
-  float* wt = smem;                      // [d][kDwCols] this block's wn tile
-  float* dws = wt + d * kDwCols;         // [d][kDwCols] dw accumulator
-  float* xs = dws + d * kDwCols;         // [kRows][d]
-  float* dcs = xs + kRows * d;           // [kRows][kDwCols]
-  float* mt = dcs + kRows * kDwCols;     // kMem: [d][kDwCols] memn tile
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * kDwCols;
-  const int col = c0 + lane;
-  const int r0 = 2 * warp;
-  float lc = 0.0f;  // lam of the lane's column
-  if constexpr (kMem) lc = col < c ? lam[col] : 0.0f;
-
-  for (int i = threadIdx.x; i < d * kDwCols; i += kThreads) {
-    const int k = i / kDwCols;
-    const int j = i - k * kDwCols;
-    wt[i] = c0 + j < c ? wn[static_cast<size_t>(k) * c + c0 + j] : 0.0f;
-    if constexpr (kMem)
-      mt[i] = c0 + j < c ? memn[static_cast<size_t>(k) * c + c0 + j] : 0.0f;
-    dws[i] = 0.0f;
-  }
-
-  for (int row0 = 0; row0 < n; row0 += kRows) {
-    __syncthreads();  // previous chunk's readers of xs / dcs done
-    load_rows(xs, xn, row0, n, d);
-    __syncthreads();
-    float acc0 = 0.0f, acc1 = 0.0f;
-    const float* x0 = xs + r0 * d;
-    const float* x1 = x0 + d;
-    for (int k = 0; k < d; ++k) {
-      const float w = wt[k * kDwCols + lane];
-      acc0 = fmaf(x0[k], w, acc0);
-      acc1 = fmaf(x1[k], w, acc1);
-    }
-    if constexpr (kMem) {
-      float m0 = 0.0f, m1 = 0.0f;
-      for (int k = 0; k < d; ++k) {
-        const float mv = mt[k * kDwCols + lane];
-        m0 = fmaf(x0[k], mv, m0);
-        m1 = fmaf(x1[k], mv, m1);
-      }
-      acc0 = (1.0f - lc) * acc0 + lc * m0;
-      acc1 = (1.0f - lc) * acc1 + lc * m1;
-    }
-    float unused_dt = 0.0f, unused_dsc = 0.0f;
-    const Row ra = load_row(row0 + r0, n, labels, t, nullptr, scale, ab, lse,
-                            g_lse, nullptr);
-    const Row rb = load_row(row0 + r0 + 1, n, labels, t, nullptr, scale, ab,
-                            lse, g_lse, nullptr);
-    float g0 = dcos_of(acc0, col, c, ra, mode, has_clamp, clamp_eps,
-                       &unused_dt, &unused_dsc);
-    float g1 = dcos_of(acc1, col, c, rb, mode, has_clamp, clamp_eps,
-                       &unused_dt, &unused_dsc);
-    if constexpr (kMem) {
-      // only the weight-cosine share reaches W
-      g0 *= 1.0f - lc;
-      g1 *= 1.0f - lc;
-    }
-    dcs[r0 * kDwCols + lane] = g0;
-    dcs[(r0 + 1) * kDwCols + lane] = g1;
-    __syncthreads();
-    // dw[k, lane] += sum_r xs[r, k] * dcos[r, lane]
-    for (int k = warp; k < d; k += kThreads / 32) {
-      float s = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        s = fmaf(xs[r * d + k], dcs[r * kDwCols + lane], s);
-      dws[k * kDwCols + lane] += s;
-    }
-  }
-  __syncthreads();
-
-  if (col < c)
-    for (int k = warp; k < d; k += kThreads / 32)
-      dw[static_cast<size_t>(k) * c + col] = dws[k * kDwCols + lane];
-}
-
 // Byte offsets of the bf16 bwd_dw buffers (dp = D padded to 16):
 //   wt    [dp][kLdWb]           bf16  the block's wn tile (mt: memn's, kMem)
 //   dws   [dp][kLdP]            fp32  dw accumulator
@@ -755,8 +671,8 @@ __host__ __device__ inline DwLayout dw_bf16_layout(int d, bool mem) {
   return L;
 }
 
-// bwd_dw on the tensor cores: a block per 32 classes, as in fp32. Per chunk
-// of 16 rows, warp w computes the 16 x 16 cosine block of columns
+// bwd_dw on the tensor cores: a block per 32 classes sweeping all of N. Per
+// chunk of 16 rows, warp w computes the 16 x 16 cosine block of columns
 // 16 (w % 2).. over the k-steps w / 2, w / 2 + 4, ... (four warps per block,
 // their partial sums added in the epilogue), then the warps share the
 // (dp / 16) x 2 blocks of dw += bf16(xn)^T . bf16(dcos (* (1 - lam))).
@@ -981,19 +897,12 @@ __device__ __forceinline__ int elem_col(int col0, int e) {
   return col0 + (e & 3) + 32 * (e >> 2);
 }
 
-// Stage xn[row0:row0+R, d0:d0+16] transposed into xs [kDepth][xs_pitch(R)]
-// and wn[d0:d0+16, c0:c0+256] into ws [kDepth][kSplitCols] (kMem: memn into
-// ms beside it), zero past N, D and C. xn is read 16 floats of a row per 16
-// lanes, wn one row of 256 classes per k.
-template <bool kMem, int kRowsT>
-__device__ __forceinline__ void stage_cos(float* slot, const float* xn,
-                                          const float* wn, const float* memn,
-                                          int row0, int n, int d, int c,
-                                          int c0, int d0) {
+// Stage xn[row0:row0+R, d0:d0+16] transposed into xs [kDepth][xs_pitch(R)],
+// zero past N and D; 16 lanes read 16 floats of a row.
+template <int kRowsT>
+__device__ __forceinline__ void stage_xt(float* xs, const float* xn, int row0,
+                                         int n, int d, int d0) {
   constexpr int kPitch = xs_pitch(kRowsT);
-  float* xs = slot;
-  float* ws = xs + kDepth * kPitch;
-  float* ms = ws + kDepth * kSplitCols;
 #pragma unroll
   for (int it = 0; it < kDepth * kRowsT / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
@@ -1004,6 +913,21 @@ __device__ __forceinline__ void stage_cos(float* slot, const float* xn,
     cp_async4(xs + k * kPitch + r,
               in ? xn + static_cast<size_t>(row) * d + d0 + k : xn, in);
   }
+}
+
+// Stage xn[row0:row0+R, d0:d0+16] transposed into xs [kDepth][xs_pitch(R)]
+// and wn[d0:d0+16, c0:c0+256] into ws [kDepth][kSplitCols] (kMem: memn into
+// ms beside it), zero past N, D and C. wn is read one row of 256 classes
+// per k.
+template <bool kMem, int kRowsT>
+__device__ __forceinline__ void stage_cos(float* slot, const float* xn,
+                                          const float* wn, const float* memn,
+                                          int row0, int n, int d, int c,
+                                          int c0, int d0) {
+  float* xs = slot;
+  float* ws = xs + kDepth * xs_pitch(kRowsT);
+  float* ms = ws + kDepth * kSplitCols;
+  stage_xt<kRowsT>(xs, xn, row0, n, d, d0);
   const int col = c0 + threadIdx.x;
 #pragma unroll
   for (int k = 0; k < kDepth; ++k) {
@@ -1485,30 +1409,301 @@ fused_ce_bwd_dx_combine_kernel(const float* __restrict__ dx_part,
   }
 }
 
+// ---- fp32 dw: class tiles x row ranges (see the note at the head) -------
+//
+// Thread layout of the cosine tile [kDwRows rows][kDwCols classes]: warp w
+// covers rows 32 w .. + 31; lane l rows 4 (8 w + l / 4) + {0..3} and classes
+// 4 (l % 4) + {0..3, 16..19}, so a k step reads 128 B of xn^T and 2 x 64 B
+// of wn per warp (broadcast across lanes) for 32 FMAs a lane. The dw tile
+// [D][kDwCols], the mirror of bwd_dx's dx tile: warp w covers D columns
+// 64 w .. + 63; lane l classes 8 (l / 8) .. + 7 and columns 4 (l % 8) +
+// {0..3, 32..35}.
+
+constexpr int kDwRows = 256;   // rows of a dw row tile (4 a thread)
+constexpr int kDwDepth = 8;    // rows of one dw stage
+// dcos tile [row][class]: +4 puts the epilogue's float4 stores of a lane's
+// two neighbouring row groups on different banks
+constexpr int kDctPitch = kDwCols + 4;
+constexpr int kDwsPitch = kDwCols + 1;  // the final dw tile [k][class]
+static_assert(kDwRows * kDwCols == 32 * kThreads, "4 x 8 cosines a thread");
+
+// Floats of one ring slot of bwd_dw: a cosine stage (xn^T [kDepth]
+// [xs_pitch(kDwRows)], wn [kDepth][kDwCols], with kMem memn too) or a dw
+// stage (xn [kDwDepth][dx_pitch]), whichever is larger.
+__host__ __device__ inline int dw_slot(int d, bool mem) {
+  const int cos = kDepth * xs_pitch(kDwRows) + (mem ? 2 : 1) * kDepth * kDwCols;
+  const int rows = kDwDepth * dx_pitch(d);
+  return cos > rows ? cos : rows;
+}
+
+// Bytes: the ring and the dcos tile [kDwRows][kDctPitch]. The final dw tile
+// [D][kDwsPitch] reuses both.
+__host__ __device__ inline size_t dw_split_smem(int d, bool mem) {
+  return sizeof(float) * (kStages * static_cast<size_t>(dw_slot(d, mem)) +
+                          kDwRows * kDctPitch);
+}
+static_assert(kStages * (kDepth * xs_pitch(kDwRows) + kDepth * kDwCols) +
+                      kDwRows * kDctPitch >=
+                  kMaxSplitD * kDwsPitch,
+              "the final dw tile fits in the ring and the dcos tile");
+
+// Stage the cosine operands of the row tile at row0, depth d0: xn^T as in
+// stage_cos and wn[d0:d0+16, c0:c0+32] into ws [kDepth][kDwCols] (kMem:
+// memn into ms beside it), zero past D and C; a warp reads one row of the
+// class tile per k.
+template <bool kMem>
+__device__ __forceinline__ void stage_dw_cos(float* slot, const float* xn,
+                                             const float* wn,
+                                             const float* memn, int row0,
+                                             int n, int d, int c, int c0,
+                                             int d0) {
+  float* ws = slot + kDepth * xs_pitch(kDwRows);
+  float* ms = ws + kDepth * kDwCols;
+  stage_xt<kDwRows>(slot, xn, row0, n, d, d0);
+#pragma unroll
+  for (int it = 0; it < kDepth * kDwCols / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int k = i / kDwCols;
+    const int j = i % kDwCols;
+    const bool in = d0 + k < d && c0 + j < c;
+    const size_t at = static_cast<size_t>(d0 + k) * c + c0 + j;
+    cp_async4(ws + i, in ? wn + at : wn, in);
+    if constexpr (kMem) cp_async4(ms + i, in ? memn + at : memn, in);
+  }
+}
+
+// Stage rows [row0, row0 + kDwDepth) of xn into xr [kDwDepth][dx_pitch],
+// zero past N; columns of D past d are left as they are (the dw
+// accumulators they feed are never stored). Consecutive lanes read
+// consecutive floats of a row.
+__device__ __forceinline__ void stage_dw_rows(float* xr, const float* xn,
+                                              int row0, int n, int d) {
+  const int pitch = dx_pitch(d);
+#pragma unroll
+  for (int r = 0; r < kDwDepth; ++r) {
+    const bool in = row0 + r < n;
+    const float* src = in ? xn + static_cast<size_t>(row0 + r) * d : xn;
+    for (int k = threadIdx.x; k < d; k += kThreads)
+      cp_async4(xr + r * pitch + k, src + (in ? k : 0), in);
+  }
+}
+
+// One cosine stage of bwd_dw: kDepth steps of xn . wn (kMem: and xn . memn,
+// sharing the xn operand) into the thread's 4 x 8 tiles; r0 / j0 are its
+// first row and class.
+template <bool kMem>
+__device__ __forceinline__ void dw_cos_stage(float acc[4][8], float accm[4][8],
+                                             const float* slot, int r0,
+                                             int j0) {
+  constexpr int kPitch = xs_pitch(kDwRows);
+  const float* xs = slot;
+  const float* ws = xs + kDepth * kPitch;
+  const float* ms = ws + kDepth * kDwCols;
+#pragma unroll
+  for (int k = 0; k < kDepth; ++k) {
+    const float4 a[1] = {ld4(xs + k * kPitch + r0)};
+    const float* w = ws + k * kDwCols + j0;
+    fma_tile<1>(acc, a, ld4(w), ld4(w + 16));
+    if constexpr (kMem) {
+      const float* m = ms + k * kDwCols + j0;
+      fma_tile<1>(accm, a, ld4(m), ld4(m + 16));
+    }
+  }
+}
+
+// One dw stage: dw[8 classes, 8 columns of D] += dcos[rows, classes]^T .
+// xn[rows, columns] over the stage's kDwDepth rows (rows rt0 .. of the
+// dcos tile); j0 / k0 are the thread's first class and D column.
+__device__ __forceinline__ void dw_stage(float dwa[8][8], const float* xr,
+                                         const float* dct, int rt0, int pitch,
+                                         int j0, int k0) {
+#pragma unroll
+  for (int rr = 0; rr < kDwDepth; ++rr) {
+    const float* g = dct + (rt0 + rr) * kDctPitch + j0;
+    const float4 a[2] = {ld4(g), ld4(g + 4)};
+    const float* x = xr + rr * pitch + k0;
+    fma_tile<2>(dwa, a, ld4(x), ld4(x + 32));
+  }
+}
+
+// dw of one class tile over one row range, into out [S][D][C] (out is dw
+// itself when S = 1). One block per SM: a thread's 64 dw accumulators and
+// 32 cosine accumulators (64 with the blend) take most of its registers.
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_bwd_dw_split_kernel(const float* __restrict__ xn,
+                             const float* __restrict__ wn,
+                             const float* __restrict__ memn,
+                             const float* __restrict__ lam,
+                             const int* __restrict__ labels,
+                             const float* __restrict__ t,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ ab,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ g_lse,
+                             float* __restrict__ out, int n, int d, int c,
+                             int range_rows, int mode, int has_clamp,
+                             float clamp_eps) {
+  constexpr int nr = kDwRows / kDwDepth;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int slot = dw_slot(d, kMem);
+  float* dct = ring + kStages * slot;  // dcos (* (1 - lam)) [row][class]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 4 * (8 * warp + (lane >> 2));  // cosine rows and classes
+  const int j0 = 4 * (lane & 3);
+  const int dj0 = 8 * (lane >> 3);  // dw classes and D columns
+  const int dk0 = 64 * warp + 4 * (lane & 7);
+  const bool dw_warp = 64 * warp < d;
+  const int c0 = blockIdx.x * kDwCols;
+  const int pitch = dx_pitch(d);
+  // rows past the range's end are staged as zeros and given inert scalars
+  const int r_lo = blockIdx.y * range_rows;
+  const int r_hi = min(n, r_lo + range_rows);
+  const int nk = ceil_div(d, kDepth);
+  const int per_tile = nk + nr;  // cosine stages, then dw stages
+  const int total =
+      (r_hi > r_lo ? ceil_div(r_hi - r_lo, kDwRows) : 0) * per_tile;
+
+  auto prefetch = [&](int i) {
+    float* sp = ring + (i % kStages) * slot;
+    const int row0 = r_lo + (i / per_tile) * kDwRows;
+    const int sub = i % per_tile;
+    if (sub < nk)
+      stage_dw_cos<kMem>(sp, xn, wn, memn, row0, r_hi, d, c, c0,
+                         sub * kDepth);
+    else
+      stage_dw_rows(sp, xn, row0 + (sub - nk) * kDwDepth, r_hi, d);
+  };
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < total) prefetch(i);
+    cp_async_commit();
+  }
+  float acc[4][8], accm[4][8], dwa[8][8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dwa[q][e] = 0.0f;
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage i landed; stage i - 1's readers (and the
+                      // dcos tile's writers) done
+    if (i + kStages - 1 < total) prefetch(i + kStages - 1);
+    cp_async_commit();
+    const float* sp = ring + (i % kStages) * slot;
+    const int sub = i % per_tile;
+    if (sub >= nk) {
+      if (dw_warp)
+        dw_stage(dwa, sp, dct, (sub - nk) * kDwDepth, pitch, dj0, dk0);
+      continue;
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[q][e] = accm[q][e] = 0.0f;
+    }
+    dw_cos_stage<kMem>(acc, accm, sp, r0, j0);
+    if (sub != nk - 1) continue;
+    // the cosine tile is complete: the thread's dcos into dct, read by every
+    // warp in the dw stages that follow
+    const int row0 = r_lo + (i / per_tile) * kDwRows;
+    float lt[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = c0 + j0 + (e & 3) + 16 * (e >> 2);
+      lt[e] = kMem && col < c ? lam[col] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const Row r = load_row(row0 + r0 + q, r_hi, labels, t, nullptr, scale,
+                             ab, lse, g_lse, nullptr);
+      float unused_dt = 0.0f, unused_dsc = 0.0f;
+      float g[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float cs = acc[q][e];
+        if constexpr (kMem) cs = (1.0f - lt[e]) * cs + lt[e] * accm[q][e];
+        g[e] = dcos_of(cs, c0 + j0 + (e & 3) + 16 * (e >> 2), c, r, mode,
+                       has_clamp, clamp_eps, &unused_dt, &unused_dsc);
+        // only the weight-cosine share reaches W
+        if constexpr (kMem) g[e] *= 1.0f - lt[e];
+      }
+      float* o = dct + (r0 + q) * kDctPitch + j0;
+      *reinterpret_cast<float4*>(o) = make_float4(g[0], g[1], g[2], g[3]);
+      *reinterpret_cast<float4*>(o + 16) = make_float4(g[4], g[5], g[6], g[7]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring and the dcos tile are free: dw [D][kDwsPitch]
+  float* dws = ring;
+  if (dw_warp) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = dk0 + (e & 3) + 32 * (e >> 2);
+        if (k < d) dws[k * kDwsPitch + dj0 + q] = dwa[q][e];
+      }
+  }
+  __syncthreads();
+  if (c0 + lane >= c) return;
+  float* o = out + static_cast<size_t>(blockIdx.y) * d * c + c0 + lane;
+  for (int k = warp; k < d; k += kThreads / 32)
+    o[static_cast<size_t>(k) * c] = dws[k * kDwsPitch + lane];
+}
+
+// dw = sum_s part[s], in the order s = 0, 1, ...
+__global__ void __launch_bounds__(kThreads)
+fused_ce_bwd_dw_combine_kernel(const float* __restrict__ part,
+                               float* __restrict__ dw, size_t elems,
+                               int splits) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= elems) return;
+  float sum = 0.0f;
+  for (int s = 0; s < splits; ++s) sum += part[s * elems + i];
+  dw[i] = sum;
+}
+
 // Columns per class range of the fwd (which 0, 3) or bwd_dx (1, 4): whole
 // 256-wide tiles, as many per range as keep at least two blocks per SM
 // (row tiles x ranges) where C allows it.
-int range_cols(int which, int n, int c) {
+int sm_count() {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+int range_cols(int which, int n, int c) {
   const int ctiles = ceil_div(c, kSplitCols);
-  const int want = ceil_div(2 * sms, ceil_div(n, split_rows(which % 3 == 1)));
+  const int want =
+      ceil_div(2 * sm_count(), ceil_div(n, split_rows(which % 3 == 1)));
   return (want >= ctiles ? 1 : ctiles / want) * kSplitCols;
+}
+
+// Rows per row range of bwd_dw (which 2, 5): whole 256-row tiles, as many
+// per range as keep at least two blocks per SM (class tiles x ranges) where
+// N allows it.
+int range_rows(int n, int c) {
+  const int rtiles = ceil_div(n, kDwRows);
+  const int want = ceil_div(2 * sm_count(), max(1, ceil_div(c, kDwCols)));
+  return (want >= rtiles ? 1 : rtiles / want) * kDwRows;
 }
 
 int num_splits(int c, int cols) { return c > 0 ? ceil_div(c, cols) : 1; }
 
-// Workspace floats of the fp32 fwd (which 0, 3) and bwd_dx (1, 4) entries.
+// Workspace floats of the fp32 fwd (which 0, 3), bwd_dx (1, 4) and bwd_dw
+// (2, 5) entries; bwd_dw takes none when it runs a single row range.
 size_t workspace_floats(int which, int n, int d, int c) {
+  if (which % 3 == 2) {
+    const size_t s = num_splits(n, range_rows(n, c));
+    return s > 1 ? s * d * c : 0;
+  }
   const size_t s = num_splits(c, range_cols(which, n, c));
   if (which % 3 == 0) return 3 * s * n;
   return s * n * round4(d) + 2 * s * n;
-}
-
-size_t dw_smem(int d, bool mem) {
-  return sizeof(float) * ((mem ? 3 : 2) * d * kDwCols + kRows * d +
-                          kRows * kDwCols);
 }
 
 size_t smem_bytes(int which, int d) {
@@ -1517,7 +1712,7 @@ size_t smem_bytes(int which, int d) {
   if (which >= 6)
     return k == 2 ? dw_bf16_layout(d, mem).total
                   : bf_layout(d, mem, k == 1).total;
-  return k == 2 ? dw_smem(d, mem) : split_smem(d, mem, k == 1);
+  return k == 2 ? dw_split_smem(d, mem) : split_smem(d, mem, k == 1);
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -1629,15 +1824,49 @@ int launch_bwd_dx_bf16(const float* xn, const float* wn, const float* memn,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kMem, bool kBf16>
+// fused_ce_bwd_dw(_mem), the counterpart of the dw half of _bwd_fused_kernel
+// (K2) and of _bwd_dw_kernel (K3b; with the blend their has_mem bodies,
+// K4). Bound by fp32 operations: 0.166 ms (bwd_dw_mem 0.248 ms dense) at
+// N=512, D=512, C=10,575. The split kernel puts ceil(C / 32) x S blocks on
+// the card, each recomputing the cosines of its row range tile by tile and
+// adding xn^T . dcos into a dw accumulator in registers; with S > 1 the
+// combine sums the ranges' partials in order of range.
+template <bool kMem>
 int launch_bwd_dw(const float* xn, const float* wn, const float* memn,
                   const float* lam, const int* labels, const float* t,
                   const float* scale, const float* ab, const float* lse,
-                  const float* g_lse, float* dw, int n, int d, int c, int mode,
-                  int has_clamp, float clamp_eps, void* stream) {
-  const size_t smem = smem_bytes((kBf16 ? 8 : 2) + (kMem ? 3 : 0), d);
-  auto* kernel = kBf16 ? fused_ce_bwd_dw_bf16_kernel<kMem>
-                       : fused_ce_bwd_dw_kernel<kMem>;
+                  const float* g_lse, float* dw, float* ws, int n, int d,
+                  int c, int mode, int has_clamp, float clamp_eps,
+                  void* stream) {
+  if (d > kMaxSplitD) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = dw_split_smem(d, kMem);
+  auto* kernel = fused_ce_bwd_dw_split_kernel<kMem>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = range_rows(n, c);
+  const int splits = num_splits(n, rows);
+  const auto st = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3(ceil_div(c, kDwCols), splits), kThreads, smem, st>>>(
+      xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse,
+      splits > 1 ? ws : dw, n, d, c, rows, mode, has_clamp, clamp_eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t elems = static_cast<size_t>(d) * c;
+  fused_ce_bwd_dw_combine_kernel<<<
+      static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
+      st>>>(ws, dw, elems, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMem>
+int launch_bwd_dw_bf16(const float* xn, const float* wn, const float* memn,
+                       const float* lam, const int* labels, const float* t,
+                       const float* scale, const float* ab, const float* lse,
+                       const float* g_lse, float* dw, int n, int d, int c,
+                       int mode, int has_clamp, float clamp_eps,
+                       void* stream) {
+  const size_t smem = smem_bytes(8 + (kMem ? 3 : 0), d);
+  auto* kernel = fused_ce_bwd_dw_bf16_kernel<kMem>;
   cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (c + kDwCols - 1) / kDwCols;
@@ -1664,9 +1893,14 @@ int fused_ce_range_cols(int which, int n, int c) {
   return range_cols(which, n, c);
 }
 
-// Floats of the workspace the fp32 fwd (which 0, 3) or bwd_dx (1, 4) entry
-// takes: fwd [S][3][N] (m, l, higher per range); bwd_dx [S][N][round4(D)]
-// dx partials followed by [S][2][N] (dt, dscale without the direct path).
+// Rows per row range of the fp32 bwd_dw (which 2, 5) at (n, c) on the
+// current device; the number of ranges is ceil(n / rows) (1 if n = 0).
+int fused_ce_dw_range_rows(int n, int c) { return range_rows(n, c); }
+
+// Floats of the workspace the fp32 fwd (which 0, 3), bwd_dx (1, 4) or
+// bwd_dw (2, 5) entry takes: fwd [S][3][N] (m, l, higher per range);
+// bwd_dx [S][N][round4(D)] dx partials followed by [S][2][N] (dt, dscale
+// without the direct path); bwd_dw [S][D][C] dw partials, none if S = 1.
 size_t fused_ce_workspace_floats(int which, int n, int d, int c) {
   return workspace_floats(which, n, d, c);
 }
@@ -1694,8 +1928,18 @@ int fused_ce_bwd_dx_combine(const float* dx_part, const float* row_part,
   return static_cast<int>(cudaGetLastError());
 }
 
-// IEEE fp32 entries. fwd and bwd_dx take a workspace
-// (fused_ce_workspace_floats) after their outputs; each launches its split kernel and then its combine.
+int fused_ce_bwd_dw_combine(const float* part, float* dw, int d, int c,
+                            int splits, void* stream) {
+  const size_t elems = static_cast<size_t>(d) * c;
+  fused_ce_bwd_dw_combine_kernel<<<
+      static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
+      static_cast<cudaStream_t>(stream)>>>(part, dw, elems, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// IEEE fp32 entries. Each takes a workspace (fused_ce_workspace_floats)
+// after its outputs and launches its split kernel and then its combine
+// (bwd_dw: only when it runs more than one row range).
 int fused_ce_fwd(const float* xn, const float* wn, const int* labels,
                  const float* t, const float* tcos, const float* scale,
                  const float* ab, float* lse, float* tlogit, float* higher,
@@ -1719,12 +1963,12 @@ int fused_ce_bwd_dx(const float* xn, const float* wn, const int* labels,
 
 int fused_ce_bwd_dw(const float* xn, const float* wn, const int* labels,
                     const float* t, const float* scale, const float* ab,
-                    const float* lse, const float* g_lse, float* dw, int n,
-                    int d, int c, int mode, int has_clamp, float clamp_eps,
-                    void* stream) {
-  return launch_bwd_dw<false, false>(xn, wn, nullptr, nullptr, labels, t,
-                                     scale, ab, lse, g_lse, dw, n, d, c, mode,
-                                     has_clamp, clamp_eps, stream);
+                    const float* lse, const float* g_lse, float* dw,
+                    float* ws, int n, int d, int c, int mode, int has_clamp,
+                    float clamp_eps, void* stream) {
+  return launch_bwd_dw<false>(xn, wn, nullptr, nullptr, labels, t, scale, ab,
+                              lse, g_lse, dw, ws, n, d, c, mode, has_clamp,
+                              clamp_eps, stream);
 }
 
 int fused_ce_fwd_mem(const float* xn, const float* wn, const float* memn,
@@ -1753,12 +1997,12 @@ int fused_ce_bwd_dx_mem(const float* xn, const float* wn, const float* memn,
 int fused_ce_bwd_dw_mem(const float* xn, const float* wn, const float* memn,
                         const float* lam, const int* labels, const float* t,
                         const float* scale, const float* ab, const float* lse,
-                        const float* g_lse, float* dw, int n, int d, int c,
-                        int mode, int has_clamp, float clamp_eps,
-                        void* stream) {
-  return launch_bwd_dw<true, false>(xn, wn, memn, lam, labels, t, scale, ab,
-                                    lse, g_lse, dw, n, d, c, mode, has_clamp,
-                                    clamp_eps, stream);
+                        const float* g_lse, float* dw, float* ws, int n,
+                        int d, int c, int mode, int has_clamp,
+                        float clamp_eps, void* stream) {
+  return launch_bwd_dw<true>(xn, wn, memn, lam, labels, t, scale, ab, lse,
+                             g_lse, dw, ws, n, d, c, mode, has_clamp,
+                             clamp_eps, stream);
 }
 
 // bf16 tensor-core entries: the arguments of the fp32 ones, without
@@ -1789,9 +2033,9 @@ int fused_ce_bwd_dw_bf16(const float* xn, const float* wn, const int* labels,
                          const float* lse, const float* g_lse, float* dw,
                          int n, int d, int c, int mode, int has_clamp,
                          float clamp_eps, void* stream) {
-  return launch_bwd_dw<false, true>(xn, wn, nullptr, nullptr, labels, t,
-                                    scale, ab, lse, g_lse, dw, n, d, c, mode,
-                                    has_clamp, clamp_eps, stream);
+  return launch_bwd_dw_bf16<false>(xn, wn, nullptr, nullptr, labels, t,
+                                   scale, ab, lse, g_lse, dw, n, d, c, mode,
+                                   has_clamp, clamp_eps, stream);
 }
 
 int fused_ce_fwd_mem_bf16(const float* xn, const float* wn, const float* memn,
@@ -1825,9 +2069,9 @@ int fused_ce_bwd_dw_mem_bf16(const float* xn, const float* wn,
                              const float* lse, const float* g_lse, float* dw,
                              int n, int d, int c, int mode, int has_clamp,
                              float clamp_eps, void* stream) {
-  return launch_bwd_dw<true, true>(xn, wn, memn, lam, labels, t, scale, ab,
-                                   lse, g_lse, dw, n, d, c, mode, has_clamp,
-                                   clamp_eps, stream);
+  return launch_bwd_dw_bf16<true>(xn, wn, memn, lam, labels, t, scale, ab,
+                                  lse, g_lse, dw, n, d, c, mode, has_clamp,
+                                  clamp_eps, stream);
 }
 
 }  // extern "C"

@@ -32,9 +32,13 @@ The fp32 `fused_ce_fwd(_mem)` and `fused_ce_bwd_dx(_mem)` split the class
 axis into ranges (`split_ranges`), one block per row tile and range, and
 combine the ranges' partials in a second launch in a fixed order: per row
 (m, l, higher) with lse = M + log sum_s l_s exp(m_s - M), and dx, dt,
-dscale summed. The wrappers allocate the workspace of partials (O(S N) for
-the forward, O(S N D) for dx). `fused_ce_{fwd,bwd_dx}_partials_plain` and
-`fused_ce_{fwd,bwd_dx}_combine_plain` are that decomposition in plain
+dscale summed. The fp32 `fused_ce_bwd_dw(_mem)` splits the row axis the
+same way, one block per 32-wide class tile and row range (`dw_split_plan`),
+and where it runs more than one range sums the ranges' dw in a second
+launch. The wrappers allocate the workspace of partials (O(S N) for the
+forward, O(S N D) for dx, O(S D C) for dw when S > 1).
+`fused_ce_{fwd,bwd_dx,bwd_dw}_partials_plain` and
+`fused_ce_{fwd,bwd_dx,bwd_dw}_combine_plain` are that decomposition in plain
 PyTorch, for the tests and the card checks; the main path never calls them.
 
 `mm_dtype=torch.bfloat16` (the JAX package's `mm_dtype=jnp.bfloat16`) runs
@@ -66,9 +70,9 @@ launch_counts = {name + suffix: 0 for suffix in ("", "_bf16")
                  for name in _KERNELS}
 # Per-block shared memory of an H100 (bytes); bounds the embedding width.
 _MAX_SMEM = 232_448
-# Widest embedding of the fp32 bwd_dx kernels: a lane holds its dx columns
-# in registers (at most 16 of 512).
-_MAX_DX_WIDTH = 512
+# Widest embedding of the fp32 bwd_dx and bwd_dw kernels: 8 warps hold 64
+# columns of D each of the dx (dw) accumulator in registers.
+_MAX_SPLIT_WIDTH = 512
 # A range with no valid column carries this max logit (the kernels' -1e30).
 _NEG_INF = -1e30
 
@@ -268,13 +272,15 @@ def fused_ce_bwd_dw_mem_plain(xn, wn, memn, lam, labels, t, scale, ab, lse,
 
 
 # ---------------------------------------------------------------------------
-# The split-C decomposition of the fp32 fwd and bwd_dx, in plain PyTorch
+# The split decomposition of the fp32 kernels, in plain PyTorch: fwd and
+# bwd_dx over class ranges, bwd_dw over row ranges
 # ---------------------------------------------------------------------------
 
 
 def split_ranges(c: int, splits: int, range_cols: int):
-    """[(lo, hi)] column bounds of the `splits` class ranges of `range_cols`
-    columns each; ranges past C are empty."""
+    """[(lo, hi)] bounds of the `splits` ranges of `range_cols` entries each
+    along an axis of length c (classes, or rows for dw); ranges past c are
+    empty."""
     return [(min(c, s * range_cols), min(c, (s + 1) * range_cols))
             for s in range(splits)]
 
@@ -342,6 +348,30 @@ def fused_ce_bwd_dx_combine_plain(dx_parts, row_parts, t, scale, g_t):
     return dx_parts.sum(0), dt + g_t * scale, dscale + g_t * t
 
 
+def fused_ce_bwd_dw_partials_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
+                                   mode: int,
+                                   clamp_eps: Optional[float] = None, *,
+                                   splits: int, range_rows: int, memn=None,
+                                   lam=None) -> torch.Tensor:
+    """Per-range partials of dw, [S, D, C]: xn^T . dcos over the rows of
+    each range (a range past N gives zeros). With memn and lam, the
+    dcos * (1 - lam) share."""
+    dcos, _, _ = _dcos_terms_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
+                                   mode, clamp_eps, memn, lam)
+    if memn is not None:
+        dcos = dcos * (1.0 - lam)
+    return torch.stack([xn[lo:hi].T @ dcos[lo:hi] for lo, hi
+                        in split_ranges(xn.shape[0], splits, range_rows)])
+
+
+def fused_ce_bwd_dw_combine_plain(parts) -> torch.Tensor:
+    """dw: the ranges' partials summed in the order s = 0, 1, ..."""
+    dw = parts[0].clone()
+    for p in parts[1:]:
+        dw += p
+    return dw
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -357,14 +387,14 @@ def _lib():
 
     lib = _build.load("fused_head")
     if not getattr(lib, "_typed", False):
-        # each _mem entry takes memn and lam right after wn; the fp32 fwd
-        # and bwd_dx a workspace after their outputs; each _bf16 entry the
+        # each _mem entry takes memn and lam right after wn; each fp32
+        # entry a workspace after its outputs; each _bf16 entry the
         # arguments of its fp32 counterpart without the workspace
         for name, ptrs in (("fused_ce_fwd", 10), ("fused_ce_bwd_dx", 12),
                            ("fused_ce_bwd_dw", 9)):
             for mem, extra in (("", 0), ("_mem", 2)):
                 for bf16 in ("", "_bf16"):
-                    ws = int(not bf16 and name != "fused_ce_bwd_dw")
+                    ws = int(not bf16)
                     fn = getattr(lib, name + mem + bf16)
                     fn.argtypes = ([_P] * (ptrs + extra + ws) + [_I] * 5
                                    + [_F, _P])
@@ -373,12 +403,16 @@ def _lib():
         lib.fused_ce_smem_bytes.restype = ctypes.c_size_t
         lib.fused_ce_range_cols.argtypes = [_I] * 3
         lib.fused_ce_range_cols.restype = _I
+        lib.fused_ce_dw_range_rows.argtypes = [_I] * 2
+        lib.fused_ce_dw_range_rows.restype = _I
         lib.fused_ce_workspace_floats.argtypes = [_I] * 4
         lib.fused_ce_workspace_floats.restype = ctypes.c_size_t
         lib.fused_ce_fwd_combine.argtypes = [_P] * 6 + [_I] * 2 + [_P]
         lib.fused_ce_fwd_combine.restype = _I
         lib.fused_ce_bwd_dx_combine.argtypes = [_P] * 8 + [_I] * 3 + [_P]
         lib.fused_ce_bwd_dx_combine.restype = _I
+        lib.fused_ce_bwd_dw_combine.argtypes = [_P] * 2 + [_I] * 3 + [_P]
+        lib.fused_ce_bwd_dw_combine.restype = _I
         lib._typed = True
     return lib
 
@@ -440,6 +474,13 @@ def _ptr(x):
     return x.data_ptr()
 
 
+def _check_width(name, which, d):
+    """The fp32 bwd_dx and bwd_dw kernels take D up to _MAX_SPLIT_WIDTH."""
+    if which < 6 and which % 3 and d > _MAX_SPLIT_WIDTH:
+        raise ValueError(f"{name}: embedding width {d} above the kernel's "
+                         f"{_MAX_SPLIT_WIDTH}")
+
+
 def _eps_args(clamp_eps):
     return (0, 0.0) if clamp_eps is None else (1, float(clamp_eps))
 
@@ -454,9 +495,17 @@ def split_plan(n: int, c: int, dx: bool = False,
     return max(1, -(-c // cols)), cols
 
 
+def dw_split_plan(n: int, c: int, device=None) -> Tuple[int, int]:
+    """(ranges S, rows per range) of the fp32 bwd_dw kernels at (n, c) on
+    the card `device`: at least two blocks per SM where N allows."""
+    with torch.cuda.device(device):
+        rows = _lib().fused_ce_dw_range_rows(n, c)
+    return max(1, -(-n // rows)), rows
+
+
 def _workspace(which, n, d, c, device):
-    """() for a bf16 entry; else the workspace of partials its fp32 fwd /
-    bwd_dx entry fills (fused_ce_workspace_floats)."""
+    """() for a bf16 entry; else the workspace of partials its fp32 entry
+    fills (fused_ce_workspace_floats; empty for a bwd_dw of one range)."""
     if which >= 6:
         return ()
     floats = _lib().fused_ce_workspace_floats(which, n, d, c)
@@ -491,9 +540,7 @@ def _bwd_dx(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, g_t,
     name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, scale, lse, g_lse, g_t), ab, mem)
     n, d = xn.shape
-    if which < 6 and d > _MAX_DX_WIDTH:
-        raise ValueError(f"{name}: embedding width {d} above the kernel's "
-                         f"{_MAX_DX_WIDTH}")
+    _check_width(name, which, d)
     dx = torch.empty_like(xn)
     rows = torch.empty((2, n), dtype=torch.float32, device=xn.device)
     if n:
@@ -561,17 +608,42 @@ def fused_ce_bwd_dx_combine(dx_parts, row_parts, t, scale, g_t):
 
 
 def _bwd_dw(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, mode,
-            clamp_eps, mm_dtype):
+            clamp_eps, mm_dtype, parts=None):
+    """The dw entry; `parts`, a list, receives the workspace of per-range
+    partials of an fp32 launch ([S, D, C] flattened; empty when S = 1, where
+    the kernel writes dw itself)."""
     name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, scale, lse, g_lse), ab, mem)
     n, d = xn.shape
+    _check_width(name, which, d)
     dw = torch.zeros_like(wn) if n == 0 else torch.empty_like(wn)
     if n:
         with torch.cuda.device(xn.device):
+            ws = _workspace(which, n, d, wn.shape[1], xn.device)
             _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
                     _ptr(labels), _ptr(t), _ptr(scale), _ptr(ab), _ptr(lse),
-                    _ptr(g_lse), _ptr(dw), n, d, wn.shape[1], mode,
-                    *_eps_args(clamp_eps))
+                    _ptr(g_lse), _ptr(dw), *map(_ptr, ws), n, d, wn.shape[1],
+                    mode, *_eps_args(clamp_eps))
+            if parts is not None:
+                parts.extend(ws)
+    return dw
+
+
+def fused_ce_bwd_dw_combine(parts):
+    """dw's combine on partials [S, D, C] (the combine kernel on the card,
+    `fused_ce_bwd_dw_combine_plain` on the CPU)."""
+    if parts.device.type == "cpu":
+        return fused_ce_bwd_dw_combine_plain(parts)
+    splits, d, c = parts.shape
+    parts = parts.contiguous()
+    dw = torch.empty((d, c), dtype=torch.float32, device=parts.device)
+    with torch.cuda.device(parts.device):
+        err = _lib().fused_ce_bwd_dw_combine(
+            _ptr(parts), _ptr(dw), d, c, splits,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_ce_bwd_dw_combine: CUDA error {err} at "
+                           "launch")
     return dw
 
 

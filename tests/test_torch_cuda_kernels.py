@@ -1,7 +1,8 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
 card: the three margin + CE kernels, their memory-blended (_mem) variants,
-the split-C decomposition of the fp32 fwd and bwd_dx (partials, combine,
-bitwise determinism),
+the split decomposition of the fp32 fwd and bwd_dx over class ranges and
+of the fp32 bwd_dw over row ranges (partials, combine, bitwise
+determinism),
 the bf16 tensor-core versions of all six (_bf16), and the implicit-GEMM
 3x3 conv. Marked `cuda`: they skip where there is no CUDA device. On a
 machine with a card (the JAX package need not be installed there):
@@ -179,7 +180,7 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fh.fused_ce_fwd(xn, wn.T.contiguous().T, labels, t, tcos, scale, ab,
                         0)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="embedding width 4096"):
         wide = torch.zeros(8, 4096, device=cuda)
         fh.fused_ce_bwd_dw(wide, torch.zeros(4096, 50, device=cuda), labels,
                            t, scale, ab, t, t, 0)
@@ -187,9 +188,8 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="memn"):
         fh.fused_ce_fwd_mem(xn, wn, memn[:, :40].contiguous(), lam, labels,
                             t, tcos, scale, ab, 0)
-    with pytest.raises(ValueError, match="shared memory"):
-        # 3 x 640 x 32 x 4 B for the resident wn / memn / dw tiles alone
-        # leaves the 232,448 B limit behind
+    with pytest.raises(ValueError, match="embedding width 640"):
+        # 8 warps x 64 columns of D hold the dw accumulator: D <= 512
         d = 640
         fh.fused_ce_bwd_dw_mem(
             torch.zeros(8, d, device=cuda), torch.zeros(d, 50, device=cuda),
@@ -282,6 +282,57 @@ def test_split_dx_rejects_wide_embeddings(cuda):
     with pytest.raises(ValueError, match="embedding width"):
         fh.fused_ce_bwd_dx(wide, torch.zeros(640, 50, device=cuda), labels,
                            t, scale, ab, t, t, t, 0)
+
+
+# The fp32 bwd_dw splits N into ranges of whole 256-row tiles where the
+# class tiles (32 wide) leave the card short of two blocks per SM. These
+# shapes give N = 1, D = 72 and 512, class tiles that C does not fill, and
+# (dw_split_plan) 3, 2 and 3 row ranges with a ragged last range.
+DW_SHAPES = [(1, 512, 100), (24, 72, 100), (600, 72, 300), (300, 200, 33),
+             (520, 512, 1000)]
+
+
+@pytest.mark.parametrize("n,d,c", DW_SHAPES)
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_split_dw_kernels_partials_combine_determinism(cuda, n, d, c, mode,
+                                                       clamp_eps, mem):
+    """The fp32 bwd_dw entries: dw against the unsplit plain version, each
+    row range's partials against fused_ce_bwd_dw_partials_plain, the combine
+    kernel against its plain version, two launches bitwise equal, and with
+    the blend exact zeros in the lam = 1 columns."""
+    xn, wn, labels, t, tcos, scale, ab = _inputs(n, d, c, mode, n + d + mode,
+                                                 cuda)
+    extra = _mem_inputs(d, c, n + 7 * mode, cuda) if mem else ()
+    kw = dict(memn=extra[0], lam=extra[1]) if mem else {}
+    sfx, which = ("_mem", 5) if mem else ("", 2)
+    ref = getattr(fh, f"fused_margin_ce{sfx}_plain")(
+        xn, wn, *extra, labels, t, tcos, scale, ab, mode, clamp_eps)
+    g_lse = torch.full_like(t, 1.0 / n)
+    bwd = (labels, t, scale, ab, ref.lse, g_lse)
+    want = getattr(fh, f"fused_ce_bwd_dw{sfx}_plain")(xn, wn, *extra, *bwd,
+                                                      mode, clamp_eps)
+    splits, rows = fh.dw_split_plan(n, c)
+    assert splits == (3 if n in (520, 600) else 2 if n == 300 else 1)
+    fh.reset_launch_counts()
+    outs, parts = [], []
+    for _ in range(2):
+        outs.append(fh._bwd_dw("fused_ce_bwd_dw" + sfx, which, xn, wn, extra,
+                               *bwd, mode, clamp_eps, torch.float32, parts))
+    torch.cuda.synchronize()
+    assert fh.launch_counts["fused_ce_bwd_dw" + sfx] == 2
+    _grad_close(outs[0], want)
+    assert torch.equal(outs[0], outs[1])
+    want_parts = fh.fused_ce_bwd_dw_partials_plain(
+        xn, wn, *bwd, mode, clamp_eps, splits=splits, range_rows=rows, **kw)
+    if splits > 1:
+        _grad_close(parts[0].view(splits, d, c), want_parts)
+    else:
+        assert parts[0].numel() == 0
+    _grad_close(fh.fused_ce_bwd_dw_combine(want_parts),
+                fh.fused_ce_bwd_dw_combine_plain(want_parts))
+    if mem:
+        assert float(outs[0][:, extra[1] == 1].abs().max()) == 0.0
 
 
 def _bf16_grad_close(got, want, term):

@@ -1,17 +1,21 @@
-"""The split-C decomposition of the port's fp32 forward and dx kernels
-against the unsplit head and the JAX package's.
+"""The split decomposition of the port's fp32 kernels against the unsplit
+head and the JAX package's.
 
 On the card `fused_ce_fwd(_mem)` and `fused_ce_bwd_dx(_mem)` cut the class
 axis into ranges, compute per-range partials (m, l, higher; dx, dt, dscale)
-and combine them in a second launch. `fused_ce_*_partials_plain` and
+and combine them in a second launch; `fused_ce_bwd_dw(_mem)` cuts the row
+axis into ranges and sums their dw. `fused_ce_*_partials_plain` and
 `fused_ce_*_combine_plain` are that decomposition in plain PyTorch; here it
 runs for S = 1, 3, 7 and 10 ranges of whole 16-column tiles at C = 100 (not
-a tile multiple; S = 10 leaves three ranges empty) and is held against the
+a tile multiple; S = 10 leaves three ranges empty), or of ceil(N / S) rows
+at N = 24 (S = 7 and 10 leave ranges past N), and is held against the
 unsplit plain versions, the JAX package's `fused_margin_ce` /
 `fused_margin_ce_mem` in interpret mode (block_n=16, block_c=64, as
-tests/test_torch_fused_head.py runs them), and the JAX backward for dx, dt
-and dscale. Inputs are made with numpy from a seed: all three margin modes,
-an out-of-range label, and for the memory blend lam mixing 0, 0.15 and 1.
+tests/test_torch_fused_head.py runs them), and the JAX backward for dx, dt,
+dscale and dw: its single sweep (_bwd_fused_kernel) and, for dw, its
+two-kernel form (_bwd_dw_kernel, K3b). Inputs are made with numpy from a
+seed: all three margin modes, an out-of-range label, and for the memory
+blend lam mixing 0, 0.15 and 1.
 
 Tolerances are those of tests/test_torch_fused_head.py and
 tests/test_torch_fused_head_mem.py: lse / target logit rtol = atol = 2e-5
@@ -75,7 +79,7 @@ def _inputs(mode, seed=0):
 
 @functools.lru_cache(maxsize=None)
 def _jax_reference(mode, clamp_eps, mem):
-    """The JAX head's (lse, target_logit, higher, dx, dt, dscale)."""
+    """The JAX head's (lse, target_logit, higher, dx, dt, dscale, dw)."""
     x = _inputs(mode)
     const = {k: jnp.asarray(x[k]) for k in ("memn", "lam", "labels", "tcos",
                                              "ab")}
@@ -92,10 +96,10 @@ def _jax_reference(mode, clamp_eps, mem):
 
     out, vjp = jax.vjp(jfun, *(jnp.asarray(x[k])
                                for k in ("xn", "wn", "t", "scale")))
-    dx, _, dt, dscale = vjp(jfh.FusedHeadOut(
+    dx, dw, dt, dscale = vjp(jfh.FusedHeadOut(
         jnp.asarray(x["g_lse"]), jnp.asarray(x["g_t"]),
         jnp.zeros(N, jnp.float32)))
-    return tuple(np.asarray(v) for v in (*out, dx, dt, dscale))
+    return tuple(np.asarray(v) for v in (*out, dx, dt, dscale, dw))
 
 
 def _split(x, mode, clamp_eps, mem, splits, range_cols):
@@ -153,8 +157,8 @@ def test_split_then_combine_matches_unsplit_and_jax(splits, mode, clamp_eps,
     for a, b in zip(grads, ref_grads):
         torch.testing.assert_close(a, b, **GRAD_TOL[mem])
 
-    jlse, jtlogit, jhigher, jdx, jdt, jdscale = _jax_reference(mode,
-                                                               clamp_eps, mem)
+    jlse, jtlogit, jhigher, jdx, jdt, jdscale, _ = _jax_reference(
+        mode, clamp_eps, mem)
     np.testing.assert_allclose(out.lse.numpy(), jlse, **OUT_TOL)
     np.testing.assert_allclose(out.target_logit.numpy(), jtlogit, **OUT_TOL)
     np.testing.assert_array_equal(out.higher.numpy(), jhigher)
@@ -206,4 +210,101 @@ def test_combine_wrappers_compute_plain_versions_on_cpu():
             tfh.fused_ce_bwd_dx_combine_plain(dx_parts, row_parts, x["t"],
                                               x["scale"], x["g_t"])):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    dw_parts = _dw_split(x, tfh.MODE_MV, 1e-7, True, 3)
+    torch.testing.assert_close(tfh.fused_ce_bwd_dw_combine(dw_parts),
+                               tfh.fused_ce_bwd_dw_combine_plain(dw_parts),
+                               rtol=0, atol=0)
     assert all(v == 0 for v in tfh.launch_counts.values())
+
+
+def _dw_split(x, mode, clamp_eps, mem, splits):
+    """dw's per-range partials [S, D, C] in plain PyTorch, over S ranges of
+    ceil(N / S) rows, with the lse of the unsplit plain forward."""
+    kw = dict(memn=x["memn"], lam=x["lam"]) if mem else {}
+    out, _ = _unsplit(x, mode, clamp_eps, mem)
+    return tfh.fused_ce_bwd_dw_partials_plain(
+        x["xn"], x["wn"], x["labels"], x["t"], x["scale"], x["ab"], out.lse,
+        x["g_lse"], mode, clamp_eps, splits=splits,
+        range_rows=_ceil(N, splits), **kw)
+
+
+def _dw_unsplit(x, mode, clamp_eps, mem):
+    extra = (x["memn"], x["lam"]) if mem else ()
+    out, _ = _unsplit(x, mode, clamp_eps, mem)
+    return getattr(tfh, f"fused_ce_bwd_dw{'_mem' if mem else ''}_plain")(
+        x["xn"], x["wn"], *extra, x["labels"], x["t"], x["scale"], x["ab"],
+        out.lse, x["g_lse"], mode, clamp_eps)
+
+
+def _check_dw_split(x, mode, clamp_eps, mem, splits, *wants):
+    """Split-then-combine of dw over `splits` row ranges against each of
+    `wants`: ranges past N carry exact zeros, and with the blend the lam = 1
+    columns of every partial and of dw are exactly 0."""
+    parts = _dw_split(x, mode, clamp_eps, mem, splits)
+    assert parts.shape == (splits, D, C)
+    for part, (lo, hi) in zip(parts, tfh.split_ranges(N, splits,
+                                                      _ceil(N, splits))):
+        if hi == lo:
+            assert float(part.abs().max()) == 0.0
+    dw = tfh.fused_ce_bwd_dw_combine_plain(parts)
+    if mem:
+        assert float(parts[:, :, x["lam"] == 1].abs().max()) == 0.0
+        assert float(dw[:, x["lam"] == 1].abs().max()) == 0.0
+    for want in wants:
+        np.testing.assert_allclose(dw.numpy(), want, **GRAD_TOL[mem])
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7, 10])
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_dw_split_then_combine_matches_unsplit_and_jax(splits, mode,
+                                                       clamp_eps, mem):
+    """dw over S row ranges, summed in range order, against the unsplit
+    plain dw and the JAX single-sweep backward's."""
+    x = {k: torch.tensor(v) for k, v in _inputs(mode).items()}
+    _check_dw_split(x, mode, clamp_eps, mem, splits,
+                    _dw_unsplit(x, mode, clamp_eps, mem).numpy(),
+                    _jax_reference(mode, clamp_eps, mem)[-1])
+
+
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_dw_split_matches_jax_two_kernel_backward(monkeypatch, mode,
+                                                  clamp_eps, mem):
+    """The JAX package takes its two-kernel backward (_bwd_dx_kernel, then
+    _bwd_dw_kernel: K3b) when the dx scratch would pass its VMEM budget; a
+    budget of 0 sends N = 24 there. dw split over S = 1, 3, 7 and 10 row
+    ranges against that dw."""
+    calls = []
+
+    def counted(*refs, **kw):
+        calls.append(1)
+        return bwd_dw_kernel(*refs, **kw)
+
+    bwd_dw_kernel = jfh._bwd_dw_kernel
+    monkeypatch.setattr(jfh, "_DX_SCRATCH_BUDGET", 0)
+    monkeypatch.setattr(jfh, "_bwd_dw_kernel", counted)
+    x = _inputs(mode)
+    const = {k: jnp.asarray(x[k]) for k in ("memn", "lam", "labels", "tcos",
+                                             "ab")}
+
+    def jfun(wn_):
+        if mem:
+            return jfh.fused_margin_ce_mem(
+                jnp.asarray(x["xn"]), wn_, const["memn"], const["lam"],
+                const["labels"], jnp.asarray(x["t"]), const["tcos"],
+                jnp.asarray(x["scale"]), const["ab"], mode, clamp_eps, 16, 64,
+                True)
+        return jfh.fused_margin_ce(
+            jnp.asarray(x["xn"]), wn_, const["labels"], jnp.asarray(x["t"]),
+            const["tcos"], jnp.asarray(x["scale"]), const["ab"], mode,
+            clamp_eps, 16, 64, True)
+
+    _, vjp = jax.vjp(jfun, jnp.asarray(x["wn"]))
+    (jdw,) = vjp(jfh.FusedHeadOut(jnp.asarray(x["g_lse"]),
+                                  jnp.asarray(x["g_t"]),
+                                  jnp.zeros(N, jnp.float32)))
+    assert calls, "the two-kernel backward did not run"
+    xt = {k: torch.tensor(v) for k, v in x.items()}
+    for splits in (1, 3, 7, 10):
+        _check_dw_split(xt, mode, clamp_eps, mem, splits, np.asarray(jdw))
