@@ -28,9 +28,12 @@ and no result line:
              version and the eager library head (the median of 5 repeats,
              with their spread), beside the bound.
 4. conv    - the implicit-GEMM 3x3 conv against its plain version at small
-             fp32 and bf16 shapes, then at the ResNet-50 stage shapes of its
-             benchmark (b512 bf16: 28x28x128, 14x14x256, 7x7x512), timed
-             beside its plain version and cuDNN's channels-last conv.
+             fp32 and bf16 shapes on each route (the bf16 16-byte route and
+             the ragged one are chosen by width), then at the ResNet-50
+             stage shapes of its benchmark (b512 bf16: 28x28x128, 14x14x256,
+             7x7x512), timed beside its plain version and cuDNN's
+             channels-last conv; and the fp32 route at b512 14x14x256 beside
+             cuDNN's fp32 conv (TF32 off).
 5. train   - the port's `fit` at full width (resnet18, C=10,575, batch 512,
              112 px, bf16), 5 steps each of the ArcFace, VPL-ArcFace and
              QAFace heads. Each path's launch counters must equal the steps
@@ -124,6 +127,9 @@ TOLERANCE_BF16 = {**TOLERANCE, "gradients": {
 # the conv, rtol = atol: fp32 sums in different orders; bf16 outputs a bf16
 # ulp or two apart (0.03 at |y| of 4-8)
 TOL_CONV = {"float32": 1e-5, "bfloat16": 2e-2}
+# the fp32 conv at b512 14x14x256: each output sums 2,304 fp32 products of
+# |y| ~ 2.4 in another order than the plain version's 9 matmuls
+TOL_CONV_DEEP = 1e-4
 
 
 def emit(obj) -> None:
@@ -304,12 +310,12 @@ def check_case(x, mode, clamp_eps, bf16=False):
     when `x` holds memn, the bf16 products with `bf16`); returns (max abs
     err per kernel, number of rows where `higher` differs, and with `bf16`
     {"dx": n, "dw": n} elements that needed the ulp allowance). The split
-    fp32 fwd, bwd_dx and bwd_dw run twice and must agree bitwise."""
+    fp32 fwd, bwd_dx and bwd_dw and the split bf16 fwd run twice and must
+    agree bitwise."""
     names, fns = kernel_fns("memn" in x, bf16)
     fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
     out = fns[0][0](*fwd_args)
-    if not bf16:
-        same(names[0], *zip(out, fns[0][0](*fwd_args)))
+    same(names[0], *zip(out, fns[0][0](*fwd_args)))
     ref = fns[0][1](*fwd_args)
     errs = {names[0]: max(
         close("lse", out.lse, ref.lse, **TOL_STATS),
@@ -409,6 +415,33 @@ def check_split(x, mode, clamp_eps):
                                     fh.fused_ce_bwd_dw_combine(want),
                                     fh.fused_ce_bwd_dw_combine_plain(want))
     return errs, ranges
+
+
+def check_split_bf16(x, mode, clamp_eps):
+    """The split bf16 fwd (fwd_mem when `x` holds memn) on inputs `x`: each
+    class range's partials from the front of the kernel's workspace against
+    fused_ce_fwd_partials_plain with bf16 products. Returns ({check: max abs
+    err}, ranges)."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+
+    mem = ((x["memn"], x["lam"]) if "memn" in x else ())
+    kw = dict(memn=x["memn"], lam=x["lam"]) if mem else {}
+    n, c = x["xn"].shape[0], x["wn"].shape[1]
+    splits, cols = fh.split_plan(n, c, mm_dtype=torch.bfloat16)
+    fwd = (x["labels"], x["t"], x["tcos"], x["scale"], x["ab"], mode,
+           clamp_eps)
+    ws = []
+    fh._fwd("fused_ce_fwd" + ("_mem" if mem else ""), 3 if mem else 0,
+            x["xn"], x["wn"], mem, *fwd, torch.bfloat16, ws)
+    got = ws[0][:splits * 3 * n].view(splits, 3, n)
+    want = fh.fused_ce_fwd_partials_plain(x["xn"], x["wn"], *fwd,
+                                          splits=splits, range_cols=cols,
+                                          mm_dtype=torch.bfloat16, **kw)
+    err = close("bf16 m, l", got[:, :2], want[:, :2], **TOL_STATS)
+    close_higher("bf16 range higher", got[:, 2], want[:, 2])
+    return {"fwd_bf16_partials": err}, splits
 
 
 def library_head_ms(x, clamp_eps=None, bf16=False):
@@ -551,7 +584,8 @@ def phase_kernels():
     # the split fp32 fwd and bwd_dx over several class ranges: N = 1, N
     # not a multiple of the 32-row tile, ragged last ranges, D = 72, and a
     # last range of one column that is row 0's target; bwd_dw over 3 row
-    # ranges of 256-row tiles, the last ragged, at N = 600 and 520
+    # ranges of 256-row tiles, the last ragged, at N = 600 and 520; the
+    # split bf16 fwd (128-wide class tiles) over the same shapes
     for mem in (None, "mixed"):
         msfx = "_mem" if mem else ""
         for n, d, c, last in ((1, 64, 300, False), (40, 72, 300, False),
@@ -563,12 +597,20 @@ def phase_kernels():
                 x["labels"][0] = c - 1
             errs, flips, _ = check_case(x, fh.MODE_MV, 1e-7)
             split, splits = check_split(x, fh.MODE_MV, 1e-7)
-            emit({"phase": "kernels",
-                  "case": f"N{n}_D{d}_C{c}_mode1{msfx}_split"
-                          + ("_last_target" if last else ""),
+            case = (f"N{n}_D{d}_C{c}_mode1{msfx}_split"
+                    + ("_last_target" if last else ""))
+            emit({"phase": "kernels", "case": case,
                   "splits": splits, "max_abs_err": {**errs, **split},
                   "higher_flips": flips, "bitwise_repeat": True,
                   "tolerance": TOLERANCE, "ok": True})
+            errs, flips, ulp = check_case(x, fh.MODE_MV, 1e-7, bf16=True)
+            split, splits = check_split_bf16(x, fh.MODE_MV, 1e-7)
+            emit({"phase": "kernels", "case": case + "_bf16",
+                  "splits": {"fwd_bf16": splits},
+                  "max_abs_err": {**errs, **split},
+                  "higher_flips": flips, "bf16_ulp_elems": ulp,
+                  "bitwise_repeat": True, "tolerance": TOLERANCE_BF16,
+                  "ok": True})
     # backward where the JAX package switches to its two-kernel form (K3)
     x = make_inputs(4096, D_MAIN, C_MAIN, fh.MODE_IDENTITY, seed=11)
     errs, flips, _ = check_case(x, fh.MODE_IDENTITY, None)
@@ -591,8 +633,8 @@ def phase_kernels():
     # the training shape, with times: ArcFace's kernels, then the _mem
     # kernels with the memory and lam of a VPL state after one step; each
     # with fp32 and with bf16 products (the library head then with bf16
-    # torch.matmul, the bound at the bf16 tensor-core peak); then the fp32
-    # _mem kernels at a dense lam, the work of a VPL run past ~100 steps
+    # torch.matmul, the bound at the bf16 tensor-core peak); then the _mem
+    # kernels at a dense lam, the work of a VPL run past ~100 steps
     rows = []
     for mem, mode, eps, case in (
             (None, fh.MODE_IDENTITY, None, "N512_D512_C10575_identity"),
@@ -600,11 +642,12 @@ def phase_kernels():
             ("dense", fh.MODE_IDENTITY, 1e-7,
              "N512_D512_C10575_vpl_mem_dense")):
         x = make_inputs(N_MAIN, D_MAIN, C_MAIN, mode, seed=7, mem=mem)
-        for bf16 in ((False,) if mem == "dense" else (False, True)):
+        for bf16 in (False, True):
             names, _ = kernel_fns(mem, bf16)
             errs, flips, ulp = check_case(x, mode, eps, bf16)
-            split = ({} if bf16 else
-                     dict(zip(("split", "splits"), check_split(x, mode, eps))))
+            split = dict(zip(("split", "splits"),
+                             (check_split_bf16 if bf16 else check_split)(
+                                 x, mode, eps)))
             ms = time_family(x, mode, eps, bf16)
             lib_fwd, lib_bwd, lib_spread = library_head_ms(x, eps, bf16)
             fam = bound_rows(x, names, errs, ms, (lib_fwd, lib_bwd, lib_bwd),
@@ -617,7 +660,7 @@ def phase_kernels():
             emit({"phase": "kernels", "case": case + ("_bf16" if bf16
                                                       else ""), **extra,
                   "max_abs_err": errs, "higher_flips": flips,
-                  **({} if bf16 else {"bitwise_repeat": True}),
+                  "bitwise_repeat": True,
                   **({"bf16_ulp_elems": ulp} if bf16 else {}),
                   "tolerance": TOLERANCE_BF16 if bf16 else TOLERANCE,
                   "kernel_ms": {r["name"]: r["ms"] for r in fam},
@@ -643,37 +686,61 @@ def conv_case(n, h, w, c, co, dtype, seed):
     return x, k.to(dtype)
 
 
+def conv_routes(x, k):
+    """One launch of the conv on (x, k): its output and the route counted."""
+    from face_recognition_models_tpu_torch.ops import conv3x3
+
+    conv3x3.reset_launch_counts()
+    y = conv3x3.conv3x3_same(x, k, block_n=x.shape[0])
+    launched = [r for r, v in conv3x3.launch_counts.items() for _ in range(v)]
+    want = conv3x3.route(x.dtype, x.shape[3], k.shape[3])
+    if launched != [want]:
+        raise AssertionError(f"conv3x3: launched {launched}, not [{want}]")
+    return y, want
+
+
 def phase_conv():
-    """The conv against its plain version: small fp32 and bf16 shapes, then
-    the ResNet-50 stage shapes at b512 bf16, timed beside its plain version
-    and cuDNN's channels-last conv (TF32 off), the library yardstick.
-    Returns the kernels line entry at CONV_MAIN."""
+    """The conv against its plain version: small fp32 and bf16 shapes on
+    each route, then the ResNet-50 stage shapes at b512 bf16, timed beside
+    its plain version and cuDNN's channels-last conv (TF32 off), the
+    library yardstick, and the fp32 route at b512 14x14x256 beside cuDNN's
+    fp32 conv. Returns the kernels line entry at CONV_MAIN."""
     import torch
 
     from face_recognition_models_tpu_torch.ops import conv3x3
     from face_recognition_models_tpu_torch.scripts import bench_conv3x3
 
-    conv3x3.reset_launch_counts()
+    # the bf16 16-byte route at M not a multiple of the 128-row tile, C_out
+    # of 24 and 40, C of 40 and 72 and two C_out tiles; the ragged route at
+    # C = 12 and C_out = 12
     for i, (n, h, w, c, co, dtype) in enumerate((
             (4, 7, 7, 16, 24, torch.float32), (2, 5, 9, 4, 12, torch.float32),
             (6, 4, 4, 8, 8, torch.float32), (16, 7, 7, 72, 40, torch.float32),
             (2, 7, 7, 32, 16, torch.bfloat16),
-            (8, 14, 14, 40, 24, torch.bfloat16))):
+            (8, 14, 14, 40, 24, torch.bfloat16),
+            (3, 5, 9, 40, 24, torch.bfloat16),
+            (8, 14, 14, 72, 40, torch.bfloat16),
+            (1, 12, 12, 136, 136, torch.bfloat16),
+            (4, 7, 7, 12, 16, torch.bfloat16),
+            (2, 6, 6, 16, 12, torch.bfloat16))):
         x, k = conv_case(n, h, w, c, co, dtype, seed=i)
         dname = str(dtype).split(".")[1]
         tol = TOL_CONV[dname]
-        err = close("conv3x3", conv3x3.conv3x3_same(x, k, block_n=n).float(),
+        y, route = conv_routes(x, k)
+        err = close("conv3x3", y.float(),
                     conv3x3.conv3x3_same_plain(x, k).float(), tol, tol)
         emit({"phase": "conv", "case": f"N{n}_H{h}_W{w}_C{c}_Co{co}_{dname}",
-              "max_abs_err": err, "tolerance": {"rtol": tol, "atol": tol},
-              "ok": True})
+              "route": route, "max_abs_err": err,
+              "tolerance": {"rtol": tol, "atol": tol}, "ok": True})
     row = None
     for h, c in CONV_SHAPES:
         n = 512
         x, k = conv_case(n, h, h, c, c, torch.bfloat16, seed=h)
-        err = close("conv3x3", conv3x3.conv3x3_same(x, k).float(),
+        y, route = conv_routes(x, k)
+        err = close("conv3x3", y.float(),
                     conv3x3.conv3x3_same_plain(x, k).float(),
                     TOL_CONV["bfloat16"], TOL_CONV["bfloat16"])
+        del y
         ms = cuda_ms(lambda: conv3x3.conv3x3_same(x, k))
         plain_ms = cuda_ms(lambda: conv3x3.conv3x3_same_plain(x, k))
         cudnn = bench_conv3x3.conv_fn("cudnn", k, 16)
@@ -683,7 +750,7 @@ def phase_conv():
         bytes_ = 2.0 * (2 * n * h * h * c + 9 * c * c)
         t_ops = flops / PEAK_BF16_TC_FLOPS * 1e3
         t_bytes = bytes_ / PEAK_BYTES * 1e3
-        emit({"phase": "conv", "case": f"N{n}_H{h}_C{c}_bf16",
+        emit({"phase": "conv", "case": f"N{n}_H{h}_C{c}_bf16", "route": route,
               "max_abs_err": err,
               "tolerance": {"rtol": TOL_CONV["bfloat16"],
                             "atol": TOL_CONV["bfloat16"]},
@@ -701,6 +768,32 @@ def phase_conv():
                    "library_ms": lib_ms}
         del x, k
         torch.cuda.empty_cache()
+    # the fp32 route at the benchmark's shape, against cuDNN's fp32 conv
+    # (TF32 off); 2,304-deep fp32 sums in different orders: TOL_CONV_DEEP
+    h, c = CONV_MAIN
+    n = 512
+    x, k = conv_case(n, h, h, c, c, torch.float32, seed=h)
+    y, route = conv_routes(x, k)
+    err = close("conv3x3 fp32", y, conv3x3.conv3x3_same_plain(x, k),
+                TOL_CONV_DEEP, TOL_CONV_DEEP)
+    del y
+    ms = cuda_ms(lambda: conv3x3.conv3x3_same(x, k))
+    cudnn = bench_conv3x3.conv_fn("cudnn", k, 16)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        lib_ms = cuda_ms(lambda: cudnn(x))
+    flops = 2.0 * n * h * h * 9 * c * c
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = 4.0 * (2 * n * h * h * c + 9 * c * c) / PEAK_BYTES * 1e3
+    emit({"phase": "conv", "case": f"N{n}_H{h}_C{c}_float32", "route": route,
+          "max_abs_err": err,
+          "tolerance": {"rtol": TOL_CONV_DEEP, "atol": TOL_CONV_DEEP},
+          "kernel_ms": ms, "library_ms": lib_ms,
+          "bound_ms": max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "kernel_tflops": flops / ms / 1e9,
+          "library_tflops": flops / lib_ms / 1e9, "ok": True})
+    del x, k
+    torch.cuda.empty_cache()
     return row
 
 

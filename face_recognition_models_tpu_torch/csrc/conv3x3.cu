@@ -3,8 +3,10 @@
 //
 // Counterpart of the Pallas kernel in face_recognition_models_tpu/ops/
 // conv3x3.py (_kernel, :42, called through conv3x3_same at :83):
-//   conv3x3_same_bf16 <- _kernel with bf16 x (the benchmarked case)
-//   conv3x3_same_f32  <- _kernel with fp32 x
+//   conv3x3_same_bf16        <- _kernel with bf16 x (the benchmarked case),
+//                               for C and C_out multiples of 8
+//   conv3x3_same_bf16_ragged <- the same, for any other C or C_out
+//   conv3x3_same_f32         <- _kernel with fp32 x
 //
 // Over the flattened rows r = n*H*W + h*W + w,
 //   y[r, :] = sum_{a, b in {-1, 0, 1}} x[n, h + a, w + b, :] @ K[a + 1, b + 1]
@@ -13,38 +15,61 @@
 // Pallas kernel rolls the flattened tile and masks the rows the roll wraps
 // (a workaround for Mosaic's missing bf16 rotate); here each staged row
 // computes its own source (h + a, w + b) and loads zeros where that falls
-// outside the image.
+// outside the image. Within an image the source of row r for tap (a, b) is
+// row r + a*W + b, so a row needs only its own (h, w) and r.
 //
-// Design. A block of 256 threads computes a 64-row x 64-channel tile of y.
-// It loops over the 9 taps x chunks of 32 input channels, staging into shared
-// memory the masked, shifted rows of x ([64][32]) and the matching chunk of
-// the weight ([32][64]). Each thread stages 8 consecutive channels of one row
-// and 8 consecutive output channels of one weight row, so the row's
-// (n, h, w) is decoded once per block.
+// What bounds it: at the ResNet-50 stage shapes of the benchmark (batch 512:
+// 28x28x128, 14x14x256, 7x7x512, C_out = C) each conv is 2*M*9*C*C_out =
+// 118-119 GFLOP against 51-103 MB of bf16 x, y and weight, so it is bound by
+// operations: 0.12 ms at 989 TFLOP/s dense bf16.
+//
+// conv3x3_same_bf16 (conv3x3_bf16_kernel). A block of 256 threads, two
+// warpgroups, owns a 128-row x 128-channel tile of y and runs K as 9 taps x
+// ceil(C / 64) chunks of 64 input channels. Each K step stages, with
+// 16-byte cp.async.cg copies into a 3-stage ring in dynamic shared memory
+// (32 KB a stage, two blocks per SM):
+//   - A [128 rows][64 channels], K-major: the shifted rows of x; a row whose
+//     source falls outside the image or past M, or a segment past C, is
+//     zero-filled through the copy's source size of 0 (no branch on data);
+//   - B [64 channels][128 outputs], MN-major: rows (tap, c0..c0 + 63) of the
+//     weight as it lies, [9][C][C_out], in two halves of 64 outputs.
+// Rows are 128 bytes, XOR-swizzled in 16-byte chunks by row % 8 on a
+// 1024-byte-aligned ring: the hardware's 128-byte swizzle, so that
+// warpgroup g runs wgmma.m64n128k16 on rows 64 g.. of A and all of B from
+// shared memory through matrix descriptors (B's with the transpose bit), 4
+// k steps a stage, into 64 fp32 accumulators a thread. The copies of stage k + 2 run under the
+// products of stage k. The epilogue rounds the accumulators to bf16 into a
+// shared tile and stores y 16 bytes a thread. The 16-byte copies need
+// C % 8 == 0 and C_out % 8 == 0; the wrapper takes the ragged kernel below
+// for other widths. Every thread stages and waits on the products at each
+// stage: no TMA and no warp specialisation yet.
+//
+// conv3x3_same_bf16_ragged (conv3x3_bf16_ragged_kernel) and
+// conv3x3_same_f32 (conv3x3_f32_kernel): a block of 256 threads computes a
+// 64-row x 64-channel tile of y. It loops over the 9 taps x chunks of 32
+// input channels, staging into shared memory the masked, shifted rows of x
+// ([64][32]) and the matching chunk of the weight ([32][64]) with
+// synchronous loads, 8 channels a thread.
 //   - bf16: 8 warps, each a 16 x 32 part of the tile as two nvcuda::wmma
 //     16x16x16 bf16 fragments with fp32 accumulators on the tensor cores;
 //     the accumulators meet in an fp32 tile and leave rounded to bf16.
 //   - fp32: IEEE fp32 FMAs on the CUDA cores (no TF32), each thread a 4 x 4
 //     register tile.
-// The accumulation is fp32 in both, over the taps in order (a, b) =
+// The accumulation is fp32 in all three, over the taps in order (a, b) =
 // (-1, -1), (-1, 0), ..., (1, 1) and then the channels; the output is in
 // x's dtype. Forward only (the JAX kernel has no VJP).
-//
-// What bounds it: at the ResNet-50 stage shapes of the benchmark (batch 512:
-// 28x28x128, 14x14x256, 7x7x512, C_out = C) each conv is 2*M*9*C*C_out =
-// 118-119 GFLOP against 51-103 MB of bf16 x, y and weight, so it is bound by
-// operations: 0.12 ms at 989 TFLOP/s dense bf16. This simple form stages
-// with synchronous loads and runs wmma (no wgmma, TMA or pipelining), so it
-// reaches a fraction of that.
 //
 // C interface: each entry launches on the given stream and returns
 // cudaGetLastError(). x [N, H, W, C], w [9, C, C_out] (tap-major, the
 // layout of K.reshape(9, C, C_out)) and y [N, H, W, C_out] are contiguous
-// device arrays of the entry's type.
+// device arrays of the entry's type; conv3x3_same_bf16 needs x, w and y
+// 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -56,6 +81,134 @@ constexpr int kBM = 64;   // rows of y per block
 constexpr int kBN = 64;   // output channels per block
 constexpr int kBK = 32;   // input channels per staged chunk
 constexpr int kPadA = 8;  // bf16 row padding of the staged tiles
+
+// ---- conv3x3_same_bf16: the 16-byte route (see the note at the head) ---
+
+constexpr int kTM = 128;    // rows of y per block (a warpgroup per 64)
+constexpr int kTN = 128;    // output channels per block
+constexpr int kTK = 64;     // input channels per K step: 128-byte rows
+constexpr int kRing = 3;    // cp.async stages
+constexpr int kStageA = kTM * kTK;   // bf16 elements of a staged x tile
+constexpr int kStage = kStageA + kTN * kTK;   // and of a whole stage
+constexpr int kHalfB = 64 * kTK;     // bf16 elements of 64 outputs of B
+constexpr int kOutPitch = kTN + 8;   // bf16 pitch of the epilogue's y tile
+// the ring, and room to put it on 1024 bytes (the swizzle's atom)
+constexpr size_t kRingBytes = sizeof(bf16) * kRing * kStage + 1024;
+static_assert(kTM * kTK / 8 == 4 * kThreads && kTN * kTK / 8 == 4 * kThreads,
+              "four 16-byte copies of each tile a thread");
+static_assert(sizeof(bf16) * kTM * kOutPitch <= kRingBytes - 1024,
+              "the y tile fits in the ring");
+
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
+                    bf16* __restrict__ y, int n, int hh, int ww, int c,
+                    int co) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  bf16* ring =
+      reinterpret_cast<bf16*>(smem_raw + (((raw + 1023) & ~1023u) - raw));
+  const int m = n * hh * ww;
+  const int ntiles = (co + kTN - 1) / kTN;
+  const int m0 = (blockIdx.x / ntiles) * kTM;
+  const int co0 = (blockIdx.x % ntiles) * kTN;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // staging A: thread -> 16-byte chunk tid % 8 (8 channels) of rows
+  // tid / 8 + 32 j; each x row's flat index r and (h, w), h = -4 past M (no
+  // tap reaches in). B: thread -> 16-byte chunk tid % 16 (8 outputs) of
+  // channel rows tid / 16 + 16 j.
+  const int seg = tid & 7;
+  int ar[4], ah[4], aw[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = m0 + (tid >> 3) + 32 * j;
+    const int rem = r % (hh * ww);
+    ar[j] = r;
+    ah[j] = r < m ? rem / ww : -4;
+    aw[j] = rem % ww;
+  }
+  const int chunks = (c + kTK - 1) / kTK;
+  const int total = 9 * chunks;
+
+  auto prefetch = [&](int i) {
+    bf16* as = ring + (i % kRing) * kStage;
+    bf16* bs = as + kStageA;
+    const int tap = i / chunks;
+    const int c0 = (i - tap * chunks) * kTK;
+    const int a = tap / 3 - 1;
+    const int b = tap % 3 - 1;
+    const int ch = c0 + seg * 8;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = (tid >> 3) + 32 * j;
+      const int sh = ah[j] + a;
+      const int sw = aw[j] + b;
+      const bool in = ch < c && sh >= 0 && sh < hh && sw >= 0 && sw < ww;
+      tc::cp_async16(
+          as + tc::swz<kTK / 8>(row, seg),
+          in ? x + static_cast<size_t>(ar[j] + a * ww + b) * c + ch : x, in);
+      const int k = (tid >> 4) + 16 * j;
+      const int oc = co0 + (tid & 15) * 8;
+      const bool win = c0 + k < c && oc < co;
+      tc::cp_async16(
+          bs + ((tid >> 3) & 1) * kHalfB + tc::swz<8>(k, tid & 7),
+          win ? w9 + (static_cast<size_t>(tap) * c + c0 + k) * co + oc : w9,
+          win);
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  for (int i = 0; i < kRing - 1; ++i) {
+    if (i < total) prefetch(i);
+    tc::commit();
+  }
+  const int wg = warp >> 2;   // the warpgroup: rows 64 wg .. 64 wg + 63
+  for (int i = 0; i < total; ++i) {
+    tc::wait<kRing - 2>();
+    tc::fence_proxy_async();   // the landed copies, for wgmma's reads
+    __syncthreads();  // stage i landed; stage i - 1's products done
+    if (i + kRing - 1 < total) prefetch(i + kRing - 1);
+    tc::commit();
+    const uint32_t at = tc::smem_u32(ring + (i % kRing) * kStage);
+    const uint32_t a0 = at + wg * 64 * kTK * sizeof(bf16);
+    const uint32_t b0 = at + kStageA * sizeof(bf16);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kTK / 16; ++ks)
+      tc::wgmma_m64n128k16(
+          acc, tc::wgmma_desc(a0 + 32 * ks),
+          tc::wgmma_desc(b0 + 16 * 128 * ks, kHalfB * sizeof(bf16)), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+  }
+  tc::wait<0>();
+  __syncthreads();  // the ring is free: the y tile [kTM][kOutPitch]
+  bf16* ys = ring;
+  const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < kTN / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(ys + (r0 + 8 * h) * kOutPitch +
+                                         8 * i + 2 * (lane & 3)) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kTM * kTN / 8 / kThreads; ++j) {
+    const int i = tid + j * kThreads;
+    const int row = i >> 4;
+    const int oc = co0 + (i & 15) * 8;
+    if (m0 + row < m && oc < co)
+      *reinterpret_cast<uint4*>(y + static_cast<size_t>(m0 + row) * co + oc) =
+          *reinterpret_cast<const uint4*>(ys + row * kOutPitch + (i & 15) * 8);
+  }
+}
+
+// ---- the ragged bf16 route and fp32 (see the note at the head) ---------
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -122,9 +275,9 @@ __device__ __forceinline__ void stage_w(T* dst, const T* w9, int tap, int c0,
 }
 
 __global__ void __launch_bounds__(kThreads)
-conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
-                    bf16* __restrict__ y, int n, int hh, int ww, int c,
-                    int co) {
+conv3x3_bf16_ragged_kernel(const bf16* __restrict__ x,
+                           const bf16* __restrict__ w9, bf16* __restrict__ y,
+                           int n, int hh, int ww, int c, int co) {
   __shared__ __align__(128) bf16 as[kBM][kBK + kPadA];   // rows x channels
   __shared__ __align__(128) bf16 bs[kBK][kBN + kPadA];   // channels x outs
   __shared__ __align__(128) float cs[kBM][kBN + 4];      // the fp32 tile
@@ -261,13 +414,37 @@ int launch(K kernel, const T* x, const T* w9, T* y, int n, int hh, int ww,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One block per 128 x 128 tile of y, the output-channel tiles of a row tile
+// next to each other in launch order, so that they read its x rows from L2
+// at about the same time.
+int launch_bf16(const bf16* x, const bf16* w9, bf16* y, int n, int hh, int ww,
+                int c, int co, void* stream) {
+  if (c % 8 || co % 8) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kRingBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long m = static_cast<long long>(n) * hh * ww;
+  const long long blocks = (m + kTM - 1) / kTM * ((co + kTN - 1) / kTN);
+  conv3x3_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, kRingBytes,
+                        static_cast<cudaStream_t>(stream)>>>(x, w9, y, n, hh,
+                                                             ww, c, co);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 int conv3x3_same_bf16(const void* x, const void* w9, void* y, int n, int h,
                       int w, int c, int co, void* stream) {
-  return launch(conv3x3_bf16_kernel, static_cast<const bf16*>(x),
+  return launch_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w9),
+                     static_cast<bf16*>(y), n, h, w, c, co, stream);
+}
+
+int conv3x3_same_bf16_ragged(const void* x, const void* w9, void* y, int n,
+                             int h, int w, int c, int co, void* stream) {
+  return launch(conv3x3_bf16_ragged_kernel, static_cast<const bf16*>(x),
                 static_cast<const bf16*>(w9), static_cast<bf16*>(y), n, h, w,
                 c, co, stream);
 }

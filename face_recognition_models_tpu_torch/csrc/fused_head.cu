@@ -109,41 +109,42 @@
 // bwd_dw_mem 99,072 B at any D up to 512 (the widest the split dx and dw
 // kernels take: 8 warps x 64 columns of the accumulator). A width above 512
 // is refused by the wrapper.
-//   The bf16 kernels (layouts at BfLayout and DwLayout): fwd 59,904 B,
-//   fwd_mem 103,168 B, bwd_dx 97,280 B, bwd_dx_mem 144,896 B, bwd_dw
-//   141,824 B, bwd_dw_mem 192,000 B; the widest D they take is 624
-//   (bwd_dw_mem).
+//   The bf16 kernels (layouts at fwd_bf16_smem, BfLayout and DwLayout):
+//   fwd 101,888 B, fwd_mem 134,656 B, bwd_dx 97,280 B, bwd_dx_mem
+//   144,896 B, bwd_dw 141,824 B, bwd_dw_mem 192,000 B at D = 512; the
+//   widest D they take is 624 (bwd_dw_mem); fwd_mem takes up to 1,264.
 //
 // bf16 products (K5: the mm_dtype=jnp.bfloat16 option of every kernel above,
 // fused_head.py:119-126, 192-196, 237-243, 269-276, 307, 352-360, 396-407):
-//   fused_ce_{fwd,bwd_dx,bwd_dw}_bf16 and fused_ce_{fwd,bwd_dx,bwd_dw}_mem_bf16
-// run on a grid of a block per 16 rows sweeping all of C (bwd_dw: a block
-// per 32 classes) with SIMT epilogues (margin, clamp, online logsumexp,
-// `higher`, dcos) on a warp's two rows x a lane's four columns.
+//   fused_ce_{fwd,bwd_dx,bwd_dw}_bf16 and fused_ce_{fwd,bwd_dx,bwd_dw}_mem_bf16.
 // The operands stay fp32 in device memory, as in JAX, and are rounded to
-// bf16 (__float2bfloat16_rn, round to nearest even) as they are staged in
-// shared memory, at exactly the six places of the Pallas kernels: xn and wn
-// before every cosine product, memn, dcos before the dx and dw products, and
-// with the blend dcos * (1 - lam) and dcos * lam, each rounded on its own.
-// Every product runs on the tensor cores as nvcuda::wmma 16x16x16 bf16
-// fragments with fp32 accumulators: in fwd and bwd_dx warp w computes the
-// 16 x 16 cosine block of columns 16w..16w+15 of the 128-wide class tile over
-// 128-deep chunks of W, stores it into an fp32 [kRows][kCols] tile in shared
-// memory, and the fp32 epilogue reads that tile in its SIMT mapping (two
-// rows per warp, four columns per lane); bwd_dx then adds
-// bf16(dcos) [16 x 128] . bf16(wn)^T [128 x 16] into an fp32 dx tile in shared
-// memory, warp w owning 16 columns of each 128-deep chunk of D. bwd_dw
-// splits the 16 x 32 cosine block's depth over four warps per 16 columns
-// (partial sums added in the epilogue) and adds bf16(xn)^T . bf16(dcos) into
-// an fp32 [D][32] tile. D is padded with zeros to a multiple of 16 in shared
-// memory. What bounds them at N=512, D=512, C=10,575: one product is
-// 5.5 GFLOP, 5.6 us at 989 TFLOP/s dense bf16, against 21.7 MB of fp32 wn
-// (6.5 us at 3.35 TB/s): the forward is bound by bytes, the backward kernels
-// (two or three products) lie close to the line. These kernels stage every
-// operand through shared memory with synchronous loads and multiply with
-// wmma (no wgmma or TMA yet), on grids of 32 blocks for fwd and bwd_dx at
-// N=512, so they reach neither bound.
-//
+// bf16 (__float2bfloat16_rn, round to nearest even) at exactly the six
+// places of the Pallas kernels: xn and wn before every cosine product,
+// memn, dcos before the dx and dw products, and with the blend
+// dcos * (1 - lam) and dcos * lam, each rounded on its own. Every product
+// runs on the tensor cores with fp32 accumulators.
+//   - fwd(_mem): split-C like the fp32 forward, with mma.sync on operands
+//     rounded once by a pre-pass; see "bf16 split-C forward" below.
+//   - bwd_dx(_mem) and bwd_dw(_mem): a block per 16 rows sweeping all of C
+//     (bwd_dw: a block per 32 classes) with SIMT epilogues (margin, clamp,
+//     dcos) on a warp's two rows x a lane's four columns; the operands are
+//     rounded as they are staged in shared memory with synchronous loads,
+//     and the products are nvcuda::wmma 16x16x16 fragments. In bwd_dx warp
+//     w computes the 16 x 16 cosine block of columns 16w..16w+15 of the
+//     128-wide class tile over 128-deep chunks of W, stores it into an fp32
+//     [kRows][kCols] tile in shared memory, and the fp32 epilogue reads that
+//     tile in its SIMT mapping; it then adds bf16(dcos) [16 x 128] .
+//     bf16(wn)^T [128 x 16] into an fp32 dx tile in shared memory, warp w
+//     owning 16 columns of each 128-deep chunk of D. bwd_dw splits the
+//     16 x 32 cosine block's depth over four warps per 16 columns (partial
+//     sums added in the epilogue) and adds bf16(xn)^T . bf16(dcos) into an
+//     fp32 [D][32] tile. D is padded with zeros to a multiple of 16.
+// What bounds them at N=512, D=512, C=10,575: one product is 5.5 GFLOP,
+// 5.6 us at 989 TFLOP/s dense bf16, against 21.7 MB of fp32 wn (6.5 us at
+// 3.35 TB/s): the forward is bound by bytes, the backward kernels (two or
+// three products) lie close to the line. bwd_dx runs 32 blocks at N=512
+// with synchronous staging and reaches neither bound.
+
 // C interface: each entry launches on the given stream and returns
 // cudaGetLastError() (0 on success). All pointers are device pointers to
 // contiguous fp32 (labels int32) arrays; ab is [N, 2] with a = ab[:, 0],
@@ -152,6 +153,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <algorithm>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -259,19 +264,19 @@ __host__ __device__ constexpr size_t align128(size_t b) {
   return (b + 127) & ~static_cast<size_t>(127);
 }
 
-// Byte offsets of the bf16 fwd / bwd_dx buffers in dynamic shared memory,
+// Byte offsets of the bf16 bwd_dx buffers in dynamic shared memory,
 // each 128-byte aligned (wmma tiles must start on 32 bytes). dp = D padded
 // to a multiple of 16:
 //   xb  [kRows][dp + 8] bf16   the block's rows of xn
 //   wb  [kChunkB][kLdB] bf16   a chunk of wn (mb: of memn, kMem)
 //   ct  [kRows][kLdC]   fp32   the cosine tile (cm: the memory's, kMem)
-//   dx  [kRows][dp + 4] fp32   bwd_dx's accumulator
+//   dx  [kRows][dp + 4] fp32   the dx accumulator
 //   dcb [kRows][kLdB]   bf16   bf16(dcos (* (1 - lam))) (dcm: bf16(dcos * lam))
 struct BfLayout {
   size_t xb, wb, mb, ct, cm, dx, dcb, dcm, total;
 };
 
-__host__ __device__ inline BfLayout bf_layout(int d, bool mem, bool with_dx) {
+__host__ __device__ inline BfLayout bf_layout(int d, bool mem) {
   const int dp = round16(d);
   const size_t wchunk = align128(sizeof(bf16) * kChunkB * kLdB);
   const size_t ctile = align128(sizeof(float) * kRows * kLdC);
@@ -289,11 +294,11 @@ __host__ __device__ inline BfLayout bf_layout(int d, bool mem, bool with_dx) {
   L.cm = o;
   o += mem ? ctile : 0;
   L.dx = o;
-  o += with_dx ? align128(sizeof(float) * kRows * (dp + 4)) : 0;
+  o += align128(sizeof(float) * kRows * (dp + 4));
   L.dcb = o;
-  o += with_dx ? dtile : 0;
+  o += dtile;
   L.dcm = o;
-  o += with_dx && mem ? dtile : 0;
+  o += mem ? dtile : 0;
   L.total = o;
   return L;
 }
@@ -304,10 +309,9 @@ struct BfTiles {
   int dp;
 };
 
-__device__ __forceinline__ BfTiles bf_tiles(float* smem, int d, bool mem,
-                                            bool with_dx) {
+__device__ __forceinline__ BfTiles bf_tiles(float* smem, int d, bool mem) {
   char* base = reinterpret_cast<char*>(smem);
-  const BfLayout L = bf_layout(d, mem, with_dx);
+  const BfLayout L = bf_layout(d, mem);
   BfTiles s;
   s.xb = reinterpret_cast<bf16*>(base + L.xb);
   s.wb = reinterpret_cast<bf16*>(base + L.wb);
@@ -437,95 +441,6 @@ __device__ __forceinline__ void dx_tile_bf16(const BfTiles& s,
   }
 }
 
-#define FWD_PARAMS                                                        \
-  const float *__restrict__ xn, const float *__restrict__ wn,             \
-      const float *__restrict__ memn, const float *__restrict__ lam,      \
-      const int *__restrict__ labels, const float *__restrict__ t,        \
-      const float *__restrict__ tcos, const float *__restrict__ scale,    \
-      const float *__restrict__ ab, float *__restrict__ lse_out,          \
-      float *__restrict__ tlogit_out, float *__restrict__ higher_out,     \
-      int n, int d, int c, int mode, int has_clamp, float clamp_eps
-#define FWD_ARGS                                                          \
-  xn, wn, memn, lam, labels, t, tcos, scale, ab, lse_out, tlogit_out,     \
-      higher_out, n, d, c, mode, has_clamp, clamp_eps
-
-// The bf16 forward: a block per kRows rows sweeping all of C.
-template <bool kMem>
-__device__ __forceinline__ void fwd_bf16_body(FWD_PARAMS) {
-  extern __shared__ float smem[];
-  const BfTiles bt = bf_tiles(smem, d, kMem, false);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * kRows;
-  const int r0 = 2 * warp;
-
-  Row rp[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    rp[q] = load_row(row0 + r0 + q, n, labels, t, tcos, scale, ab, nullptr,
-                     nullptr, nullptr);
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
-  float hi[2] = {0.0f, 0.0f};
-
-  load_rows_bf16(bt.xb, xn, row0, n, d, bt.dp);
-  for (int c0 = 0; c0 < c; c0 += kCols) {
-    float lt[4];
-    if constexpr (kMem) load_lam(lt, lam, c0, c);
-    float acc[2][4];
-    cos_tile_bf16<kMem>(acc, bt, wn, memn, lt, c0, d, c, r0);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      float logit[4];
-      float tile_max = kNegInf;
-      float cnt = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = c0 + lane + 32 * i;
-        float cs = acc[q][i];
-        if (has_clamp) cs = fminf(fmaxf(cs, -1.0f + clamp_eps), 1.0f - clamp_eps);
-        const bool in_range = col < c;
-        const bool is_target = col == rp[q].label;
-        logit[i] = in_range
-                       ? rp[q].scale * (is_target ? rp[q].t
-                                                  : h_fn(mode, cs, rp[q].a, rp[q].b))
-                       : kNegInf;
-        // pre-margin rank statistic for top-k accuracy (on the blended,
-        // clamped cos): the target column never counts itself
-        if (in_range && !is_target && cs > rp[q].tcos) cnt += 1.0f;
-        tile_max = fmaxf(tile_max, logit[i]);
-      }
-      const float m_new = fmaxf(m[q], warp_max(tile_max));
-      float s = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (c0 + lane + 32 * i < c) s += expf(logit[i] - m_new);
-      l[q] = l[q] * expf(m[q] - m_new) + warp_sum(s);
-      m[q] = m_new;
-      hi[q] += warp_sum(cnt);
-    }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int row = row0 + r0 + q;
-      if (row < n) {
-        lse_out[row] = m[q] + logf(l[q]);
-        tlogit_out[row] = rp[q].scale * rp[q].t;
-        higher_out[row] = hi[q];
-      }
-    }
-  }
-}
-
-// The bf16 kernels hold wmma fragments beside the epilogue's state; one
-// block per SM (at N = 512 there are 32 blocks for 132 SMs anyway).
-template <bool kMem>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_ce_fwd_bf16_kernel(FWD_PARAMS) { fwd_bf16_body<kMem>(FWD_ARGS); }
-
 // dlogit-side epilogue shared by both backward kernels. Returns dcos and
 // adds the row's target / scale gradient terms to dt, dsc.
 __device__ __forceinline__ float dcos_of(float cos_raw, int col, int c,
@@ -571,7 +486,7 @@ __device__ __forceinline__ float dcos_of(float cos_raw, int col, int c,
 template <bool kMem>
 __device__ __forceinline__ void bwd_dx_bf16_body(DX_PARAMS) {
   extern __shared__ float smem[];
-  const BfTiles bt = bf_tiles(smem, d, kMem, true);
+  const BfTiles bt = bf_tiles(smem, d, kMem);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1220,6 +1135,355 @@ fused_ce_fwd_combine_kernel(const float* __restrict__ part,
   higher[row] = h;
 }
 
+// ---- bf16 split-C forward (fused_ce_fwd(_mem)_bf16) ----------------------
+//
+// The counterpart of _fwd_kernel with mm_dtype=bfloat16 (K5; with the blend
+// its has_mem body). Three launches from one entry:
+//   1. fused_ce_round_bf16_kernel rounds xn, wn (and memn) to bf16 once per
+//      element into the workspace: xb [N][dp] and wb, mb [D][Cp], zero-padded
+//      to dp = round16(D) and Cp = round8(C) columns, so that every row starts
+//      on 16 bytes (C = 10,575 is odd) and the split kernel stages them with
+//      16-byte cp.async copies;
+//   2. fused_ce_fwd_bf16_split_kernel on a grid of 64-row tiles x class
+//      ranges of whole 128-wide tiles (range_cols: two blocks per SM where
+//      C allows) writes each range's (m, l, higher) per row into the fp32
+//      forward's [S][3][N] layout;
+//   3. fused_ce_fwd_combine_kernel merges them in range order.
+// A block keeps its 64 rows of xb in shared memory and streams its range's
+// wb (mb) in 32-deep chunks through a 4-stage cp.async ring, so one staged
+// chunk feeds 64 rows. Eight warps (2 x 4) each own 32 rows x 32 classes of
+// the 64 x 128 cosine tile: per 16-deep k step 2 ldmatrix.x4 of xb, 2
+// ldmatrix.x4.trans of the chunk (with the blend 2 more) and 8 (16)
+// mma.sync.m16n8k16 bf16 products with fp32 accumulators in registers. The
+// blend, the clamp, the margin, the online logsumexp and `higher` run in
+// fp32 on each thread's own accumulator elements (4 rows x 8 classes); the
+// rows' partial (m, l, higher) meet over the 4 lanes of a quad by shuffles
+// and over the 4 warps of a row half through shared memory, in a fixed
+// order: no atomics, so two launches give bitwise-equal results. Rows past
+// N are inert (load_row), columns past C masked.
+// Bytes at N=512, D=512, C=10,575: the pre-pass reads 22.7 MB of fp32 (44.4
+// MB with memn) and writes 11.4 MB of bf16 (22.2 MB); the split kernel reads
+// 64 rows of xb (64 KB) and 2 tiles of wb per block from L2.
+
+constexpr int kBfRows = 64;                     // rows of a block tile
+constexpr int kBfCols = 128;                    // width of a class tile
+constexpr int kBfDepth = 32;                    // D depth of one staged chunk
+constexpr int kBfStages = 4;                    // cp.async ring
+constexpr int kBfChunk = kBfDepth * kBfCols;    // bf16 elements of a chunk
+static_assert(kBfDepth * kBfCols / 8 == 2 * kThreads,
+              "two 16-byte copies a thread per staged chunk");
+
+__host__ __device__ constexpr int round8(int c) { return (c + 7) & ~7; }
+
+// Byte offsets in dynamic shared memory: the block's Row scalars
+// [kBfRows], xs [kBfRows][dp + 8] bf16 (the pitch keeps ldmatrix's 8 rows
+// on different banks), then the ring [kBfStages][kMem ? 2 : 1][kBfDepth]
+// [kBfCols] bf16.
+__host__ __device__ inline size_t fwd_bf16_xs_at() {
+  return align128(sizeof(Row) * kBfRows);
+}
+__host__ __device__ inline size_t fwd_bf16_ring_at(int d) {
+  return fwd_bf16_xs_at() +
+         align128(sizeof(bf16) * kBfRows * (round16(d) + 8));
+}
+__host__ __device__ inline size_t fwd_bf16_smem(int d, bool mem) {
+  return fwd_bf16_ring_at(d) +
+         sizeof(bf16) * kBfStages * (mem ? 2 : 1) * kBfChunk;
+}
+
+// Float offsets in the workspace: part [S][3][N] fp32, then xb [N][dp], wb
+// [D][Cp] and (mem) mb [D][Cp] bf16, each on 16 bytes.
+struct FwdBfWs {
+  size_t xb, wb, mb, total;
+};
+
+inline FwdBfWs fwd_bf16_ws(int splits, int n, int d, int c, bool mem) {
+  auto on16 = [](size_t floats) { return (floats + 3) & ~size_t{3}; };
+  const size_t w = static_cast<size_t>(d) * round8(c) / 2;
+  FwdBfWs L;
+  L.xb = on16(3 * static_cast<size_t>(splits) * n);
+  L.wb = on16(L.xb + static_cast<size_t>(n) * round16(d) / 2);
+  L.mb = on16(L.wb + w);
+  L.total = L.mb + (mem ? w : 0);
+  return L;
+}
+
+// fp32 src [rows][cols] -> bf16 dst [rows][pitch] (round to nearest even),
+// zero in columns cols .. pitch - 1; pitch is a multiple of 8. blockIdx.y
+// picks the job; a thread writes 8 elements, one 16-byte store.
+struct RoundJob {
+  const float* src;
+  bf16* dst;
+  int rows, cols, pitch;
+};
+struct RoundJobs {
+  RoundJob job[3];
+};
+
+__global__ void __launch_bounds__(kThreads)
+fused_ce_round_bf16_kernel(const RoundJobs jobs) {
+  // a constant index each: a dynamic one would copy the jobs to the stack
+  const RoundJob jb = blockIdx.y == 0   ? jobs.job[0]
+                      : blockIdx.y == 1 ? jobs.job[1]
+                                        : jobs.job[2];
+  const int per_row = jb.pitch / 8;
+  const size_t groups = static_cast<size_t>(jb.rows) * per_row;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < groups; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / per_row;
+    const int j0 = static_cast<int>(i - r * per_row) * 8;
+    const float* src = jb.src + r * jb.cols;
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = __float2bfloat16_rn(j0 + e < jb.cols ? src[j0 + e] : 0.0f);
+    *reinterpret_cast<uint4*>(jb.dst + r * jb.pitch + j0) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// The bf16 forward over one class range into part [S][3][N] (see above).
+// Without the blend two blocks share an SM (101,888 B of shared memory at
+// D = 512); with it one (134,656 B).
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads, kMem ? 1 : 2)
+fused_ce_fwd_bf16_split_kernel(const bf16* __restrict__ xb,
+                               const bf16* __restrict__ wb,
+                               const bf16* __restrict__ mb,
+                               const float* __restrict__ lam,
+                               const int* __restrict__ labels,
+                               const float* __restrict__ t,
+                               const float* __restrict__ tcos,
+                               const float* __restrict__ scale,
+                               const float* __restrict__ ab,
+                               float* __restrict__ part, int n, int d, int c,
+                               int range_cols, int mode, int has_clamp,
+                               float clamp_eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int kOps = kMem ? 2 : 1;
+  constexpr int kTileChunks = kBfCols / 8;   // 16-byte chunks of a chunk row
+  const int dp = round16(d);
+  const int cp = round8(c);
+  const int xpitch = dp + 8;
+  Row* rows = reinterpret_cast<Row*>(smem_raw);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + fwd_bf16_xs_at());
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + fwd_bf16_ring_at(d));
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wr = (warp >> 2) * 32;   // the warp's rows of the tile
+  const int wc = (warp & 3) * 32;    // and its classes
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int row0 = blockIdx.x * kBfRows;
+  const int c_lo = blockIdx.y * range_cols;
+  const int c_hi = min(c, c_lo + range_cols);
+  const int nk = ceil_div(dp, kBfDepth);
+  const int total = (c_hi > c_lo ? ceil_div(c_hi - c_lo, kBfCols) : 0) * nk;
+  if (tid < kBfRows)
+    rows[tid] = load_row(row0 + tid, n, labels, t, tcos, scale, ab, nullptr,
+                         nullptr, nullptr);
+  // the block's rows of xb ride in the first cp.async group; zero past N
+  const int segs = dp / 8;
+  for (int i = tid; i < kBfRows * segs; i += kThreads) {
+    const int r = i / segs;
+    const int sg = i - r * segs;
+    const bool in = row0 + r < n;
+    tc::cp_async16(xs + r * xpitch + sg * 8,
+                   in ? xb + static_cast<size_t>(row0 + r) * dp + sg * 8 : xb,
+                   in);
+  }
+  // a chunk of wb (mb): thread -> 16-byte chunk tid % 16 of rows
+  // tid / 16 + 16 j; zero past D and past Cp
+  const int seg = tid & 15;
+  auto prefetch = [&](int i) {
+    bf16* st = ring + (i % kBfStages) * kOps * kBfChunk;
+    const int col = c_lo + (i / nk) * kBfCols + seg * 8;
+    const int k0 = (i % nk) * kBfDepth;
+#pragma unroll
+    for (int j = 0; j < kBfDepth / 16; ++j) {
+      const int kr = (tid >> 4) + 16 * j;
+      const bool in = k0 + kr < d && col < cp;
+      const size_t at = static_cast<size_t>(k0 + kr) * cp + col;
+      const int to = tc::swz<kTileChunks>(kr, seg);
+      tc::cp_async16(st + to, in ? wb + at : wb, in);
+      if constexpr (kMem) tc::cp_async16(st + kBfChunk + to, in ? mb + at : mb, in);
+    }
+  };
+  for (int i = 0; i < kBfStages - 1; ++i) {
+    if (i < total) prefetch(i);
+    tc::commit();
+  }
+
+  // the thread's rows wr + 16 mt + g + 8 h (q = 2 mt + h) and classes
+  // c0 + wc + 8 nt + 2 qd + e of each class tile
+  float acc[2][4][4], accm[2][4][4];
+  float m[4], l[4], hi[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    m[q] = kNegInf;
+    l[q] = 0.0f;
+    hi[q] = 0.0f;
+  }
+  for (int i = 0; i < total; ++i) {
+    tc::wait<kBfStages - 2>();
+    __syncthreads();  // stage i landed; stage i - 1's readers done
+    if (i + kBfStages - 1 < total) prefetch(i + kBfStages - 1);
+    tc::commit();
+    const int kc = i % nk;
+    if (kc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = accm[mt][nt][e] = 0.0f;
+    }
+    const bf16* st = ring + (i % kBfStages) * kOps * kBfChunk;
+    const int k0 = kc * kBfDepth;
+    const int ksteps = min(kBfDepth, dp - k0) / 16;
+#pragma unroll
+    for (int ks = 0; ks < kBfDepth / 16; ++ks) {
+      if (ks >= ksteps) break;
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        tc::ldmatrix_x4(af[mt], xs + (wr + 16 * mt + (lane & 15)) * xpitch +
+                                    k0 + 16 * ks + 8 * (lane >> 4));
+      // B fragments of the 4 n8 tiles of the warp's 32 classes, from the
+      // chunk of wb (op 0) or mb (op 1)
+      auto load_b = [&](int op, uint32_t bq[4][2]) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          uint32_t r[4];
+          tc::ldmatrix_x4_trans(
+              r, st + op * kBfChunk +
+                     tc::swz<kTileChunks>(16 * ks + (lane & 15),
+                                          (wc >> 3) + 2 * jj + (lane >> 4)));
+          bq[2 * jj][0] = r[0];
+          bq[2 * jj][1] = r[1];
+          bq[2 * jj + 1][0] = r[2];
+          bq[2 * jj + 1][1] = r[3];
+        }
+      };
+      uint32_t bq[4][2];
+      load_b(0, bq);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          tc::mma_bf16(acc[mt][nt], af[mt], bq[nt][0], bq[nt][1]);
+      if constexpr (kMem) {
+        load_b(1, bq);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            tc::mma_bf16(accm[mt][nt], af[mt], bq[nt][0], bq[nt][1]);
+      }
+    }
+    if (kc != nk - 1) continue;
+    // the class tile is complete: blend, clamp, margin, online logsumexp and
+    // `higher` on the thread's own elements
+    const int c0 = c_lo + (i / nk) * kBfCols + wc + 2 * qd;
+    if constexpr (kMem) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * nt + e;
+          const float lt = col < c ? lam[col] : 0.0f;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              acc[mt][nt][2 * h + e] = (1.0f - lt) * acc[mt][nt][2 * h + e] +
+                                       lt * accm[mt][nt][2 * h + e];
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int mt = q >> 1;
+      const int h = q & 1;
+      const Row& r = rows[wr + 16 * mt + g + 8 * h];
+      float logit[8];
+      float tile_max = kNegInf;
+      float cnt = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * nt + e;
+          float cs = acc[mt][nt][2 * h + e];  // blended with the memory's
+          if (has_clamp)
+            cs = fminf(fmaxf(cs, -1.0f + clamp_eps), 1.0f - clamp_eps);
+          const bool in_range = col < c;
+          const bool is_target = col == r.label;
+          const float lg =
+              in_range ? r.scale * (is_target ? r.t : h_fn(mode, cs, r.a, r.b))
+                       : kNegInf;
+          // pre-margin rank statistic for top-k accuracy (on the blended,
+          // clamped cos): the target column never counts itself
+          if (in_range && !is_target && cs > r.tcos) cnt += 1.0f;
+          logit[2 * nt + e] = lg;
+          tile_max = fmaxf(tile_max, lg);
+        }
+      const float m_new = fmaxf(m[q], tile_max);
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (c0 + 8 * (j >> 1) + (j & 1) < c) s += expf(logit[j] - m_new);
+      l[q] = l[q] * expf(m[q] - m_new) + s;
+      m[q] = m_new;
+      hi[q] += cnt;
+    }
+  }
+  tc::wait<0>();
+
+  // merge each row's (m, l, higher) over the quad's 4 lanes, then over the
+  // 4 warps of its row half in order of warp
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[q], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[q], o);
+      const float mm = fmaxf(m[q], mo);
+      l[q] = l[q] * expf(m[q] - mm) + lo * expf(mo - mm);
+      m[q] = mm;
+      hi[q] += __shfl_xor_sync(0xffffffffu, hi[q], o);
+    }
+  }
+  __syncthreads();  // the ring is free: red [4 warps][kBfRows][3]
+  float* red = reinterpret_cast<float*>(ring);
+  if (qd == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float* p = red + ((warp & 3) * kBfRows + wr + 16 * (q >> 1) + g +
+                        8 * (q & 1)) * 3;
+      p[0] = m[q];
+      p[1] = l[q];
+      p[2] = hi[q];
+    }
+  }
+  __syncthreads();
+  const int row = row0 + tid;
+  if (tid < kBfRows && row < n) {
+    float mq = kNegInf, lq = 0.0f, hq = 0.0f;
+    for (int w = 0; w < 4; ++w) {
+      const float* p = red + (w * kBfRows + tid) * 3;
+      const float mm = fmaxf(mq, p[0]);
+      lq = lq * expf(mq - mm) + p[1] * expf(p[0] - mm);
+      mq = mm;
+      hq += p[2];
+    }
+    float* out = part + static_cast<size_t>(blockIdx.y) * 3 * n + row;
+    out[0] = mq;
+    out[n] = lq;
+    out[2 * n] = hq;
+  }
+}
+
 // dx over one class range: dx_part [S][N][round4(D)] and the range's dt,
 // dscale terms (without the direct path) row_part [S][2][N].
 template <bool kMem>
@@ -1666,9 +1930,6 @@ fused_ce_bwd_dw_combine_kernel(const float* __restrict__ part,
   dw[i] = sum;
 }
 
-// Columns per class range of the fwd (which 0, 3) or bwd_dx (1, 4): whole
-// 256-wide tiles, as many per range as keep at least two blocks per SM
-// (row tiles x ranges) where C allows it.
 int sm_count() {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
@@ -1676,11 +1937,17 @@ int sm_count() {
   return sms;
 }
 
+// Columns per class range of the fp32 fwd (which 0, 3), bwd_dx (1, 4) or
+// the bf16 fwd (6, 9): whole class tiles (256 wide; the bf16 fwd's 128), as
+// many per range as keep at least two blocks per SM (row tiles x ranges)
+// where C allows it.
 int range_cols(int which, int n, int c) {
-  const int ctiles = ceil_div(c, kSplitCols);
-  const int want =
-      ceil_div(2 * sm_count(), ceil_div(n, split_rows(which % 3 == 1)));
-  return (want >= ctiles ? 1 : ctiles / want) * kSplitCols;
+  const bool bf16 = which >= 6;
+  const int tile = bf16 ? kBfCols : kSplitCols;
+  const int rows = bf16 ? kBfRows : split_rows(which % 3 == 1);
+  const int ctiles = ceil_div(c, tile);
+  const int want = ceil_div(2 * sm_count(), ceil_div(n, rows));
+  return (want >= ctiles ? 1 : ctiles / want) * tile;
 }
 
 // Rows per row range of bwd_dw (which 2, 5): whole 256-row tiles, as many
@@ -1695,8 +1962,15 @@ int range_rows(int n, int c) {
 int num_splits(int c, int cols) { return c > 0 ? ceil_div(c, cols) : 1; }
 
 // Workspace floats of the fp32 fwd (which 0, 3), bwd_dx (1, 4) and bwd_dw
-// (2, 5) entries; bwd_dw takes none when it runs a single row range.
+// (2, 5) entries and of the bf16 fwd (6, 9); bwd_dw takes none when it runs
+// a single row range, the other bf16 entries none.
 size_t workspace_floats(int which, int n, int d, int c) {
+  if (which >= 6) {
+    if (which % 3) return 0;
+    return fwd_bf16_ws(num_splits(c, range_cols(which, n, c)), n, d, c,
+                       which == 9)
+        .total;
+  }
   if (which % 3 == 2) {
     const size_t s = num_splits(n, range_rows(n, c));
     return s > 1 ? s * d * c : 0;
@@ -1710,8 +1984,9 @@ size_t smem_bytes(int which, int d) {
   const bool mem = which % 6 >= 3;
   const int k = which % 3;
   if (which >= 6)
-    return k == 2 ? dw_bf16_layout(d, mem).total
-                  : bf_layout(d, mem, k == 1).total;
+    return k == 0   ? fwd_bf16_smem(d, mem)
+           : k == 1 ? bf_layout(d, mem).total
+                    : dw_bf16_layout(d, mem).total;
   return k == 2 ? dw_split_smem(d, mem) : split_smem(d, mem, k == 1);
 }
 
@@ -1787,21 +2062,50 @@ int launch_bwd_dx(const float* xn, const float* wn, const float* memn,
   return static_cast<int>(cudaGetLastError());
 }
 
+// fused_ce_fwd(_mem)_bf16, the counterpart of _fwd_kernel with
+// mm_dtype=bfloat16 (K5; with the blend its has_mem body). Bound at N=512,
+// D=512, C=10,575 by bytes: 0.0068 ms (0.0071 with memn at VPL's one-step
+// lam) at 3.35 TB/s. The pre-pass rounds the operands to bf16 into the
+// workspace, the split kernel puts ceil(N / 64) x S blocks on the card, the
+// combine merges the ranges' (m, l, higher) in order of range.
 template <bool kMem>
 int launch_fwd_bf16(const float* xn, const float* wn, const float* memn,
                     const float* lam, const int* labels, const float* t,
                     const float* tcos, const float* scale, const float* ab,
-                    float* lse, float* tlogit, float* higher, int n, int d,
-                    int c, int mode, int has_clamp, float clamp_eps,
+                    float* lse, float* tlogit, float* higher, float* ws, int n,
+                    int d, int c, int mode, int has_clamp, float clamp_eps,
                     void* stream) {
-  const size_t smem = smem_bytes(6 + (kMem ? 3 : 0), d);
-  auto* kernel = fused_ce_fwd_bf16_kernel<kMem>;
+  const size_t smem = fwd_bf16_smem(d, kMem);
+  auto* kernel = fused_ce_fwd_bf16_split_kernel<kMem>;
   cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kRows - 1) / kRows;
-  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xn, wn, memn, lam, labels, t, tcos, scale, ab, lse, tlogit, higher, n,
-      d, c, mode, has_clamp, clamp_eps);
+  const int cols = range_cols(kMem ? 9 : 6, n, c);
+  const int splits = num_splits(c, cols);
+  const FwdBfWs L = fwd_bf16_ws(splits, n, d, c, kMem);
+  auto* xb = reinterpret_cast<bf16*>(ws + L.xb);
+  auto* wb = reinterpret_cast<bf16*>(ws + L.wb);
+  auto* mb = reinterpret_cast<bf16*>(ws + L.mb);
+  const RoundJobs jobs = {{{xn, xb, n, d, round16(d)},
+                           {wn, wb, d, c, round8(c)},
+                           {memn, mb, d, c, round8(c)}}};
+  const long long groups =
+      std::max(static_cast<long long>(n) * round16(d),
+               static_cast<long long>(d) * round8(c)) / 8;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const dim3 round_grid(
+      static_cast<unsigned>(std::min<long long>(ceil_div(groups, kThreads),
+                                                8LL * sm_count())),
+      kMem ? 3 : 2);
+  fused_ce_round_bf16_kernel<<<round_grid, kThreads, 0, st>>>(jobs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(ceil_div(n, kBfRows), splits), kThreads, smem, st>>>(
+      xb, wb, mb, lam, labels, t, tcos, scale, ab, ws, n, d, c, cols, mode,
+      has_clamp, clamp_eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_ce_fwd_combine_kernel<<<ceil_div(n, kThreads), kThreads, 0, st>>>(
+      ws, t, scale, lse, tlogit, higher, n, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2005,16 +2309,16 @@ int fused_ce_bwd_dw_mem(const float* xn, const float* wn, const float* memn,
                              clamp_eps, stream);
 }
 
-// bf16 tensor-core entries: the arguments of the fp32 ones, without
-// the workspace.
+// bf16 tensor-core entries: the arguments of the fp32 ones; only the
+// forward takes a workspace (fused_ce_workspace_floats, which 6 and 9).
 int fused_ce_fwd_bf16(const float* xn, const float* wn, const int* labels,
                       const float* t, const float* tcos, const float* scale,
                       const float* ab, float* lse, float* tlogit,
-                      float* higher, int n, int d, int c, int mode,
+                      float* higher, float* ws, int n, int d, int c, int mode,
                       int has_clamp, float clamp_eps, void* stream) {
   return launch_fwd_bf16<false>(xn, wn, nullptr, nullptr, labels, t, tcos,
-                                scale, ab, lse, tlogit, higher, n, d, c, mode,
-                                has_clamp, clamp_eps, stream);
+                                scale, ab, lse, tlogit, higher, ws, n, d, c,
+                                mode, has_clamp, clamp_eps, stream);
 }
 
 int fused_ce_bwd_dx_bf16(const float* xn, const float* wn, const int* labels,
@@ -2042,11 +2346,12 @@ int fused_ce_fwd_mem_bf16(const float* xn, const float* wn, const float* memn,
                           const float* lam, const int* labels, const float* t,
                           const float* tcos, const float* scale,
                           const float* ab, float* lse, float* tlogit,
-                          float* higher, int n, int d, int c, int mode,
-                          int has_clamp, float clamp_eps, void* stream) {
+                          float* higher, float* ws, int n, int d, int c,
+                          int mode, int has_clamp, float clamp_eps,
+                          void* stream) {
   return launch_fwd_bf16<true>(xn, wn, memn, lam, labels, t, tcos, scale, ab,
-                               lse, tlogit, higher, n, d, c, mode, has_clamp,
-                               clamp_eps, stream);
+                               lse, tlogit, higher, ws, n, d, c, mode,
+                               has_clamp, clamp_eps, stream);
 }
 
 int fused_ce_bwd_dx_mem_bf16(const float* xn, const float* wn,

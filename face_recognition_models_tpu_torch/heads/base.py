@@ -29,6 +29,15 @@ class HeadOutput(NamedTuple):
     state: Any                # updated head state
 
 
+def one_hot(labels: torch.Tensor, num_classes: int,
+            dtype=torch.float32) -> torch.Tensor:
+    """[N, C] one-hot; a label outside [0, C) (-1: ignore) gives an all-zero
+    row, as jax.nn.one_hot does. The heads' target mask, and the loss's and
+    the metrics' target selection."""
+    cols = torch.arange(num_classes, device=labels.device)
+    return (labels.long()[:, None] == cols[None, :]).to(dtype)
+
+
 class Head(NamedTuple):
     name: str
     init_kernel: Callable[..., torch.Tensor]

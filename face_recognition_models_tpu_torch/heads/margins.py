@@ -12,13 +12,13 @@ import math
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from face_recognition_models_tpu_torch.heads.base import (
     Head,
     HeadOutput,
     register_head,
 )
+from face_recognition_models_tpu_torch.heads.base import one_hot as _one_hot
 from face_recognition_models_tpu_torch.ops.normalize import (
     cosine_logits,
     feature_norms,
@@ -35,13 +35,6 @@ def _xavier_uniform_kernel(cfg, generator: torch.Generator,
     w = torch.empty((d, c), dtype=torch.float32)
     w.uniform_(-bound, bound, generator=generator)
     return w.to(device)
-
-
-def _one_hot(labels, num_classes: int) -> torch.Tensor:
-    """[N, C] fp32 one-hot; a label outside [0, C) (-1: ignore) gives an
-    all-zero row, as jax.nn.one_hot does."""
-    cols = torch.arange(num_classes, device=labels.device)
-    return (labels.long()[:, None] == cols[None, :]).to(torch.float32)
 
 
 def _class_mean_update(values, labels, valid, mem, life, delta: float):
@@ -91,7 +84,7 @@ def _arc_margin(cos, one_hot, m: float, easy_margin: bool, s: float):
 def _arcface_apply(cfg, kernel, feats, labels, state=None, rng=None,
                    minput=None) -> HeadOutput:
     cos, _, norms = cosine_logits(feats, kernel)  # no clamp (criterion.py:267)
-    one_hot = F.one_hot(labels.long(), cfg.num_classes).to(torch.float32)
+    one_hot = _one_hot(labels, cfg.num_classes)  # -1: an all-zero row
     logits = _arc_margin(cos, one_hot, cfg.m, cfg.easy_margin, cfg.s)
     return HeadOutput(cos * cfg.s, logits, norms,
                       torch.zeros((), device=feats.device), one_hot, state)

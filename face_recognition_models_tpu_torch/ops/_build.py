@@ -2,8 +2,9 @@
 
 Each source in `csrc/` has a plain C interface and compiles on its own into
 `build/kernels/lib<name>-<hash>.so` at the repository root (the directory is
-git-ignored). The hash covers the source text and the flags, so an edited
-source is rebuilt and a built one is reused. Nothing here runs at import
+git-ignored). The hash covers the source text, the headers of `csrc/`
+(`*.cuh`) and the flags, so an edited source or header is rebuilt and a
+built one is reused. Nothing here runs at import
 time: the first launch of a kernel builds its library.
 """
 
@@ -39,7 +40,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

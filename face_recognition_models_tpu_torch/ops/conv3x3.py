@@ -5,13 +5,21 @@ r = n*H*W + h*W + w,
 
     y[r] = sum_{a, b in {-1, 0, 1}} x[n, h + a, w + b] @ K[a + 1, b + 1]
 
-with x taken as zero outside the image. On CUDA tensors the kernel of
-`csrc/conv3x3.cu` runs (bf16 on the tensor cores, fp32 in IEEE fp32 on the
-CUDA cores); on CPU tensors `conv3x3_same_plain`, which is also the reference
-the card is checked against. There is no fallback from the card to the plain
-code. As in the JAX package, no model uses it: the trunks' convolutions are
-cuDNN's, and this op is reached through its benchmark,
-`python -m face_recognition_models_tpu_torch.scripts.bench_conv3x3`.
+with x taken as zero outside the image. On CUDA tensors a kernel of
+`csrc/conv3x3.cu` runs, chosen by dtype and shape alone:
+
+- bf16 with C and C_out multiples of 8: `conv3x3_same_bf16`, 128 x 128
+  tiles of y staged with 16-byte `cp.async` copies and multiplied with
+  `wgmma` on the tensor cores;
+- bf16 at any other width: `conv3x3_same_bf16_ragged` (64 x 64 tiles,
+  synchronous staging, wmma);
+- fp32: `conv3x3_same_f32`, IEEE fp32 on the CUDA cores.
+
+On CPU tensors `conv3x3_same_plain` runs, which is also the reference the
+card is checked against. There is no fallback from the card to the plain
+code, nor from one route to another. As in the JAX package, no model uses
+it: the trunks' convolutions are cuDNN's, and this op is reached through its
+benchmark, `python -m face_recognition_models_tpu_torch.scripts.bench_conv3x3`.
 """
 
 from __future__ import annotations
@@ -21,11 +29,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-# Launches since the last reset_launch_counts(); bumped only where the
-# wrapper launches its kernel.
-launch_counts = {"conv3x3_same": 0}
-_ENTRIES = {torch.bfloat16: "conv3x3_same_bf16",
-            torch.float32: "conv3x3_same_f32"}
+# Launches per route since the last reset_launch_counts(); bumped only where
+# the wrapper launches a kernel. "conv3x3_same" is the bf16 16-byte route.
+_ROUTES = {"conv3x3_same": "conv3x3_same_bf16",
+           "conv3x3_same_ragged": "conv3x3_same_bf16_ragged",
+           "conv3x3_same_f32": "conv3x3_same_f32"}
+launch_counts = {key: 0 for key in _ROUTES}
 _TAPS = tuple((a, b) for a in (-1, 0, 1) for b in (-1, 0, 1))
 
 
@@ -65,13 +74,22 @@ def _lib():
 
     lib = _build.load("conv3x3")
     if not getattr(lib, "_typed", False):
-        for name in _ENTRIES.values():
+        for name in _ROUTES.values():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def route(dtype, c: int, co: int) -> str:
+    """The launch_counts key of the kernel that runs x of `dtype` with C
+    input and C_out output channels on the card."""
+    if dtype == torch.float32:
+        return "conv3x3_same_f32"
+    return "conv3x3_same" if c % 8 == 0 and co % 8 == 0 else \
+        "conv3x3_same_ragged"
 
 
 def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor, *,
@@ -91,22 +109,25 @@ def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_same: expected CUDA or CPU tensors, got "
                          f"{x.device}")
-    if x.dtype not in _ENTRIES:
+    if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"conv3x3_same: x must be bfloat16 or float32 on "
                          f"the card, got {x.dtype}")
     if kernel.device != x.device:
         raise ValueError(f"conv3x3_same: kernel must be on {x.device}")
     n, h, w, c = x.shape
     co = kernel.shape[3]
+    name = route(x.dtype, c, co)
     x = x.contiguous()
     w9 = kernel.to(x.dtype).reshape(9, c, co).contiguous()
+    if name == "conv3x3_same":  # 16-byte copies: a view may start unaligned
+        x, w9 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w9))
     y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
     if y.numel():
         with torch.cuda.device(x.device):
-            err = getattr(_lib(), _ENTRIES[x.dtype])(
+            err = getattr(_lib(), _ROUTES[name])(
                 x.data_ptr(), w9.data_ptr(), y.data_ptr(), n, h, w, c, co,
                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"conv3x3_same: CUDA error {err} at launch")
-        launch_counts["conv3x3_same"] += 1
+        launch_counts[name] += 1
     return y

@@ -43,7 +43,10 @@ PyTorch, for the tests and the card checks; the main path never calls them.
 
 `mm_dtype=torch.bfloat16` (the JAX package's `mm_dtype=jnp.bfloat16`) runs
 every product on bf16 operands with fp32 accumulation: the `_bf16` kernels
-on the tensor cores. The operands are rounded to bf16 (round to nearest
+on the tensor cores. The bf16 forward entries are split-C like the fp32
+ones (128-wide class tiles, `split_plan(..., mm_dtype=torch.bfloat16)`),
+their workspace holding the [S, 3, N] partials and, after them, the
+operands rounded to bf16 once by a pre-pass. The operands are rounded to bf16 (round to nearest
 even) at exactly six places, and everything else stays fp32: xn and wn
 before every cosine product, memn, dcos before the dx and dw products, and,
 with the blend, dcos * (1 - lam) and dcos * lam, each rounded on its own.
@@ -288,12 +291,14 @@ def split_ranges(c: int, splits: int, range_cols: int):
 def fused_ce_fwd_partials_plain(xn, wn, labels, t, tcos, scale, ab,
                                 mode: int, clamp_eps: Optional[float] = None,
                                 *, splits: int, range_cols: int, memn=None,
-                                lam=None) -> torch.Tensor:
+                                lam=None, mm_dtype=torch.float32
+                                ) -> torch.Tensor:
     """Per-range partials of the forward, [S, 3, N]: the range's max logit m
     (-1e30 for an empty range), l = sum exp(logit - m) and the `higher`
-    count. With memn and lam, the memory-blended head."""
+    count. With memn and lam, the memory-blended head; with
+    mm_dtype=torch.bfloat16, the products on bf16 operands."""
     logits, above = _logits_plain(xn, wn, memn, lam, labels, t, tcos, scale,
-                                  ab, mode, clamp_eps, torch.float32)
+                                  ab, mode, clamp_eps, mm_dtype)
     parts = []
     for lo, hi in split_ranges(wn.shape[1], splits, range_cols):
         seg = logits[:, lo:hi]
@@ -388,13 +393,14 @@ def _lib():
     lib = _build.load("fused_head")
     if not getattr(lib, "_typed", False):
         # each _mem entry takes memn and lam right after wn; each fp32
-        # entry a workspace after its outputs; each _bf16 entry the
-        # arguments of its fp32 counterpart without the workspace
+        # entry and each forward a workspace after its outputs; the _bf16
+        # backward entries the arguments of their fp32 counterparts without
+        # the workspace
         for name, ptrs in (("fused_ce_fwd", 10), ("fused_ce_bwd_dx", 12),
                            ("fused_ce_bwd_dw", 9)):
             for mem, extra in (("", 0), ("_mem", 2)):
                 for bf16 in ("", "_bf16"):
-                    ws = int(not bf16)
+                    ws = int(not bf16 or name == "fused_ce_fwd")
                     fn = getattr(lib, name + mem + bf16)
                     fn.argtypes = ([_P] * (ptrs + extra + ws) + [_I] * 5
                                    + [_F, _P])
@@ -485,13 +491,17 @@ def _eps_args(clamp_eps):
     return (0, 0.0) if clamp_eps is None else (1, float(clamp_eps))
 
 
-def split_plan(n: int, c: int, dx: bool = False,
-               device=None) -> Tuple[int, int]:
+def split_plan(n: int, c: int, dx: bool = False, device=None,
+               mm_dtype=torch.float32) -> Tuple[int, int]:
     """(ranges S, columns per range) of the fp32 fwd (or, with `dx`, bwd_dx)
-    kernels at (n, c) on the card `device`: at least two blocks per SM where
-    C allows."""
+    kernels, or with mm_dtype=torch.bfloat16 of the bf16 fwd, at (n, c) on
+    the card `device`: at least two blocks per SM where C allows."""
+    _check_mm_dtype(mm_dtype)
+    if dx and mm_dtype == torch.bfloat16:
+        raise ValueError("split_plan: the bf16 bwd_dx runs unsplit")
+    which = 6 if mm_dtype == torch.bfloat16 else int(dx)
     with torch.cuda.device(device):
-        cols = _lib().fused_ce_range_cols(int(dx), n, c)
+        cols = _lib().fused_ce_range_cols(which, n, c)
     return max(1, -(-c // cols)), cols
 
 
@@ -504,9 +514,10 @@ def dw_split_plan(n: int, c: int, device=None) -> Tuple[int, int]:
 
 
 def _workspace(which, n, d, c, device):
-    """() for a bf16 entry; else the workspace of partials its fp32 entry
-    fills (fused_ce_workspace_floats; empty for a bwd_dw of one range)."""
-    if which >= 6:
+    """() for a bf16 backward entry; else the workspace its entry fills
+    (fused_ce_workspace_floats: partials, empty for an fp32 bwd_dw of one
+    range; the bf16 forward's partials and its bf16 operands)."""
+    if which >= 6 and which % 3:
         return ()
     floats = _lib().fused_ce_workspace_floats(which, n, d, c)
     return (torch.empty(floats, dtype=torch.float32, device=device),)
@@ -514,8 +525,8 @@ def _workspace(which, n, d, c, device):
 
 def _fwd(name, which, xn, wn, mem, labels, t, tcos, scale, ab, mode,
          clamp_eps, mm_dtype, parts=None) -> FusedHeadOut:
-    """The forward entry; `parts`, a list, receives the workspace of
-    per-range partials of an fp32 launch ([S, 3, N] flattened)."""
+    """The forward entry; `parts`, a list, receives its workspace, which
+    starts with the per-range partials ([S, 3, N] flattened)."""
     name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, tcos, scale), ab, mem)
     n, d = xn.shape

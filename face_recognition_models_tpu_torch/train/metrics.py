@@ -5,10 +5,15 @@ from __future__ import annotations
 
 import torch
 
+from face_recognition_models_tpu_torch.heads.base import one_hot
+
 
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, topk=(1, 5)):
     """Rank-count top-k accuracy: a sample is right at k when fewer than k
-    classes score strictly higher than its target."""
-    target = logits.gather(1, labels.long()[:, None])
+    classes score strictly higher than its target. The target score is
+    taken through a one-hot, so an ignore label (-1) scores 0 and counts the
+    logits above 0, as in the JAX package."""
+    target = (logits * one_hot(labels, logits.shape[1], logits.dtype)).sum(
+        1, keepdim=True)
     higher = (logits > target).sum(1)
     return tuple(100.0 * (higher < k).to(torch.float32).mean() for k in topk)

@@ -97,7 +97,22 @@ def test_conv3x3_wrapper_launches_nothing_on_cpu():
     tconv.reset_launch_counts()
     tconv.conv3x3_same(torch.zeros(2, 3, 3, 4), torch.zeros(3, 3, 4, 4),
                        block_n=2)
-    assert tconv.launch_counts == {"conv3x3_same": 0}
+    assert tconv.launch_counts == {"conv3x3_same": 0,
+                                   "conv3x3_same_ragged": 0,
+                                   "conv3x3_same_f32": 0}
+
+
+@pytest.mark.parametrize("dtype,c,co,want", [
+    (torch.bfloat16, 256, 256, "conv3x3_same"),
+    (torch.bfloat16, 40, 24, "conv3x3_same"),
+    (torch.bfloat16, 12, 16, "conv3x3_same_ragged"),
+    (torch.bfloat16, 16, 12, "conv3x3_same_ragged"),
+    (torch.float32, 256, 256, "conv3x3_same_f32"),
+    (torch.float32, 12, 12, "conv3x3_same_f32")])
+def test_conv3x3_route_is_chosen_by_shape(dtype, c, co, want):
+    """bf16 takes the 16-byte route when C and C_out are multiples of 8, the
+    ragged route otherwise; fp32 has one kernel."""
+    assert tconv.route(dtype, c, co) == want
 
 
 def test_bench_module_runs_on_cpu():

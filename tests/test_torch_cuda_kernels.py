@@ -3,8 +3,9 @@ card: the three margin + CE kernels, their memory-blended (_mem) variants,
 the split decomposition of the fp32 fwd and bwd_dx over class ranges and
 of the fp32 bwd_dw over row ranges (partials, combine, bitwise
 determinism),
-the bf16 tensor-core versions of all six (_bf16), and the implicit-GEMM
-3x3 conv. Marked `cuda`: they skip where there is no CUDA device. On a
+the bf16 tensor-core versions of all six (_bf16) with the split bf16
+forward's partials, combine and determinism, and the implicit-GEMM 3x3 conv
+on each of its routes. Marked `cuda`: they skip where there is no CUDA device. On a
 machine with a card (the JAX package need not be installed there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -407,6 +408,57 @@ def test_bf16_autograd_runs_the_kernels(cuda, mem):
     assert all(bool(torch.isfinite(leaf.grad).all()) for leaf in leaves)
 
 
+# The bf16 fwd splits C into ranges of whole 128-wide tiles: N = 1, N not a
+# multiple of the 64-row tile, a ragged last range, D = 72 and 200, and
+# (last) a final range of one column, the target of row 0.
+@pytest.mark.parametrize("n,d,c,last", SPLIT_SHAPES)
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_bf16_split_forward_partials_combine_determinism(cuda, n, d, c, last,
+                                                         mode, clamp_eps,
+                                                         mem):
+    """The bf16 fwd entries: each range's partials against
+    fused_ce_fwd_partials_plain with bf16 products, the combine kernel
+    against its plain version, the result against the unsplit plain
+    version, and two launches bitwise equal."""
+    xn, wn, labels, t, tcos, scale, ab = _inputs(n, d, c, mode, n + d + mode,
+                                                 cuda)
+    if last:
+        labels[0] = c - 1
+    extra = _mem_inputs(d, c, n + 7 * mode, cuda) if mem else ()
+    kw = dict(memn=extra[0], lam=extra[1]) if mem else {}
+    sfx, which = ("_mem", 3) if mem else ("", 0)
+    splits, cols = fh.split_plan(n, c, mm_dtype=torch.bfloat16)
+    assert splits > 1 and cols % 128 == 0
+    fwd = (labels, t, tcos, scale, ab, mode, clamp_eps)
+    ref = getattr(fh, f"fused_margin_ce{sfx}_plain")(
+        xn, wn, *extra, *fwd, mm_dtype=torch.bfloat16)
+    fh.reset_launch_counts()
+    outs, parts = [], []
+    for _ in range(2):
+        outs.append(fh._fwd("fused_ce_fwd" + sfx, which, xn, wn, extra, *fwd,
+                            torch.bfloat16, parts))
+    torch.cuda.synchronize()
+    name = "fused_ce_fwd" + sfx + "_bf16"
+    assert fh.launch_counts == {k: 2 * int(k == name)
+                                for k in fh.launch_counts}
+    got_parts = parts[0][:splits * 3 * n].view(splits, 3, n)
+    want_parts = fh.fused_ce_fwd_partials_plain(
+        xn, wn, *fwd, splits=splits, range_cols=cols, mm_dtype=torch.bfloat16,
+        **kw)
+    _stats_close(got_parts[:, :2], want_parts[:, :2])
+    assert float((got_parts[:, 2] - want_parts[:, 2]).abs().max()) <= 1
+    comb = fh.fused_ce_fwd_combine(want_parts, t, scale)
+    for a, b in zip(comb, fh.fused_ce_fwd_combine_plain(want_parts, t,
+                                                         scale)):
+        _stats_close(a, b)
+    _stats_close(outs[0].lse, ref.lse)
+    _stats_close(outs[0].target_logit, ref.target_logit)
+    assert float((outs[0].higher - ref.higher).abs().max()) <= 1
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert torch.equal(parts[0][:splits * 3 * n], parts[1][:splits * 3 * n])
+
+
 def test_bf16_wrappers_reject_bad_inputs(cuda):
     xn, wn, labels, t, tcos, scale, ab = _inputs(8, 64, 50, 0, 1, cuda)
     with pytest.raises(ValueError, match="mm_dtype"):
@@ -422,7 +474,13 @@ def test_bf16_wrappers_reject_bad_inputs(cuda):
     [(4, 7, 7, 16, 24, torch.float32), (4, 14, 14, 8, 8, torch.float32),
      (2, 5, 9, 4, 12, torch.float32), (6, 4, 4, 8, 8, torch.float32),
      (2, 7, 7, 32, 16, torch.bfloat16), (32, 14, 14, 64, 96, torch.bfloat16),
-     (16, 7, 7, 72, 40, torch.float32)])
+     (16, 7, 7, 72, 40, torch.float32),
+     # the bf16 16-byte route: M not a multiple of the 128-row tile, C_out
+     # not a multiple of 128, C not a multiple of 64, two C_out tiles
+     (3, 5, 9, 40, 24, torch.bfloat16), (8, 14, 14, 72, 40, torch.bfloat16),
+     (1, 12, 12, 136, 136, torch.bfloat16),
+     # the ragged route: C or C_out not a multiple of 8
+     (4, 7, 7, 12, 16, torch.bfloat16), (2, 6, 6, 16, 12, torch.bfloat16)])
 def test_conv3x3_matches_plain(cuda, n, h, w, c, co, dtype):
     g = torch.Generator(device=cuda).manual_seed(n + c)
     x = torch.randn(n, h, w, c, device=cuda, generator=g).to(dtype)
@@ -434,7 +492,28 @@ def test_conv3x3_matches_plain(cuda, n, h, w, c, co, dtype):
     assert got.dtype == dtype and got.shape == (n, h, w, co)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    assert conv3x3.launch_counts == {"conv3x3_same": 1}
+    route = conv3x3.route(dtype, c, co)
+    assert conv3x3.launch_counts == {k: int(k == route)
+                                     for k in conv3x3.launch_counts}
+
+
+def test_conv3x3_takes_an_unaligned_view(cuda):
+    """A contiguous view that starts 2 bytes into its storage still runs
+    the 16-byte route (the wrapper copies it to an aligned start)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, h, w, c, co = 2, 6, 6, 16, 24
+    buf = torch.randn(1 + n * h * w * c, device=cuda, generator=g)
+    x = buf.to(torch.bfloat16)[1:].view(n, h, w, c)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    k = (0.1 * torch.randn(3, 3, c, co, device=cuda, generator=g)).to(
+        torch.bfloat16)
+    conv3x3.reset_launch_counts()
+    got = conv3x3.conv3x3_same(x, k, block_n=n)
+    torch.cuda.synchronize()
+    assert conv3x3.launch_counts["conv3x3_same"] == 1
+    torch.testing.assert_close(got.float(),
+                               conv3x3.conv3x3_same_plain(x, k).float(),
+                               rtol=2e-2, atol=2e-2)
 
 
 def test_conv3x3_rejects_bad_inputs(cuda):

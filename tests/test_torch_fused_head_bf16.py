@@ -17,6 +17,8 @@ happen at a visible size: the largest gradient difference measured over the
 six cases is 3.6e-7 (dx), the largest lse difference 3.8e-6.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -209,3 +211,41 @@ def test_other_mm_dtypes_are_refused(dtype):
         tfh.fused_margin_ce_mem(x["xn"], x["wn"], x["memn"], x["lam"],
                                 x["labels"], x["t"], x["tcos"], x["scale"],
                                 x["ab"], tfh.MODE_IDENTITY, mm_dtype=dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(mode, clamp_eps, mem):
+    x = _inputs(mode, seed=20 + mode + 10 * mem, mem=mem)
+    out, _ = _jax(x, mode, clamp_eps, jnp.bfloat16)
+    return x, [np.asarray(v) for v in out]
+
+
+# (ranges S, columns per range) over C = 100: one range, a ragged last
+# range, ranges of whole 32-wide tiles, and a last range past C (empty)
+SPLIT_PLANS = [(1, 100), (3, 40), (4, 32), (5, 25), (6, 20)]
+
+
+@pytest.mark.parametrize("splits,range_cols", SPLIT_PLANS)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+def test_bf16_split_forward_matches_jax(mode, clamp_eps, mem, splits,
+                                        range_cols):
+    """The arithmetic of the bf16 split-C forward: per-range partials with
+    bf16 products (fused_ce_fwd_partials_plain), merged by
+    fused_ce_fwd_combine_plain, equal the JAX package's unsplit bf16
+    forward (interpret mode)."""
+    x, (lse, tlogit, higher) = _jax_forward(mode, clamp_eps, mem)
+    t = {k: torch.tensor(v) for k, v in x.items()}
+    kw = dict(memn=t["memn"], lam=t["lam"]) if mem else {}
+    parts = tfh.fused_ce_fwd_partials_plain(
+        t["xn"], t["wn"], t["labels"], t["t"], t["tcos"], t["scale"],
+        t["ab"], mode, clamp_eps, splits=splits, range_cols=range_cols,
+        mm_dtype=torch.bfloat16, **kw)
+    assert parts.shape == (splits, 3, N)
+    if splits * range_cols > C + range_cols - 1:   # a range past C
+        assert bool((parts[-1, 0] == torch.tensor(-1e30)).all())
+        assert float(parts[-1, 1:].abs().max()) == 0.0
+    out = tfh.fused_ce_fwd_combine_plain(parts, t["t"], t["scale"])
+    np.testing.assert_allclose(out.lse.numpy(), lse, **OUT_TOL)
+    np.testing.assert_allclose(out.target_logit.numpy(), tlogit, **OUT_TOL)
+    np.testing.assert_array_equal(out.higher.numpy(), higher)
