@@ -18,15 +18,16 @@ and no result line:
              lam (0.15 on every class, as after ~100 VPL steps). The same for
              the bf16 tensor-core kernels (_bf16, mm_dtype=torch.bfloat16),
              plus N=40 / D=72 / C=300 (D not a multiple of 16). The split
-             fp32 fwd and bwd_dx also at shapes of several class ranges (N=1,
-             N not a multiple of 32, a ragged last range, D=72, a last range
-             holding only a target column), and the fp32 bwd_dw at shapes of
-             several row ranges (N=600 and 520, a ragged last range): each
-             range's partials and the combine kernels against their plain
-             versions, and two launches of every fp32 entry bitwise equal.
-             Times (CUDA events, after warm-up) of the kernel, its plain
-             version and the eager library head (the median of 5 repeats,
-             with their spread), beside the bound.
+             fp32 and bf16 fwd and bwd_dx also at shapes of several class
+             ranges (N=1, N not a multiple of 32, a ragged last range, D=72,
+             a last range holding only a target column), and the fp32 bwd_dw
+             at shapes of several row ranges (N=600 and 520, a ragged last
+             range): each range's partials and the combine kernels against
+             their plain versions, and two launches of every fp32 entry and
+             of the bf16 fwd and bwd_dx bitwise equal. Times (CUDA events,
+             after warm-up) of the kernel, its plain version and the eager
+             library head (the median of 5 repeats, with their spread),
+             beside the bound.
 4. conv    - the implicit-GEMM 3x3 conv against its plain version at small
              fp32 and bf16 shapes on each route (the bf16 16-byte route and
              the ragged one are chosen by width), then at the ResNet-50
@@ -50,6 +51,10 @@ and no result line:
 7. conv3x3_bench - the conv's benchmark entry point
              (`scripts/bench_conv3x3.bench`) on the card at 14x14x256, b512:
              the kernel path and the cuDNN path.
+8. device_times - at the training shape, a device-only time (`device_ms`:
+             the calls queued behind a spin kernel) of each bf16 kernel and
+             of the eager bf16 backward, and the bf16 dx entry's three
+             launches timed apart by torch.profiler.
 
 The line before the last is {"kernels": [...]} (each kernel's launches from
 the phase that runs its entry point: train, head_bf16, conv3x3_bench), the
@@ -78,6 +83,12 @@ TRAIN_STEPS = 5
 LIB_REPEATS = 5   # repeats of the library head's timing; the median counts
 CONV_SHAPES = ((28, 128), (14, 256), (7, 512))   # (H = W, C = C_out) at b512
 CONV_MAIN = (14, 256)   # the benchmark phase's shape, and the kernels line's
+# (lam source, margin mode, clamp, case) of the timed training-shape cases,
+# all in the identity mode (fused_head.MODE_IDENTITY = 0): ArcFace-like, a
+# VPL state after one step, and a dense lam
+TIMED_CASES = ((None, 0, None, "N512_D512_C10575_identity"),
+               ("vpl", 0, 1e-7, "N512_D512_C10575_vpl_mem"),
+               ("dense", 0, 1e-7, "N512_D512_C10575_vpl_mem_dense"))
 SOURCE = "face_recognition_models_tpu_torch/csrc/fused_head.cu"
 CONV_SOURCE = "face_recognition_models_tpu_torch/csrc/conv3x3.cu"
 REPLACES = {
@@ -181,6 +192,83 @@ def cuda_ms(fn, warmup=3, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms():
+    """Clock cycles of torch.cuda._sleep per ms on this card (its clock
+    under a spin), from CUDA events around one long spin."""
+    import torch
+
+    cycles = 50_000_000
+    torch.cuda._sleep(1_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def device_ms(fn, warmup=3, iters=20, tries=3):
+    """The card's time per call of `fn`, without the host's launch gaps: a
+    spin kernel (torch.cuda._sleep) is queued ahead of the start event and
+    the `iters` calls behind it, so the card runs them back to back. The
+    reading counts only if the start event is still pending once the host
+    has queued the last call (start.query() False); otherwise the spin is
+    made 4x longer and the run repeated, and after `tries` runs it raises.
+    Inputs under 50 MB stay warm in L2 between the calls, as in cuda_ms."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    spin_ms = 4.0 * host_ms + 2.0
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        spin_ms *= 4.0
+    raise AssertionError(f"device_ms: the card reached the calls before the "
+                         f"host had queued them ({tries} spins, the last "
+                         f"{spin_ms / 4.0:.1f} ms)")
+
+
+def launch_ms(fn, iters=20):
+    """{kernel: device ms per call of `fn`} from a torch.profiler trace of
+    `iters` calls (kernels named by their fused_ce_* entry in the trace)."""
+    import re
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(r"fused_ce_\w+", e.key)
+        us = getattr(e, "device_time_total", None)
+        if found and us:
+            out[found.group(0)] = us / iters / 1e3
+    return out
 
 
 def make_inputs(n, d, c, mode, seed, oor_label=False, mem=None):
@@ -310,8 +398,8 @@ def check_case(x, mode, clamp_eps, bf16=False):
     when `x` holds memn, the bf16 products with `bf16`); returns (max abs
     err per kernel, number of rows where `higher` differs, and with `bf16`
     {"dx": n, "dw": n} elements that needed the ulp allowance). The split
-    fp32 fwd, bwd_dx and bwd_dw and the split bf16 fwd run twice and must
-    agree bitwise."""
+    fp32 fwd, bwd_dx and bwd_dw and the split bf16 fwd and bwd_dx run twice
+    and must agree bitwise."""
     names, fns = kernel_fns("memn" in x, bf16)
     fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
     out = fns[0][0](*fwd_args)
@@ -326,8 +414,7 @@ def check_case(x, mode, clamp_eps, bf16=False):
     dx_term, dw_term = (bf16_terms(x, mode, clamp_eps, ref.lse) if bf16
                         else (None, None))
     dx, dt, dscale = fns[1][0](*dx_args)
-    if not bf16:
-        same(names[1], *zip((dx, dt, dscale), fns[1][0](*dx_args)))
+    same(names[1], *zip((dx, dt, dscale), fns[1][0](*dx_args)))
     rdx, rdt, rdscale = fns[1][1](*dx_args)
     errs[names[1]] = max(close_grad("dx", dx, rdx, dx_term),
                          close_grad("dt", dt, rdt),
@@ -418,41 +505,66 @@ def check_split(x, mode, clamp_eps):
 
 
 def check_split_bf16(x, mode, clamp_eps):
-    """The split bf16 fwd (fwd_mem when `x` holds memn) on inputs `x`: each
-    class range's partials from the front of the kernel's workspace against
-    fused_ce_fwd_partials_plain with bf16 products. Returns ({check: max abs
-    err}, ranges)."""
+    """The split bf16 fwd and bwd_dx (the _mem ones when `x` holds memn) on
+    inputs `x`: each class range's partials from the front of the kernel's
+    workspace against fused_ce_*_partials_plain with bf16 products, and dx's
+    combine kernel on the plain partials against its plain version. Returns
+    ({check: max abs err}, {"fwd_bf16": ranges, "bwd_dx_bf16": ranges})."""
     import torch
 
     from face_recognition_models_tpu_torch.ops import fused_head as fh
 
     mem = ((x["memn"], x["lam"]) if "memn" in x else ())
     kw = dict(memn=x["memn"], lam=x["lam"]) if mem else {}
-    n, c = x["xn"].shape[0], x["wn"].shape[1]
-    splits, cols = fh.split_plan(n, c, mm_dtype=torch.bfloat16)
+    sfx, which = ("_mem", 3) if mem else ("", 0)
+    (n, d), c = x["xn"].shape, x["wn"].shape[1]
+    bf = torch.bfloat16
+    splits, cols = fh.split_plan(n, c, mm_dtype=bf)
+    ranges = {"fwd_bf16": splits}
     fwd = (x["labels"], x["t"], x["tcos"], x["scale"], x["ab"], mode,
            clamp_eps)
     ws = []
-    fh._fwd("fused_ce_fwd" + ("_mem" if mem else ""), 3 if mem else 0,
-            x["xn"], x["wn"], mem, *fwd, torch.bfloat16, ws)
+    fh._fwd("fused_ce_fwd" + sfx, which, x["xn"], x["wn"], mem, *fwd, bf, ws)
     got = ws[0][:splits * 3 * n].view(splits, 3, n)
     want = fh.fused_ce_fwd_partials_plain(x["xn"], x["wn"], *fwd,
                                           splits=splits, range_cols=cols,
-                                          mm_dtype=torch.bfloat16, **kw)
-    err = close("bf16 m, l", got[:, :2], want[:, :2], **TOL_STATS)
+                                          mm_dtype=bf, **kw)
+    errs = {"fwd_bf16_partials": close("bf16 m, l", got[:, :2], want[:, :2],
+                                       **TOL_STATS)}
     close_higher("bf16 range higher", got[:, 2], want[:, 2])
-    return {"fwd_bf16_partials": err}, splits
+    lse = fh.fused_ce_fwd_combine_plain(want, x["t"], x["scale"]).lse
+    bwd = (x["labels"], x["t"], x["scale"], x["ab"], lse, x["g_lse"])
+    splits, cols = fh.split_plan(n, c, dx=True, mm_dtype=bf)
+    ranges["bwd_dx_bf16"] = splits
+    ws = []
+    fh._bwd_dx("fused_ce_bwd_dx" + sfx, which + 1, x["xn"], x["wn"], mem,
+               *bwd, x["g_t"], mode, clamp_eps, bf, ws)
+    got_dx, got_rows = fh.dx_workspace_views(ws[0], splits, n, d)
+    want_dx, want_rows = fh.fused_ce_bwd_dx_partials_plain(
+        x["xn"], x["wn"], *bwd, mode, clamp_eps, splits=splits,
+        range_cols=cols, mm_dtype=bf, **kw)
+    dx_term, _ = bf16_terms(x, mode, clamp_eps, lse)
+    errs["dx_bf16_partials"] = max(
+        close_grad("bf16 dx partials", got_dx, want_dx, dx_term),
+        close_grad("bf16 dt, dscale partials", got_rows, want_rows))
+    comb = fh.fused_ce_bwd_dx_combine(want_dx, want_rows, x["t"], x["scale"],
+                                      x["g_t"])
+    ref = fh.fused_ce_bwd_dx_combine_plain(want_dx, want_rows, x["t"],
+                                           x["scale"], x["g_t"])
+    errs["dx_bf16_combine"] = max(
+        close_grad("bf16 combined " + k, a, b) for k, a, b
+        in zip(("dx", "dt", "dscale"), comb, ref))
+    return errs, ranges
 
 
-def library_head_ms(x, clamp_eps=None, bf16=False):
-    """The eager head as the yardstick: torch.matmul + the margin select +
-    F.cross_entropy, forward and backward timed apart (CUDA events). With
-    memn in `x`, the eager VPL head: two torch.matmul + the blend (+ the
-    clamp) before the select. With `bf16`, each torch.matmul takes bf16
-    operands (cast in the timed region, as the kernels cast as they stage)
-    and its bf16 result is taken on in fp32. Each is timed LIB_REPEATS
-    times over 20 iterations; returns (forward ms, backward ms, spread), the
-    times the medians of the repeats, the spread their [min, max]."""
+def eager_head(x, clamp_eps=None, bf16=False):
+    """(xn, wn, forward) of the eager head on inputs `x`: forward() returns
+    the mean loss through torch.matmul + the margin select +
+    F.cross_entropy, with xn and wn as leaves of its graph. With memn in
+    `x`, the eager VPL head: two torch.matmul + the blend (+ the clamp)
+    before the select. With `bf16`, each torch.matmul takes bf16 operands
+    (cast in the timed region, as the kernels cast as they stage) and its
+    bf16 result is taken on in fp32."""
     import torch
     import torch.nn.functional as F
 
@@ -476,6 +588,28 @@ def library_head_ms(x, clamp_eps=None, bf16=False):
                                                    cos)
         return F.cross_entropy(logits, labels)
 
+    return xn, wn, forward
+
+
+def library_bwd_device_ms(x, clamp_eps=None, bf16=False):
+    """device_ms of the eager head's whole backward (eager_head): one
+    forward's graph, kept, taken back 20 times by torch.autograd.grad."""
+    import torch
+
+    xn, wn, forward = eager_head(x, clamp_eps, bf16)
+    loss = forward()
+    return device_ms(lambda: torch.autograd.grad(loss, (xn, wn),
+                                                 retain_graph=True))
+
+
+def library_head_ms(x, clamp_eps=None, bf16=False):
+    """The eager head (eager_head) as the yardstick, forward and backward
+    timed apart (CUDA events). Each is timed LIB_REPEATS times over 20
+    iterations; returns (forward ms, backward ms, spread), the times the
+    medians of the repeats, the spread their [min, max]."""
+    import torch
+
+    _, _, forward = eager_head(x, clamp_eps, bf16)
     fwd = [cuda_ms(forward) for _ in range(LIB_REPEATS)]
     for _ in range(3):
         forward().backward()
@@ -538,14 +672,20 @@ def bound_rows(x, names, errs, ms, library, peak=PEAK_FP32_FLOPS):
     return rows
 
 
-def time_family(x, mode, clamp_eps, bf16=False):
-    """{name: (kernel ms, plain ms)} of one family on inputs `x`."""
+def family_calls(x, mode, clamp_eps, bf16=False):
+    """[(name, kernel call, plain call)] of one family on inputs `x`."""
     names, fns = kernel_fns("memn" in x, bf16)
     fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
     lse = fns[0][1](*fwd_args).lse
     args = kernel_args(x, mode, clamp_eps, lse)
-    return {name: (cuda_ms(lambda: kernel(*a)), cuda_ms(lambda: plain(*a)))
-            for name, (kernel, plain), a in zip(names, fns, args)}
+    return [(name, functools.partial(kernel, *a), functools.partial(plain, *a))
+            for name, (kernel, plain), a in zip(names, fns, args)]
+
+
+def time_family(x, mode, clamp_eps, bf16=False):
+    """{name: (kernel ms, plain ms)} of one family on inputs `x`."""
+    return {name: (cuda_ms(kernel), cuda_ms(plain)) for name, kernel, plain
+            in family_calls(x, mode, clamp_eps, bf16)}
 
 
 def phase_kernels():
@@ -585,7 +725,7 @@ def phase_kernels():
     # not a multiple of the 32-row tile, ragged last ranges, D = 72, and a
     # last range of one column that is row 0's target; bwd_dw over 3 row
     # ranges of 256-row tiles, the last ragged, at N = 600 and 520; the
-    # split bf16 fwd (128-wide class tiles) over the same shapes
+    # split bf16 fwd and bwd_dx (128-wide class tiles) over the same shapes
     for mem in (None, "mixed"):
         msfx = "_mem" if mem else ""
         for n, d, c, last in ((1, 64, 300, False), (40, 72, 300, False),
@@ -606,7 +746,7 @@ def phase_kernels():
             errs, flips, ulp = check_case(x, fh.MODE_MV, 1e-7, bf16=True)
             split, splits = check_split_bf16(x, fh.MODE_MV, 1e-7)
             emit({"phase": "kernels", "case": case + "_bf16",
-                  "splits": {"fwd_bf16": splits},
+                  "splits": splits,
                   "max_abs_err": {**errs, **split},
                   "higher_flips": flips, "bf16_ulp_elems": ulp,
                   "bitwise_repeat": True, "tolerance": TOLERANCE_BF16,
@@ -636,11 +776,7 @@ def phase_kernels():
     # torch.matmul, the bound at the bf16 tensor-core peak); then the _mem
     # kernels at a dense lam, the work of a VPL run past ~100 steps
     rows = []
-    for mem, mode, eps, case in (
-            (None, fh.MODE_IDENTITY, None, "N512_D512_C10575_identity"),
-            ("vpl", fh.MODE_IDENTITY, 1e-7, "N512_D512_C10575_vpl_mem"),
-            ("dense", fh.MODE_IDENTITY, 1e-7,
-             "N512_D512_C10575_vpl_mem_dense")):
+    for mem, mode, eps, case in TIMED_CASES:
         x = make_inputs(N_MAIN, D_MAIN, C_MAIN, mode, seed=7, mem=mem)
         for bf16 in (False, True):
             names, _ = kernel_fns(mem, bf16)
@@ -674,6 +810,33 @@ def phase_kernels():
         del x
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_device_times():
+    """device_ms of the bf16 kernels and of the eager bf16 backward at the
+    training shape, on the cases that phase_kernels times, with the bf16
+    dx entry's per-launch device ms (pre-pass, split kernel, combine). It
+    runs after the train phases: these timers leave the caching allocator
+    in another state, and the train phases' peak memory is read after the
+    same allocations as before they existed. Returns {kernel: device_ms}
+    of the cases of the kernels line (not the dense lam)."""
+    import torch
+
+    out = {}
+    for mem, mode, eps, case in TIMED_CASES:
+        x = make_inputs(N_MAIN, D_MAIN, C_MAIN, mode, seed=7, mem=mem)
+        calls = family_calls(x, mode, eps, bf16=True)
+        dev = {name: device_ms(kernel) for name, kernel, _ in calls}
+        emit({"phase": "device_times", "case": case + "_bf16",
+              "device_ms": dev,
+              "library_device_ms": {
+                  "head_bwd": library_bwd_device_ms(x, eps, bf16=True)},
+              "dx_launch_ms": launch_ms(calls[1][1]), "ok": True})
+        if mem != "dense":
+            out.update(dev)
+        del x, calls
+        torch.cuda.empty_cache()
+    return out
 
 
 def conv_case(n, h, w, c, co, dtype, seed):
@@ -1099,8 +1262,11 @@ def main() -> int:
     launches = phase_train()
     launches.update(phase_head_bf16())
     launches["conv3x3_same"] = phase_conv_bench()
+    device = phase_device_times()
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in device:
+            r["device_ms"] = device[r["name"]]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

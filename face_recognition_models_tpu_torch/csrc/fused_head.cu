@@ -109,10 +109,12 @@
 // bwd_dw_mem 99,072 B at any D up to 512 (the widest the split dx and dw
 // kernels take: 8 warps x 64 columns of the accumulator). A width above 512
 // is refused by the wrapper.
-//   The bf16 kernels (layouts at fwd_bf16_smem, BfLayout and DwLayout):
-//   fwd 101,888 B, fwd_mem 134,656 B, bwd_dx 97,280 B, bwd_dx_mem
-//   144,896 B, bwd_dw 141,824 B, bwd_dw_mem 192,000 B at D = 512; the
-//   widest D they take is 624 (bwd_dw_mem); fwd_mem takes up to 1,264.
+//   The bf16 kernels (layouts at fwd_bf16_smem, dx_bf16_smem and
+//   DwLayout): fwd 101,888 B, fwd_mem 134,656 B, bwd_dx 108,800 B,
+//   bwd_dx_mem 183,040 B, bwd_dw 141,824 B, bwd_dw_mem 192,000 B at D = 512.
+//   bwd_dx(_mem) take D up to 512 (8 warps x 64 columns of the dx
+//   accumulator, as the fp32 dx); the widest D of the others is 624
+//   (bwd_dw_mem), fwd_mem takes up to 1,264.
 //
 // bf16 products (K5: the mm_dtype=jnp.bfloat16 option of every kernel above,
 // fused_head.py:119-126, 192-196, 237-243, 269-276, 307, 352-360, 396-407):
@@ -123,27 +125,21 @@
 // memn, dcos before the dx and dw products, and with the blend
 // dcos * (1 - lam) and dcos * lam, each rounded on its own. Every product
 // runs on the tensor cores with fp32 accumulators.
-//   - fwd(_mem): split-C like the fp32 forward, with mma.sync on operands
-//     rounded once by a pre-pass; see "bf16 split-C forward" below.
-//   - bwd_dx(_mem) and bwd_dw(_mem): a block per 16 rows sweeping all of C
-//     (bwd_dw: a block per 32 classes) with SIMT epilogues (margin, clamp,
-//     dcos) on a warp's two rows x a lane's four columns; the operands are
-//     rounded as they are staged in shared memory with synchronous loads,
-//     and the products are nvcuda::wmma 16x16x16 fragments. In bwd_dx warp
-//     w computes the 16 x 16 cosine block of columns 16w..16w+15 of the
-//     128-wide class tile over 128-deep chunks of W, stores it into an fp32
-//     [kRows][kCols] tile in shared memory, and the fp32 epilogue reads that
-//     tile in its SIMT mapping; it then adds bf16(dcos) [16 x 128] .
-//     bf16(wn)^T [128 x 16] into an fp32 dx tile in shared memory, warp w
-//     owning 16 columns of each 128-deep chunk of D. bwd_dw splits the
-//     16 x 32 cosine block's depth over four warps per 16 columns (partial
-//     sums added in the epilogue) and adds bf16(xn)^T . bf16(dcos) into an
-//     fp32 [D][32] tile. D is padded with zeros to a multiple of 16.
+//   - fwd(_mem) and bwd_dx(_mem): split-C like their fp32 counterparts, with
+//     mma.sync on operands rounded once by a pre-pass; see "bf16 split-C
+//     forward" and "bf16 split-C dx" below.
+//   - bwd_dw(_mem): a block per 32 classes sweeping all of N in chunks of 16
+//     rows, with a SIMT epilogue (margin, clamp, dcos) on a warp's two rows
+//     x a lane's column; the operands are rounded as they are staged in
+//     shared memory with synchronous loads, and the products are
+//     nvcuda::wmma 16x16x16 fragments: the 16 x 32 cosine block's depth is
+//     split over four warps per 16 columns (partial sums added in the
+//     epilogue), then bf16(xn)^T . bf16(dcos) is added into an fp32 [D][32]
+//     tile. D is padded with zeros to a multiple of 16.
 // What bounds them at N=512, D=512, C=10,575: one product is 5.5 GFLOP,
 // 5.6 us at 989 TFLOP/s dense bf16, against 21.7 MB of fp32 wn (6.5 us at
 // 3.35 TB/s): the forward is bound by bytes, the backward kernels (two or
-// three products) lie close to the line. bwd_dx runs 32 blocks at N=512
-// with synchronous staging and reaches neither bound.
+// three products) lie close to the line.
 
 // C interface: each entry launches on the given stream and returns
 // cudaGetLastError() (0 on success). All pointers are device pointers to
@@ -164,15 +160,11 @@ namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;   // 8 warps
-// the bf16 kernels: warp w owns rows 2w and 2w + 1
-constexpr int kRows = 16;       // rows per block tile
-constexpr int kCols = 128;      // bf16 fwd / bwd_dx class tile (4 per lane)
+// the bf16 bwd_dw: a chunk of 16 rows, warp w owning rows 2w and 2w + 1 of
+// its epilogue
+constexpr int kRows = 16;       // rows per chunk
 constexpr int kDwCols = 32;     // class-tile width of both bwd_dw
 constexpr float kNegInf = -1e30f;
-// bf16 (tensor-core) kernels
-constexpr int kChunkB = 128;        // depth of one bf16 W chunk (8 k-steps)
-constexpr int kLdB = kCols + 8;     // pitch of bf16 [.][kCols] tiles
-constexpr int kLdC = kCols + 4;     // pitch of the fp32 cos tile
 constexpr int kLdWb = kDwCols + 8;  // pitch of bwd_dw's bf16 [.][kDwCols] tiles
 constexpr int kLdP = kDwCols + 4;   // pitch of bwd_dw's fp32 [.][kDwCols] tiles
 constexpr int kSplitK = 4;          // bwd_dw warps sharing one cos block
@@ -180,7 +172,6 @@ constexpr int kSplitK = 4;          // bwd_dw warps sharing one cos block
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr int kModeMV = 1;
@@ -196,17 +187,6 @@ __device__ __forceinline__ float h_grad(int mode, float cos, float a, float b) {
   if (mode == kModeMV) return cos > a ? b : 1.0f;
   if (mode == kModeCurricular) return cos > a ? b + 2.0f * cos : 1.0f;
   return 1.0f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // Per-row scalars. Rows past N get values that make them inert: no target
@@ -246,83 +226,11 @@ __device__ __forceinline__ Row load_row(int row, int n, const int* labels,
   return r;
 }
 
-// lam of the lane's four columns (lane + 32 * i) of the tile at c0; 0 past C.
-__device__ __forceinline__ void load_lam(float lt[4], const float* lam, int c0,
-                                         int c) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int col = c0 + lane + 32 * i;
-    lt[i] = col < c ? lam[col] : 0.0f;
-  }
-}
-
 // ---- bf16 tiles --------------------------------------------------------
 
 __host__ __device__ constexpr int round16(int d) { return (d + 15) & ~15; }
 __host__ __device__ constexpr size_t align128(size_t b) {
   return (b + 127) & ~static_cast<size_t>(127);
-}
-
-// Byte offsets of the bf16 bwd_dx buffers in dynamic shared memory,
-// each 128-byte aligned (wmma tiles must start on 32 bytes). dp = D padded
-// to a multiple of 16:
-//   xb  [kRows][dp + 8] bf16   the block's rows of xn
-//   wb  [kChunkB][kLdB] bf16   a chunk of wn (mb: of memn, kMem)
-//   ct  [kRows][kLdC]   fp32   the cosine tile (cm: the memory's, kMem)
-//   dx  [kRows][dp + 4] fp32   the dx accumulator
-//   dcb [kRows][kLdB]   bf16   bf16(dcos (* (1 - lam))) (dcm: bf16(dcos * lam))
-struct BfLayout {
-  size_t xb, wb, mb, ct, cm, dx, dcb, dcm, total;
-};
-
-__host__ __device__ inline BfLayout bf_layout(int d, bool mem) {
-  const int dp = round16(d);
-  const size_t wchunk = align128(sizeof(bf16) * kChunkB * kLdB);
-  const size_t ctile = align128(sizeof(float) * kRows * kLdC);
-  const size_t dtile = align128(sizeof(bf16) * kRows * kLdB);
-  BfLayout L;
-  size_t o = 0;
-  L.xb = o;
-  o += align128(sizeof(bf16) * kRows * (dp + 8));
-  L.wb = o;
-  o += wchunk;
-  L.mb = o;
-  o += mem ? wchunk : 0;
-  L.ct = o;
-  o += ctile;
-  L.cm = o;
-  o += mem ? ctile : 0;
-  L.dx = o;
-  o += align128(sizeof(float) * kRows * (dp + 4));
-  L.dcb = o;
-  o += dtile;
-  L.dcm = o;
-  o += mem ? dtile : 0;
-  L.total = o;
-  return L;
-}
-
-struct BfTiles {
-  bf16 *xb, *wb, *mb, *dcb, *dcm;
-  float *ct, *cm, *dx;
-  int dp;
-};
-
-__device__ __forceinline__ BfTiles bf_tiles(float* smem, int d, bool mem) {
-  char* base = reinterpret_cast<char*>(smem);
-  const BfLayout L = bf_layout(d, mem);
-  BfTiles s;
-  s.xb = reinterpret_cast<bf16*>(base + L.xb);
-  s.wb = reinterpret_cast<bf16*>(base + L.wb);
-  s.mb = reinterpret_cast<bf16*>(base + L.mb);
-  s.ct = reinterpret_cast<float*>(base + L.ct);
-  s.cm = reinterpret_cast<float*>(base + L.cm);
-  s.dx = reinterpret_cast<float*>(base + L.dx);
-  s.dcb = reinterpret_cast<bf16*>(base + L.dcb);
-  s.dcm = reinterpret_cast<bf16*>(base + L.dcm);
-  s.dp = round16(d);
-  return s;
 }
 
 // Rows [row0, row0 + kRows) of xn [N, D] into xb [kRows][dp + 8], rounded to
@@ -336,108 +244,6 @@ __device__ __forceinline__ void load_rows_bf16(bf16* xb, const float* xn,
     const int row = row0 + r;
     xb[r * (dp + 8) + k] = __float2bfloat16_rn(
         row < n && k < d ? xn[static_cast<size_t>(row) * d + k] : 0.0f);
-  }
-}
-
-// wn[d0:d0+kChunkB, c0:c0+kCols] into wb [kChunkB][kLdB], rounded to bf16;
-// zero past D and C.
-__device__ __forceinline__ void load_chunk_bf16(bf16* wb, const float* wn,
-                                                int d0, int c0, int d, int c) {
-#pragma unroll 16
-  for (int it = 0; it < kChunkB * kCols / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int k = i / kCols;
-    const int j = i - k * kCols;
-    const int dd = d0 + k;
-    const int col = c0 + j;
-    wb[k * kLdB + j] = __float2bfloat16_rn(
-        (dd < d && col < c) ? wn[static_cast<size_t>(dd) * c + col] : 0.0f);
-  }
-}
-
-// cos_tile on the tensor cores: the same acc[2][4] (the warp's two rows x the
-// lane's four columns of the class tile at c0), from bf16 operands with fp32
-// accumulation. Warp w computes the 16 x 16 block of columns 16w.. through
-// wmma, the blocks meet in the fp32 tile ct, and each thread reads its own
-// elements back. With kMem the blend runs on the fp32 values, as in fp32.
-template <bool kMem>
-__device__ __forceinline__ void cos_tile_bf16(float acc[2][4],
-                                              const BfTiles& s,
-                                              const float* wn,
-                                              const float* memn,
-                                              const float lt[4], int c0,
-                                              int d, int c, int r0) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  FragC fc, fm;
-  wmma::fill_fragment(fc, 0.0f);
-  if constexpr (kMem) wmma::fill_fragment(fm, 0.0f);
-  for (int d0 = 0; d0 < s.dp; d0 += kChunkB) {
-    __syncthreads();  // previous readers of wb / ct done
-    load_chunk_bf16(s.wb, wn, d0, c0, d, c);
-    if constexpr (kMem) load_chunk_bf16(s.mb, memn, d0, c0, d, c);
-    __syncthreads();
-    const int ksteps = min(kChunkB, s.dp - d0) / 16;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      FragA a;
-      FragB b;
-      wmma::load_matrix_sync(a, s.xb + d0 + ks * 16, s.dp + 8);
-      wmma::load_matrix_sync(b, s.wb + ks * 16 * kLdB + warp * 16, kLdB);
-      wmma::mma_sync(fc, a, b, fc);
-      if constexpr (kMem) {
-        wmma::load_matrix_sync(b, s.mb + ks * 16 * kLdB + warp * 16, kLdB);
-        wmma::mma_sync(fm, a, b, fm);
-      }
-    }
-  }
-  wmma::store_matrix_sync(s.ct + warp * 16, fc, kLdC, wmma::mem_row_major);
-  if constexpr (kMem)
-    wmma::store_matrix_sync(s.cm + warp * 16, fm, kLdC, wmma::mem_row_major);
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int at = (r0 + q) * kLdC + lane + 32 * i;
-      acc[q][i] = s.ct[at];
-      if constexpr (kMem)
-        acc[q][i] = (1.0f - lt[i]) * acc[q][i] + lt[i] * s.cm[at];
-    }
-}
-
-// dx[rows, :] += bf16(dcos) . bf16(wn)[:, tile]^T (+ bf16(dcos * lam) .
-// bf16(memn)[:, tile]^T) into the fp32 tile s.dx. Warp w owns the 16 columns
-// d0 + 16w of each kChunkB-deep chunk of D.
-template <bool kMem>
-__device__ __forceinline__ void dx_tile_bf16(const BfTiles& s,
-                                             const float* wn,
-                                             const float* memn, int c0, int d,
-                                             int c) {
-  const int warp = threadIdx.x >> 5;
-  for (int d0 = 0; d0 < s.dp; d0 += kChunkB) {
-    __syncthreads();  // dcb written; previous readers of wb done
-    load_chunk_bf16(s.wb, wn, d0, c0, d, c);
-    if constexpr (kMem) load_chunk_bf16(s.mb, memn, d0, c0, d, c);
-    __syncthreads();
-    const int col = d0 + warp * 16;
-    if (col < s.dp) {
-      FragC f;
-      wmma::load_matrix_sync(f, s.dx + col, s.dp + 4, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kCols / 16; ++kk) {
-        FragA a;
-        FragBt b;
-        wmma::load_matrix_sync(a, s.dcb + kk * 16, kLdB);
-        wmma::load_matrix_sync(b, s.wb + warp * 16 * kLdB + kk * 16, kLdB);
-        wmma::mma_sync(f, a, b, f);
-        if constexpr (kMem) {
-          wmma::load_matrix_sync(a, s.dcm + kk * 16, kLdB);
-          wmma::load_matrix_sync(b, s.mb + warp * 16 * kLdB + kk * 16, kLdB);
-          wmma::mma_sync(f, a, b, f);
-        }
-      }
-      wmma::store_matrix_sync(s.dx + col, f, s.dp + 4, wmma::mem_row_major);
-    }
   }
 }
 
@@ -467,90 +273,6 @@ __device__ __forceinline__ float dcos_of(float cos_raw, int col, int c,
   *dsc += dl * hv;
   return dl * r.scale * h_grad(mode, cs, r.a, r.b) * pass;
 }
-
-#define DX_PARAMS                                                         \
-  const float *__restrict__ xn, const float *__restrict__ wn,             \
-      const float *__restrict__ memn, const float *__restrict__ lam,      \
-      const int *__restrict__ labels, const float *__restrict__ t,        \
-      const float *__restrict__ scale, const float *__restrict__ ab,      \
-      const float *__restrict__ lse, const float *__restrict__ g_lse,     \
-      const float *__restrict__ g_t, float *__restrict__ dx,              \
-      float *__restrict__ dt_out, float *__restrict__ dscale_out, int n,  \
-      int d, int c, int mode, int has_clamp, float clamp_eps
-#define DX_ARGS                                                           \
-  xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse, g_t, dx, dt_out,   \
-      dscale_out, n, d, c, mode, has_clamp, clamp_eps
-
-// The bf16 dx: a block per kRows rows sweeping all of C, the dx tile in
-// shared memory.
-template <bool kMem>
-__device__ __forceinline__ void bwd_dx_bf16_body(DX_PARAMS) {
-  extern __shared__ float smem[];
-  const BfTiles bt = bf_tiles(smem, d, kMem);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * kRows;
-  const int r0 = 2 * warp;
-
-  Row rp[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    rp[q] = load_row(row0 + r0 + q, n, labels, t, nullptr, scale, ab, lse,
-                     g_lse, g_t);
-  float dt[2] = {0.0f, 0.0f};
-  float dsc[2] = {0.0f, 0.0f};
-
-  load_rows_bf16(bt.xb, xn, row0, n, d, bt.dp);
-  for (int i = threadIdx.x; i < kRows * (bt.dp + 4); i += kThreads)
-    bt.dx[i] = 0.0f;
-
-  for (int c0 = 0; c0 < c; c0 += kCols) {
-    float lt[4];
-    if constexpr (kMem) load_lam(lt, lam, c0, c);
-    float acc[2][4];
-    cos_tile_bf16<kMem>(acc, bt, wn, memn, lt, c0, d, c, r0);
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float g = dcos_of(acc[q][i], c0 + lane + 32 * i, c, rp[q], mode,
-                                has_clamp, clamp_eps, &dt[q], &dsc[q]);
-        // rounded to bf16 for the product, each share on its own
-        const int at = (r0 + q) * kLdB + lane + 32 * i;
-        if constexpr (kMem) {
-          bt.dcb[at] = __float2bfloat16_rn(g * (1.0f - lt[i]));
-          bt.dcm[at] = __float2bfloat16_rn(g * lt[i]);
-        } else {
-          bt.dcb[at] = __float2bfloat16_rn(g);
-        }
-      }
-    dx_tile_bf16<kMem>(bt, wn, memn, c0, d, c);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
-    const int r = i / d;
-    const int row = row0 + r;
-    const int k = i - r * d;
-    if (row < n)
-      dx[static_cast<size_t>(row) * d + k] = bt.dx[r * (bt.dp + 4) + k];
-  }
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const float st = warp_sum(dt[q]);
-    const float ss = warp_sum(dsc[q]);
-    const int row = row0 + r0 + q;
-    if (lane == 0 && row < n) {
-      // the direct path: target_logit = scale * t
-      dt_out[row] = st + rp[q].g_t * rp[q].scale;
-      dscale_out[row] = ss + rp[q].g_t * rp[q].t;
-    }
-  }
-}
-
-template <bool kMem>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_ce_bwd_dx_bf16_kernel(DX_PARAMS) { bwd_dx_bf16_body<kMem>(DX_ARGS); }
 
 // Byte offsets of the bf16 bwd_dw buffers (dp = D padded to 16):
 //   wt    [dp][kLdWb]           bf16  the block's wn tile (mt: memn's, kMem)
@@ -1191,17 +913,18 @@ __host__ __device__ inline size_t fwd_bf16_smem(int d, bool mem) {
          sizeof(bf16) * kBfStages * (mem ? 2 : 1) * kBfChunk;
 }
 
-// Float offsets in the workspace: part [S][3][N] fp32, then xb [N][dp], wb
-// [D][Cp] and (mem) mb [D][Cp] bf16, each on 16 bytes.
-struct FwdBfWs {
+// Float offsets in the workspace of a bf16 fwd or bwd_dx entry: `part`
+// floats of fp32 partials (fwd [S][3][N]; bwd_dx dx_part_floats), then xb
+// [N][dp], wb [D][Cp] and (mem) mb [D][Cp] bf16, each on 16 bytes.
+struct BfWs {
   size_t xb, wb, mb, total;
 };
 
-inline FwdBfWs fwd_bf16_ws(int splits, int n, int d, int c, bool mem) {
+inline BfWs bf16_ws(size_t part, int n, int d, int c, bool mem) {
   auto on16 = [](size_t floats) { return (floats + 3) & ~size_t{3}; };
   const size_t w = static_cast<size_t>(d) * round8(c) / 2;
-  FwdBfWs L;
-  L.xb = on16(3 * static_cast<size_t>(splits) * n);
+  BfWs L;
+  L.xb = on16(part);
   L.wb = on16(L.xb + static_cast<size_t>(n) * round16(d) / 2);
   L.mb = on16(L.wb + w);
   L.total = L.mb + (mem ? w : 0);
@@ -1673,6 +1396,382 @@ fused_ce_bwd_dx_combine_kernel(const float* __restrict__ dx_part,
   }
 }
 
+// ---- bf16 split-C dx (fused_ce_bwd_dx(_mem)_bf16) ------------------------
+//
+// The counterpart of _bwd_dx_kernel and of the dx half of _bwd_fused_kernel
+// with mm_dtype=bfloat16 (K5; with the blend their has_mem bodies). Three
+// launches from one entry, as in the bf16 forward:
+//   1. fused_ce_round_bf16_kernel rounds xn, wn (and memn) to bf16 once per
+//      element into the workspace behind the partials (xb [N][dp], wb, mb
+//      [D][Cp], rows on 16 bytes), so that every later copy is a 16-byte
+//      cp.async;
+//   2. fused_ce_bwd_dx_bf16_split_kernel on a grid of 32-row tiles x class
+//      ranges of whole 128-wide tiles (range_cols: two blocks per SM where C
+//      allows) writes each range's dx and (dt, dscale) in the fp32 dx's
+//      partials layout, dx [S][N][round4(D)] then [S][2][N];
+//   3. fused_ce_bwd_dx_combine_kernel sums them in range order: no atomics,
+//      so two launches give bitwise-equal results.
+// A block keeps its 32 rows of xb in shared memory and, per class tile, runs
+// two products on mma.sync.m16n8k16 from one 4-stage ring of 16-byte copies:
+//   - the cosines [32 rows][128 classes], over D in stages of 64 rows of wb
+//     (and mb): eight warps as 2 (16 rows) x 4 (32 classes), ldmatrix of xb
+//     and ldmatrix.trans of the stage, fp32 accumulators in registers;
+//   - on those registers the blend, clamp, margin and dcos_of, with dt and
+//     dscale summed per row in registers; bf16(dcos) (with the blend
+//     bf16(dcos (1 - lam)) and bf16(dcos lam), each rounded on its own) goes
+//     to a [32][128] shared tile, the A operand of
+//   - dx += bf16(dcos) . wb[:, tile]^T over the tile's classes, in stages of
+//     16 classes x all of D of wb (mb), read as [D][16] by plain ldmatrix:
+//     warp w owns columns 64 w .. 64 w + 63 of D for all 32 rows, 64 fp32
+//     accumulators a thread, held in registers for the block's whole range.
+// wb is staged twice from L2 per class tile (once 64 deep for the cosines,
+// once 16 wide for dx): 256 KB per 128-wide tile and block at D = 512, 512
+// KB with mb. Keeping the [D][128] tile resident for both products would
+// take 128 KB per operand and buffer, one block per SM without the blend
+// and more than the SM holds with it.
+
+constexpr int kBxRows = 32;      // rows of a block tile
+constexpr int kBxCols = 128;     // width of a class tile
+constexpr int kBxDepth = 64;     // D depth of one cosine stage
+constexpr int kBxCls = 16;       // classes of one dx stage (one k step)
+constexpr int kBxStages = 4;     // cp.async ring
+constexpr int kBxDcPitch = kBxCols + 8;  // pitch of the dcos tile
+static_assert(kBxDepth * kBxCols / 8 == 4 * kThreads,
+              "four 16-byte copies a thread per cosine stage");
+static_assert(kBxRows == 32 && kThreads == 256,
+              "2 x 4 warps of 16 x 32 cosines; 8 warps x 64 columns of dx");
+
+__host__ __device__ constexpr int round64(int d) { return (d + 63) & ~63; }
+
+// Floats of the fp32 dx partials: dx [S][N][round4(D)], then (dt, dscale)
+// [S][2][N], for the fp32 and the bf16 bwd_dx.
+__host__ __device__ inline size_t dx_part_floats(int splits, int n, int d) {
+  return static_cast<size_t>(splits) * n * (round4(d) + 2);
+}
+
+// bf16 elements of one operand's share of a ring slot: a cosine stage
+// [kBxDepth][kBxCols] or a dx stage [round64(D)][kBxCls], the larger.
+__host__ __device__ inline int dx_bf16_stage(int d) {
+  const int cos = kBxDepth * kBxCols;
+  const int dxs = round64(d) * kBxCls;
+  return cos > dxs ? cos : dxs;
+}
+
+// Byte offsets in dynamic shared memory: the block's Row scalars
+// [kBxRows], xs [kBxRows][dp + 8] bf16, the dcos tiles [kMem ? 2 : 1]
+// [kBxRows][kBxDcPitch] bf16 (the pitches keep ldmatrix's 8 rows on
+// different banks), then the ring [kBxStages][kMem ? 2 : 1][dx_bf16_stage].
+__host__ __device__ inline size_t dx_bf16_xs_at() {
+  return align128(sizeof(Row) * kBxRows);
+}
+__host__ __device__ inline size_t dx_bf16_dc_at(int d) {
+  return dx_bf16_xs_at() +
+         align128(sizeof(bf16) * kBxRows * (round16(d) + 8));
+}
+__host__ __device__ inline size_t dx_bf16_ring_at(int d, bool mem) {
+  return dx_bf16_dc_at(d) +
+         align128(sizeof(bf16) * (mem ? 2 : 1) * kBxRows * kBxDcPitch);
+}
+__host__ __device__ inline size_t dx_bf16_smem(int d, bool mem) {
+  return dx_bf16_ring_at(d, mem) +
+         sizeof(bf16) * kBxStages * (mem ? 2 : 1) * dx_bf16_stage(d);
+}
+
+// Element offset of half `h` (classes 8 h .. 8 h + 7) of row `r` of a dx
+// stage [rows][kBxCls]: the halves swap in rows 4-7 of every 8, so the 8
+// rows a plain ldmatrix reads at one half land on 8 different bank groups.
+__device__ __forceinline__ int dx_stage_at(int r, int h) {
+  return r * kBxCls + 8 * (h ^ ((r >> 2) & 1));
+}
+
+// dx over one class range (see above): dx_part [S][N][round4(D)] and the
+// range's dt, dscale terms (without the direct path) row_part [S][2][N].
+// Without the blend two blocks share an SM (108,800 B of shared memory at
+// D = 512); with it one (183,040 B).
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads, kMem ? 1 : 2)
+fused_ce_bwd_dx_bf16_split_kernel(const bf16* __restrict__ xb,
+                                  const bf16* __restrict__ wb,
+                                  const bf16* __restrict__ mb,
+                                  const float* __restrict__ lam,
+                                  const int* __restrict__ labels,
+                                  const float* __restrict__ t,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ ab,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ g_lse,
+                                  float* __restrict__ dx_part,
+                                  float* __restrict__ row_part, int n, int d,
+                                  int c, int range_cols, int mode,
+                                  int has_clamp, float clamp_eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int kOps = kMem ? 2 : 1;
+  constexpr int kTileChunks = kBxCols / 8;  // 16-byte chunks of a tile row
+  constexpr int nj = kBxCols / kBxCls;      // dx stages of a class tile
+  const int dp = round16(d);
+  const int cp = round8(c);
+  const int xpitch = dp + 8;
+  const int opsz = dx_bf16_stage(d);        // one operand's stage
+  const int slot = kOps * opsz;
+  const int dxr = round64(d);               // rows of a dx stage
+  Row* rows = reinterpret_cast<Row*>(smem_raw);
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + dx_bf16_xs_at());
+  bf16* dcs = reinterpret_cast<bf16*>(smem_raw + dx_bf16_dc_at(d));
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + dx_bf16_ring_at(d, kMem));
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wr = (warp >> 2) * 16;   // the warp's rows of the cosine tile
+  const int wc = (warp & 3) * 32;    // and its classes
+  const int wd = warp * 64;          // its columns of D in the dx product
+  const bool dx_warp = wd < d;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int row0 = blockIdx.x * kBxRows;
+  const int c_lo = blockIdx.y * range_cols;
+  const int c_hi = min(c, c_lo + range_cols);
+  const int nk = ceil_div(dp, kBxDepth);
+  const int per_tile = nk + nj;  // cosine stages, then dx stages
+  const int total =
+      (c_hi > c_lo ? ceil_div(c_hi - c_lo, kBxCols) : 0) * per_tile;
+  if (tid < kBxRows)
+    rows[tid] = load_row(row0 + tid, n, labels, t, nullptr, scale, ab, lse,
+                         g_lse, nullptr);
+  // the block's rows of xb ride in the first cp.async group; zero past N
+  const int segs = dp / 8;
+  for (int i = tid; i < kBxRows * segs; i += kThreads) {
+    const int r = i / segs;
+    const int sg = i - r * segs;
+    const bool in = row0 + r < n;
+    tc::cp_async16(xs + r * xpitch + sg * 8,
+                   in ? xb + static_cast<size_t>(row0 + r) * dp + sg * 8 : xb,
+                   in);
+  }
+  // stage i of the range: a cosine stage, wb[k0:k0+64, c0:c0+128] as
+  // [64][128] (thread -> 16-byte chunk tid % 16 of rows tid / 16 + 16 j),
+  // or a dx stage, wb[:, j0:j0+16] as [round64(D)][16]; zero past D and Cp
+  auto prefetch = [&](int i) {
+    bf16* st = ring + (i % kBxStages) * slot;
+    const int c0 = c_lo + (i / per_tile) * kBxCols;
+    const int sub = i % per_tile;
+    if (sub < nk) {
+      const int seg = tid & 15;
+      const int col = c0 + seg * 8;
+      const int k0 = sub * kBxDepth;
+#pragma unroll
+      for (int j = 0; j < kBxDepth / 16; ++j) {
+        const int kr = (tid >> 4) + 16 * j;
+        const bool in = k0 + kr < d && col < cp;
+        const size_t at = static_cast<size_t>(k0 + kr) * cp + col;
+        const int to = tc::swz<kTileChunks>(kr, seg);
+        tc::cp_async16(st + to, in ? wb + at : wb, in);
+        if constexpr (kMem)
+          tc::cp_async16(st + opsz + to, in ? mb + at : mb, in);
+      }
+    } else {
+      const int j0 = c0 + (sub - nk) * kBxCls;
+      for (int e = tid; e < 2 * dxr; e += kThreads) {
+        const int r = e >> 1;
+        const int col = j0 + 8 * (e & 1);
+        const bool in = r < d && col < cp;
+        const size_t at = static_cast<size_t>(r) * cp + col;
+        const int to = dx_stage_at(r, e & 1);
+        tc::cp_async16(st + to, in ? wb + at : wb, in);
+        if constexpr (kMem)
+          tc::cp_async16(st + opsz + to, in ? mb + at : mb, in);
+      }
+    }
+  };
+  for (int i = 0; i < kBxStages - 1; ++i) {
+    if (i < total) prefetch(i);
+    tc::commit();
+  }
+
+  // cosines: the thread's rows wr + g + 8 h and classes wc + 8 nt + 2 qd + e
+  // of the tile (acc[nt][2 h + e]); dx: rows 16 mt + g + 8 h and columns
+  // wd + 8 nt + 2 qd + e of D (dxa[mt][nt][2 h + e])
+  float acc[4][4], accm[4][4], dxa[2][8][4];
+  float dt[2] = {0.0f, 0.0f}, dsc[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxa[mt][nt][e] = 0.0f;
+  for (int i = 0; i < total; ++i) {
+    tc::wait<kBxStages - 2>();
+    __syncthreads();  // stage i landed; stage i - 1's readers (and the
+                      // dcos tiles' writers) done
+    if (i + kBxStages - 1 < total) prefetch(i + kBxStages - 1);
+    tc::commit();
+    const bf16* st = ring + (i % kBxStages) * slot;
+    const int sub = i % per_tile;
+    if (sub >= nk) {
+      // dx += dcos[:, j:j+16] . stage^T over the stage's 16 classes
+      if (!dx_warp) continue;
+      const int j = (sub - nk) * kBxCls;
+#pragma unroll
+      for (int op = 0; op < kOps; ++op) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          tc::ldmatrix_x4(af[mt], dcs + (op * kBxRows + 16 * mt +
+                                         (lane & 15)) * kBxDcPitch +
+                                      j + 8 * (lane >> 4));
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          // n8 tiles 2 np and 2 np + 1: lane l points at D row
+          // wd + 16 np + l % 8 + 8 (l / 16), classes 8 ((l / 8) % 2) ..
+          uint32_t b[4];
+          tc::ldmatrix_x4(b, st + op * opsz +
+                                 dx_stage_at(wd + 16 * np + (lane & 7) +
+                                                 8 * (lane >> 4),
+                                             (lane >> 3) & 1));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            tc::mma_bf16(dxa[mt][2 * np], af[mt], b[0], b[1]);
+            tc::mma_bf16(dxa[mt][2 * np + 1], af[mt], b[2], b[3]);
+          }
+        }
+      }
+      continue;
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = accm[nt][e] = 0.0f;
+    }
+    const int k0 = sub * kBxDepth;
+    const int ksteps = min(kBxDepth, dp - k0) / 16;
+#pragma unroll
+    for (int ks = 0; ks < kBxDepth / 16; ++ks) {
+      if (ks >= ksteps) break;
+      uint32_t af[4];
+      tc::ldmatrix_x4(af, xs + (wr + (lane & 15)) * xpitch + k0 + 16 * ks +
+                              8 * (lane >> 4));
+      // B fragments of the 4 n8 tiles of the warp's 32 classes, from the
+      // stage of wb (op 0) or mb (op 1)
+      auto load_b = [&](int op, uint32_t bq[4][2]) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          uint32_t r[4];
+          tc::ldmatrix_x4_trans(
+              r, st + op * opsz +
+                     tc::swz<kTileChunks>(16 * ks + (lane & 15),
+                                          (wc >> 3) + 2 * jj + (lane >> 4)));
+          bq[2 * jj][0] = r[0];
+          bq[2 * jj][1] = r[1];
+          bq[2 * jj + 1][0] = r[2];
+          bq[2 * jj + 1][1] = r[3];
+        }
+      };
+      uint32_t bq[4][2];
+      load_b(0, bq);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        tc::mma_bf16(acc[nt], af, bq[nt][0], bq[nt][1]);
+      if constexpr (kMem) {
+        load_b(1, bq);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          tc::mma_bf16(accm[nt], af, bq[nt][0], bq[nt][1]);
+      }
+    }
+    if (sub != nk - 1) continue;
+    // the cosine tile is complete: blend, clamp, margin and dcos on the
+    // thread's own elements; bf16(dcos) (with the blend its two shares)
+    // into the dcos tiles, read by every warp in the dx stages that follow
+    const int c0 = c_lo + (i / per_tile) * kBxCols;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int tcol = wc + 8 * nt + 2 * qd;
+      float lt[2] = {0.0f, 0.0f};
+      if constexpr (kMem) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          lt[e] = c0 + tcol + e < c ? lam[c0 + tcol + e] : 0.0f;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const Row& r = rows[wr + g + 8 * h];
+        float gv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float cs = acc[nt][2 * h + e];
+          if constexpr (kMem)
+            cs = (1.0f - lt[e]) * cs + lt[e] * accm[nt][2 * h + e];
+          gv[e] = dcos_of(cs, c0 + tcol + e, c, r, mode, has_clamp,
+                          clamp_eps, &dt[h], &dsc[h]);
+        }
+        auto* out = reinterpret_cast<__nv_bfloat162*>(
+            dcs + (wr + g + 8 * h) * kBxDcPitch + tcol);
+        if constexpr (kMem) {
+          out[0] = __floats2bfloat162_rn(gv[0] * (1.0f - lt[0]),
+                                         gv[1] * (1.0f - lt[1]));
+          out[kBxRows * kBxDcPitch / 2] =
+              __floats2bfloat162_rn(gv[0] * lt[0], gv[1] * lt[1]);
+        } else {
+          out[0] = __floats2bfloat162_rn(gv[0], gv[1]);
+        }
+      }
+    }
+  }
+  tc::wait<0>();
+
+  // dt, dscale of each row: over the quad's 4 lanes, then over the 4 warps
+  // of its row half (in order of warp)
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      dt[h] += __shfl_xor_sync(0xffffffffu, dt[h], o);
+      dsc[h] += __shfl_xor_sync(0xffffffffu, dsc[h], o);
+    }
+  __syncthreads();  // the ring is free: [4 warps][kBxRows][2]
+  float* red = reinterpret_cast<float*>(ring);
+  if (qd == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* p = red + ((warp & 3) * kBxRows + wr + g + 8 * h) * 2;
+      p[0] = dt[h];
+      p[1] = dsc[h];
+    }
+  }
+  __syncthreads();
+  if (tid < kBxRows && row0 + tid < n) {
+    float sdt = 0.0f, sds = 0.0f;
+    for (int w = 0; w < 4; ++w) {
+      sdt += red[(w * kBxRows + tid) * 2];
+      sds += red[(w * kBxRows + tid) * 2 + 1];
+    }
+    float* p = row_part + static_cast<size_t>(blockIdx.y) * 2 * n + row0 + tid;
+    p[0] = sdt;
+    p[n] = sds;
+  }
+  if (!dx_warp) return;
+  const int pitch = round4(d);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * mt + g + 8 * h;
+      if (row >= n) continue;
+      float* out = dx_part + (static_cast<size_t>(blockIdx.y) * n + row) *
+                                 pitch;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int k = wd + 8 * nt + 2 * qd;
+        const float v0 = dxa[mt][nt][2 * h];
+        const float v1 = dxa[mt][nt][2 * h + 1];
+        if (k + 1 < d)
+          *reinterpret_cast<float2*>(out + k) = make_float2(v0, v1);
+        else if (k < d)
+          out[k] = v0;
+      }
+    }
+}
+
 // ---- fp32 dw: class tiles x row ranges (see the note at the head) -------
 //
 // Thread layout of the cosine tile [kDwRows rows][kDwCols classes]: warp w
@@ -1937,14 +2036,15 @@ int sm_count() {
   return sms;
 }
 
-// Columns per class range of the fp32 fwd (which 0, 3), bwd_dx (1, 4) or
-// the bf16 fwd (6, 9): whole class tiles (256 wide; the bf16 fwd's 128), as
-// many per range as keep at least two blocks per SM (row tiles x ranges)
-// where C allows it.
+// Columns per class range of the fp32 fwd (which 0, 3), bwd_dx (1, 4), the
+// bf16 fwd (6, 9) or the bf16 bwd_dx (7, 10): whole class tiles (256 wide;
+// the bf16 kernels' 128), as many per range as keep at least two blocks per
+// SM (row tiles x ranges) where C allows it.
 int range_cols(int which, int n, int c) {
   const bool bf16 = which >= 6;
-  const int tile = bf16 ? kBfCols : kSplitCols;
-  const int rows = bf16 ? kBfRows : split_rows(which % 3 == 1);
+  const bool dx = which % 3 == 1;
+  const int tile = bf16 ? (dx ? kBxCols : kBfCols) : kSplitCols;
+  const int rows = bf16 ? (dx ? kBxRows : kBfRows) : split_rows(dx);
   const int ctiles = ceil_div(c, tile);
   const int want = ceil_div(2 * sm_count(), ceil_div(n, rows));
   return (want >= ctiles ? 1 : ctiles / want) * tile;
@@ -1962,22 +2062,21 @@ int range_rows(int n, int c) {
 int num_splits(int c, int cols) { return c > 0 ? ceil_div(c, cols) : 1; }
 
 // Workspace floats of the fp32 fwd (which 0, 3), bwd_dx (1, 4) and bwd_dw
-// (2, 5) entries and of the bf16 fwd (6, 9); bwd_dw takes none when it runs
-// a single row range, the other bf16 entries none.
+// (2, 5) entries and of the bf16 fwd (6, 9) and bwd_dx (7, 10): their
+// partials and, for the bf16 entries, the operands rounded to bf16 behind
+// them (bf16_ws). The fp32 bwd_dw takes none when it runs a single row
+// range, the bf16 bwd_dw (8, 11) none.
 size_t workspace_floats(int which, int n, int d, int c) {
-  if (which >= 6) {
-    if (which % 3) return 0;
-    return fwd_bf16_ws(num_splits(c, range_cols(which, n, c)), n, d, c,
-                       which == 9)
-        .total;
-  }
-  if (which % 3 == 2) {
+  const int k = which % 3;
+  if (k == 2) {
+    if (which >= 6) return 0;
     const size_t s = num_splits(n, range_rows(n, c));
     return s > 1 ? s * d * c : 0;
   }
-  const size_t s = num_splits(c, range_cols(which, n, c));
-  if (which % 3 == 0) return 3 * s * n;
-  return s * n * round4(d) + 2 * s * n;
+  const int s = num_splits(c, range_cols(which, n, c));
+  const size_t part =
+      k == 0 ? 3 * static_cast<size_t>(s) * n : dx_part_floats(s, n, d);
+  return which >= 6 ? bf16_ws(part, n, d, c, which >= 9).total : part;
 }
 
 size_t smem_bytes(int which, int d) {
@@ -1985,7 +2084,7 @@ size_t smem_bytes(int which, int d) {
   const int k = which % 3;
   if (which >= 6)
     return k == 0   ? fwd_bf16_smem(d, mem)
-           : k == 1 ? bf_layout(d, mem).total
+           : k == 1 ? dx_bf16_smem(d, mem)
                     : dw_bf16_layout(d, mem).total;
   return k == 2 ? dw_split_smem(d, mem) : split_smem(d, mem, k == 1);
 }
@@ -2062,6 +2161,26 @@ int launch_bwd_dx(const float* xn, const float* wn, const float* memn,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 entries' pre-pass: xn, wn (and memn) rounded to bf16 once into
+// the workspace at L (xb [N][dp], wb and mb [D][Cp], zero-padded).
+cudaError_t round_bf16(const float* xn, const float* wn, const float* memn,
+                       float* ws, const BfWs& L, int n, int d, int c,
+                       bool mem, cudaStream_t st) {
+  const RoundJobs jobs = {
+      {{xn, reinterpret_cast<bf16*>(ws + L.xb), n, d, round16(d)},
+       {wn, reinterpret_cast<bf16*>(ws + L.wb), d, c, round8(c)},
+       {memn, reinterpret_cast<bf16*>(ws + L.mb), d, c, round8(c)}}};
+  const long long groups =
+      std::max(static_cast<long long>(n) * round16(d),
+               static_cast<long long>(d) * round8(c)) / 8;
+  const dim3 round_grid(
+      static_cast<unsigned>(std::min<long long>(ceil_div(groups, kThreads),
+                                                8LL * sm_count())),
+      mem ? 3 : 2);
+  fused_ce_round_bf16_kernel<<<round_grid, kThreads, 0, st>>>(jobs);
+  return cudaGetLastError();
+}
+
 // fused_ce_fwd(_mem)_bf16, the counterpart of _fwd_kernel with
 // mm_dtype=bfloat16 (K5; with the blend its has_mem body). Bound at N=512,
 // D=512, C=10,575 by bytes: 0.0068 ms (0.0071 with memn at VPL's one-step
@@ -2081,27 +2200,14 @@ int launch_fwd_bf16(const float* xn, const float* wn, const float* memn,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cols = range_cols(kMem ? 9 : 6, n, c);
   const int splits = num_splits(c, cols);
-  const FwdBfWs L = fwd_bf16_ws(splits, n, d, c, kMem);
-  auto* xb = reinterpret_cast<bf16*>(ws + L.xb);
-  auto* wb = reinterpret_cast<bf16*>(ws + L.wb);
-  auto* mb = reinterpret_cast<bf16*>(ws + L.mb);
-  const RoundJobs jobs = {{{xn, xb, n, d, round16(d)},
-                           {wn, wb, d, c, round8(c)},
-                           {memn, mb, d, c, round8(c)}}};
-  const long long groups =
-      std::max(static_cast<long long>(n) * round16(d),
-               static_cast<long long>(d) * round8(c)) / 8;
+  const BfWs L = bf16_ws(3 * static_cast<size_t>(splits) * n, n, d, c, kMem);
   const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 round_grid(
-      static_cast<unsigned>(std::min<long long>(ceil_div(groups, kThreads),
-                                                8LL * sm_count())),
-      kMem ? 3 : 2);
-  fused_ce_round_bf16_kernel<<<round_grid, kThreads, 0, st>>>(jobs);
-  err = cudaGetLastError();
+  err = round_bf16(xn, wn, memn, ws, L, n, d, c, kMem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(ceil_div(n, kBfRows), splits), kThreads, smem, st>>>(
-      xb, wb, mb, lam, labels, t, tcos, scale, ab, ws, n, d, c, cols, mode,
-      has_clamp, clamp_eps);
+      reinterpret_cast<bf16*>(ws + L.xb), reinterpret_cast<bf16*>(ws + L.wb),
+      reinterpret_cast<bf16*>(ws + L.mb), lam, labels, t, tcos, scale, ab, ws,
+      n, d, c, cols, mode, has_clamp, clamp_eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fused_ce_fwd_combine_kernel<<<ceil_div(n, kThreads), kThreads, 0, st>>>(
@@ -2109,22 +2215,44 @@ int launch_fwd_bf16(const float* xn, const float* wn, const float* memn,
   return static_cast<int>(cudaGetLastError());
 }
 
+// fused_ce_bwd_dx(_mem)_bf16, the counterpart of _bwd_dx_kernel and the dx
+// half of _bwd_fused_kernel with mm_dtype=bfloat16 (K5; with the blend their
+// has_mem bodies). Bound at N=512, D=512, C=10,575 by bf16 operations: two
+// products, 4 N D C = 11.1 GFLOP, 0.0112 ms at 989 TFLOP/s (with memn on
+// every class 0.0224 ms). The pre-pass rounds the operands to bf16 behind
+// the partials, the split kernel puts ceil(N / 32) x S blocks on the card,
+// the fp32 dx's combine sums the ranges' dx, dt and dscale in order of
+// range.
 template <bool kMem>
 int launch_bwd_dx_bf16(const float* xn, const float* wn, const float* memn,
                        const float* lam, const int* labels, const float* t,
                        const float* scale, const float* ab, const float* lse,
                        const float* g_lse, const float* g_t, float* dx,
-                       float* dt, float* dscale, int n, int d, int c,
-                       int mode, int has_clamp, float clamp_eps,
+                       float* dt, float* dscale, float* ws, int n, int d,
+                       int c, int mode, int has_clamp, float clamp_eps,
                        void* stream) {
-  const size_t smem = smem_bytes(7 + (kMem ? 3 : 0), d);
-  auto* kernel = fused_ce_bwd_dx_bf16_kernel<kMem>;
+  if (d > kMaxSplitD) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = dx_bf16_smem(d, kMem);
+  auto* kernel = fused_ce_bwd_dx_bf16_split_kernel<kMem>;
   cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kRows - 1) / kRows;
-  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse, g_t, dx, dt,
-      dscale, n, d, c, mode, has_clamp, clamp_eps);
+  const int cols = range_cols(kMem ? 10 : 7, n, c);
+  const int splits = num_splits(c, cols);
+  const BfWs L = bf16_ws(dx_part_floats(splits, n, d), n, d, c, kMem);
+  float* row_part = ws + static_cast<size_t>(splits) * n * round4(d);
+  const auto st = static_cast<cudaStream_t>(stream);
+  err = round_bf16(xn, wn, memn, ws, L, n, d, c, kMem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(ceil_div(n, kBxRows), splits), kThreads, smem, st>>>(
+      reinterpret_cast<bf16*>(ws + L.xb), reinterpret_cast<bf16*>(ws + L.wb),
+      reinterpret_cast<bf16*>(ws + L.mb), lam, labels, t, scale, ab, lse,
+      g_lse, ws, row_part, n, d, c, cols, mode, has_clamp, clamp_eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t elems = static_cast<size_t>(n) * d;
+  fused_ce_bwd_dx_combine_kernel<<<
+      static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
+      st>>>(ws, row_part, t, scale, g_t, dx, dt, dscale, n, d, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2190,9 +2318,9 @@ extern "C" {
 // kernels in the same order.
 size_t fused_ce_smem_bytes(int which, int d) { return smem_bytes(which, d); }
 
-// Columns per class range of the split fp32 fwd (which 0, 3) or bwd_dx (1,
-// 4) at (n, c) on the current device; the number of ranges is
-// ceil(c / columns) (1 if c = 0).
+// Columns per class range of the split fwd (which 0, 3; bf16 6, 9) or
+// bwd_dx (1, 4; bf16 7, 10) at (n, c) on the current device; the number of
+// ranges is ceil(c / columns) (1 if c = 0).
 int fused_ce_range_cols(int which, int n, int c) {
   return range_cols(which, n, c);
 }
@@ -2205,6 +2333,8 @@ int fused_ce_dw_range_rows(int n, int c) { return range_rows(n, c); }
 // bwd_dw (2, 5) entry takes: fwd [S][3][N] (m, l, higher per range);
 // bwd_dx [S][N][round4(D)] dx partials followed by [S][2][N] (dt, dscale
 // without the direct path); bwd_dw [S][D][C] dw partials, none if S = 1.
+// The bf16 fwd (6, 9) and bwd_dx (7, 10) take the same partials followed
+// by their operands rounded to bf16; the bf16 bwd_dw (8, 11) none.
 size_t fused_ce_workspace_floats(int which, int n, int d, int c) {
   return workspace_floats(which, n, d, c);
 }
@@ -2309,8 +2439,9 @@ int fused_ce_bwd_dw_mem(const float* xn, const float* wn, const float* memn,
                              clamp_eps, stream);
 }
 
-// bf16 tensor-core entries: the arguments of the fp32 ones; only the
-// forward takes a workspace (fused_ce_workspace_floats, which 6 and 9).
+// bf16 tensor-core entries: the arguments of the fp32 ones; the forward
+// and dx take a workspace (fused_ce_workspace_floats, which 6, 9 and 7, 10),
+// dw none.
 int fused_ce_fwd_bf16(const float* xn, const float* wn, const int* labels,
                       const float* t, const float* tcos, const float* scale,
                       const float* ab, float* lse, float* tlogit,
@@ -2325,11 +2456,12 @@ int fused_ce_bwd_dx_bf16(const float* xn, const float* wn, const int* labels,
                          const float* t, const float* scale, const float* ab,
                          const float* lse, const float* g_lse,
                          const float* g_t, float* dx, float* dt,
-                         float* dscale, int n, int d, int c, int mode,
-                         int has_clamp, float clamp_eps, void* stream) {
+                         float* dscale, float* ws, int n, int d, int c,
+                         int mode, int has_clamp, float clamp_eps,
+                         void* stream) {
   return launch_bwd_dx_bf16<false>(xn, wn, nullptr, nullptr, labels, t, scale,
-                                   ab, lse, g_lse, g_t, dx, dt, dscale, n, d,
-                                   c, mode, has_clamp, clamp_eps, stream);
+                                   ab, lse, g_lse, g_t, dx, dt, dscale, ws, n,
+                                   d, c, mode, has_clamp, clamp_eps, stream);
 }
 
 int fused_ce_bwd_dw_bf16(const float* xn, const float* wn, const int* labels,
@@ -2360,11 +2492,12 @@ int fused_ce_bwd_dx_mem_bf16(const float* xn, const float* wn,
                              const float* scale, const float* ab,
                              const float* lse, const float* g_lse,
                              const float* g_t, float* dx, float* dt,
-                             float* dscale, int n, int d, int c, int mode,
-                             int has_clamp, float clamp_eps, void* stream) {
+                             float* dscale, float* ws, int n, int d, int c,
+                             int mode, int has_clamp, float clamp_eps,
+                             void* stream) {
   return launch_bwd_dx_bf16<true>(xn, wn, memn, lam, labels, t, scale, ab,
-                                  lse, g_lse, g_t, dx, dt, dscale, n, d, c,
-                                  mode, has_clamp, clamp_eps, stream);
+                                  lse, g_lse, g_t, dx, dt, dscale, ws, n, d,
+                                  c, mode, has_clamp, clamp_eps, stream);
 }
 
 int fused_ce_bwd_dw_mem_bf16(const float* xn, const float* wn,

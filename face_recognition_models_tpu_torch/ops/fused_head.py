@@ -43,10 +43,12 @@ PyTorch, for the tests and the card checks; the main path never calls them.
 
 `mm_dtype=torch.bfloat16` (the JAX package's `mm_dtype=jnp.bfloat16`) runs
 every product on bf16 operands with fp32 accumulation: the `_bf16` kernels
-on the tensor cores. The bf16 forward entries are split-C like the fp32
-ones (128-wide class tiles, `split_plan(..., mm_dtype=torch.bfloat16)`),
-their workspace holding the [S, 3, N] partials and, after them, the
-operands rounded to bf16 once by a pre-pass. The operands are rounded to bf16 (round to nearest
+on the tensor cores. The bf16 forward and dx entries are split-C like the
+fp32 ones (128-wide class tiles, `split_plan(..., mm_dtype=torch.bfloat16)`
+and `split_plan(..., dx=True, mm_dtype=torch.bfloat16)`), their workspace
+holding the partials in the fp32 layout ([S, 3, N]; dx [S, N, round4(D)]
+then [S, 2, N]) and, after them, the operands rounded to bf16 once by a
+pre-pass. The operands are rounded to bf16 (round to nearest
 even) at exactly six places, and everything else stays fp32: xn and wn
 before every cosine product, memn, dcos before the dx and dw products, and,
 with the blend, dcos * (1 - lam) and dcos * lam, each rounded on its own.
@@ -73,8 +75,9 @@ launch_counts = {name + suffix: 0 for suffix in ("", "_bf16")
                  for name in _KERNELS}
 # Per-block shared memory of an H100 (bytes); bounds the embedding width.
 _MAX_SMEM = 232_448
-# Widest embedding of the fp32 bwd_dx and bwd_dw kernels: 8 warps hold 64
-# columns of D each of the dx (dw) accumulator in registers.
+# Widest embedding of the fp32 bwd_dx and bwd_dw kernels and of the bf16
+# bwd_dx: 8 warps hold 64 columns of D each of the dx (dw) accumulator in
+# registers.
 _MAX_SPLIT_WIDTH = 512
 # A range with no valid column carries this max logit (the kernels' -1e30).
 _NEG_INF = -1e30
@@ -325,21 +328,26 @@ def fused_ce_bwd_dx_partials_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
                                    mode: int,
                                    clamp_eps: Optional[float] = None, *,
                                    splits: int, range_cols: int, memn=None,
-                                   lam=None):
+                                   lam=None, mm_dtype=torch.float32):
     """Per-range partials of dx: (dx [S, N, D], (dt, dscale) [S, 2, N]
     without the direct path). With memn and lam, dcos * (1 - lam) goes into
-    wn and dcos * lam into memn."""
+    wn and dcos * lam into memn; with mm_dtype=torch.bfloat16, the products
+    on bf16 operands (dcos, or each of its two shares, rounded on its
+    own)."""
     dcos, dt, dscale = _dcos_terms_plain(xn, wn, labels, t, scale, ab, lse,
-                                         g_lse, mode, clamp_eps, memn, lam)
+                                         g_lse, mode, clamp_eps, memn, lam,
+                                         mm_dtype)
+    wm = _mm(wn, mm_dtype)
+    mm = None if memn is None else _mm(memn, mm_dtype)
     dx_parts, row_parts = [], []
     for lo, hi in split_ranges(wn.shape[1], splits, range_cols):
         g = dcos[:, lo:hi]
         if memn is None:
-            dx = g @ wn[:, lo:hi].T
+            dx = _mm(g, mm_dtype) @ wm[:, lo:hi].T
         else:
             lr = lam[lo:hi]
-            dx = ((g * (1.0 - lr)) @ wn[:, lo:hi].T
-                  + (g * lr) @ memn[:, lo:hi].T)
+            dx = (_mm(g * (1.0 - lr), mm_dtype) @ wm[:, lo:hi].T
+                  + _mm(g * lr, mm_dtype) @ mm[:, lo:hi].T)
         dx_parts.append(dx)
         row_parts.append(torch.stack([dt[:, lo:hi].sum(1),
                                       dscale[:, lo:hi].sum(1)]))
@@ -392,15 +400,13 @@ def _lib():
 
     lib = _build.load("fused_head")
     if not getattr(lib, "_typed", False):
-        # each _mem entry takes memn and lam right after wn; each fp32
-        # entry and each forward a workspace after its outputs; the _bf16
-        # backward entries the arguments of their fp32 counterparts without
-        # the workspace
+        # each _mem entry takes memn and lam right after wn; each entry but
+        # the bf16 bwd_dw a workspace after its outputs
         for name, ptrs in (("fused_ce_fwd", 10), ("fused_ce_bwd_dx", 12),
                            ("fused_ce_bwd_dw", 9)):
             for mem, extra in (("", 0), ("_mem", 2)):
                 for bf16 in ("", "_bf16"):
-                    ws = int(not bf16 or name == "fused_ce_fwd")
+                    ws = int(not bf16 or name != "fused_ce_bwd_dw")
                     fn = getattr(lib, name + mem + bf16)
                     fn.argtypes = ([_P] * (ptrs + extra + ws) + [_I] * 5
                                    + [_F, _P])
@@ -481,8 +487,9 @@ def _ptr(x):
 
 
 def _check_width(name, which, d):
-    """The fp32 bwd_dx and bwd_dw kernels take D up to _MAX_SPLIT_WIDTH."""
-    if which < 6 and which % 3 and d > _MAX_SPLIT_WIDTH:
+    """The fp32 bwd_dx and bwd_dw kernels and the bf16 bwd_dx take D up to
+    _MAX_SPLIT_WIDTH."""
+    if (which % 3 == 1 or which in (2, 5)) and d > _MAX_SPLIT_WIDTH:
         raise ValueError(f"{name}: embedding width {d} above the kernel's "
                          f"{_MAX_SPLIT_WIDTH}")
 
@@ -493,13 +500,11 @@ def _eps_args(clamp_eps):
 
 def split_plan(n: int, c: int, dx: bool = False, device=None,
                mm_dtype=torch.float32) -> Tuple[int, int]:
-    """(ranges S, columns per range) of the fp32 fwd (or, with `dx`, bwd_dx)
-    kernels, or with mm_dtype=torch.bfloat16 of the bf16 fwd, at (n, c) on
-    the card `device`: at least two blocks per SM where C allows."""
+    """(ranges S, columns per range) of the fwd (or, with `dx`, bwd_dx)
+    kernels, fp32 or with mm_dtype=torch.bfloat16 bf16, at (n, c) on the card
+    `device`: at least two blocks per SM where C allows."""
     _check_mm_dtype(mm_dtype)
-    if dx and mm_dtype == torch.bfloat16:
-        raise ValueError("split_plan: the bf16 bwd_dx runs unsplit")
-    which = 6 if mm_dtype == torch.bfloat16 else int(dx)
+    which = int(dx) + (6 if mm_dtype == torch.bfloat16 else 0)
     with torch.cuda.device(device):
         cols = _lib().fused_ce_range_cols(which, n, c)
     return max(1, -(-c // cols)), cols
@@ -514,10 +519,11 @@ def dw_split_plan(n: int, c: int, device=None) -> Tuple[int, int]:
 
 
 def _workspace(which, n, d, c, device):
-    """() for a bf16 backward entry; else the workspace its entry fills
+    """() for a bf16 bwd_dw entry; else the workspace its entry fills
     (fused_ce_workspace_floats: partials, empty for an fp32 bwd_dw of one
-    range; the bf16 forward's partials and its bf16 operands)."""
-    if which >= 6 and which % 3:
+    range; for the bf16 fwd and bwd_dx their partials, then their bf16
+    operands)."""
+    if which in (8, 11):
         return ()
     floats = _lib().fused_ce_workspace_floats(which, n, d, c)
     return (torch.empty(floats, dtype=torch.float32, device=device),)
@@ -546,8 +552,8 @@ def _fwd(name, which, xn, wn, mem, labels, t, tcos, scale, ab, mode,
 
 def _bwd_dx(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, g_t,
             mode, clamp_eps, mm_dtype, parts=None):
-    """The dx entry; `parts`, a list, receives the workspace of per-range
-    partials of an fp32 launch (dx [S, N, round4(D)], then [S, 2, N])."""
+    """The dx entry; `parts`, a list, receives its workspace, which starts
+    with the per-range partials (dx [S, N, round4(D)], then [S, 2, N])."""
     name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, scale, lse, g_lse, g_t), ab, mem)
     n, d = xn.shape
@@ -568,10 +574,11 @@ def _bwd_dx(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, g_t,
 
 
 def dx_workspace_views(ws, splits: int, n: int, d: int):
-    """(dx [S, N, D], rows [S, 2, N]) views of a bwd_dx workspace."""
+    """(dx [S, N, D], rows [S, 2, N]) views of the partials at the front of
+    a bwd_dx workspace (fp32 or bf16)."""
     dp = -(-d // 4) * 4
     dx = ws[:splits * n * dp].view(splits, n, dp)[:, :, :d]
-    return dx, ws[splits * n * dp:].view(splits, 2, n)
+    return dx, ws[splits * n * dp:splits * n * (dp + 2)].view(splits, 2, n)
 
 
 def fused_ce_fwd_combine(parts, t, scale) -> FusedHeadOut:

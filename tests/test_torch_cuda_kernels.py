@@ -4,8 +4,8 @@ the split decomposition of the fp32 fwd and bwd_dx over class ranges and
 of the fp32 bwd_dw over row ranges (partials, combine, bitwise
 determinism),
 the bf16 tensor-core versions of all six (_bf16) with the split bf16
-forward's partials, combine and determinism, and the implicit-GEMM 3x3 conv
-on each of its routes. Marked `cuda`: they skip where there is no CUDA device. On a
+forward's and dx's partials, combine and determinism, and the implicit-GEMM
+3x3 conv on each of its routes. Marked `cuda`: they skip where there is no CUDA device. On a
 machine with a card (the JAX package need not be installed there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -457,6 +457,84 @@ def test_bf16_split_forward_partials_combine_determinism(cuda, n, d, c, last,
     assert float((outs[0].higher - ref.higher).abs().max()) <= 1
     assert all(torch.equal(a, b) for a, b in zip(*outs))
     assert torch.equal(parts[0][:splits * 3 * n], parts[1][:splits * 3 * n])
+
+
+# The bf16 bwd_dx splits C into ranges of whole 128-wide tiles over 32-row
+# tiles: the same shapes (N = 1, ragged ranges, D = 72 and 200, a last range
+# holding only row 0's target).
+@pytest.mark.parametrize("n,d,c,last", SPLIT_SHAPES)
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_bf16_split_dx_partials_combine_determinism(cuda, n, d, c, last, mode,
+                                                    clamp_eps, mem):
+    """The bf16 bwd_dx entries: each range's partials from the workspace
+    against fused_ce_bwd_dx_partials_plain with bf16 products, the combine
+    kernel against its plain version, the result against the unsplit plain
+    version, and two launches bitwise equal."""
+    xn, wn, labels, t, tcos, scale, ab = _inputs(n, d, c, mode, n + d + mode,
+                                                 cuda)
+    if last:
+        labels[0] = c - 1
+    extra = _mem_inputs(d, c, n + 7 * mode, cuda) if mem else ()
+    kw = dict(memn=extra[0], lam=extra[1]) if mem else {}
+    sfx, which = ("_mem", 4) if mem else ("", 1)
+    bf = torch.bfloat16
+    splits, cols = fh.split_plan(n, c, dx=True, mm_dtype=bf)
+    assert splits > 1 and cols % 128 == 0
+    ref = getattr(fh, f"fused_margin_ce{sfx}_plain")(
+        xn, wn, *extra, labels, t, tcos, scale, ab, mode, clamp_eps,
+        mm_dtype=bf)
+    g_lse = torch.full_like(t, 1.0 / n)
+    g_t = torch.full_like(t, -1.0 / n)
+    bwd = (labels, t, scale, ab, ref.lse, g_lse)
+    want = getattr(fh, f"fused_ce_bwd_dx{sfx}_plain")(
+        xn, wn, *extra, *bwd, g_t, mode, clamp_eps, mm_dtype=bf)
+    dcos, _, _ = fh._dcos_plain(xn, wn, labels, t, scale, ab, ref.lse, g_lse,
+                                mode, clamp_eps, *(extra or (None, None)), bf)
+    wmax = torch.stack([w.abs().amax(1) for w in (wn, *extra[:1])]).amax(0)
+    term = dcos.abs().amax(1)[:, None] * wmax[None, :]
+    fh.reset_launch_counts()
+    outs, parts = [], []
+    for _ in range(2):
+        outs.append(fh._bwd_dx("fused_ce_bwd_dx" + sfx, which, xn, wn, extra,
+                               *bwd, g_t, mode, clamp_eps, bf, parts))
+    torch.cuda.synchronize()
+    name = "fused_ce_bwd_dx" + sfx + "_bf16"
+    assert fh.launch_counts == {k: 2 * int(k == name)
+                                for k in fh.launch_counts}
+    got_dx, got_rows = fh.dx_workspace_views(parts[0], splits, n, d)
+    want_dx, want_rows = fh.fused_ce_bwd_dx_partials_plain(
+        xn, wn, *bwd, mode, clamp_eps, splits=splits, range_cols=cols,
+        mm_dtype=bf, **kw)
+    _bf16_grad_close(got_dx, want_dx, term)
+    _grad_close(got_rows, want_rows)
+    if last:  # the last range holds row 0's target only: no dx from it
+        assert float(got_dx[-1, 0].abs().max()) == 0.0
+    comb = fh.fused_ce_bwd_dx_combine(want_dx, want_rows, t, scale, g_t)
+    for a, b in zip(comb, fh.fused_ce_bwd_dx_combine_plain(
+            want_dx, want_rows, t, scale, g_t)):
+        _grad_close(a, b)
+    _bf16_grad_close(outs[0][0], want[0], term)
+    for a, b in zip(outs[0][1:], want[1:]):
+        _grad_close(a, b)
+    assert all(bool(torch.isfinite(a).all()) for a in outs[0])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    views = [fh.dx_workspace_views(p, splits, n, d) for p in parts]
+    assert all(torch.equal(a, b) for a, b in zip(*views))
+
+
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_bf16_split_dx_rejects_wide_embeddings(cuda, mem):
+    """8 warps x 64 columns of D hold the bf16 dx accumulator: D <= 512."""
+    xn, wn, labels, t, tcos, scale, ab = _inputs(8, 64, 50, 0, 1, cuda)
+    d = 528
+    wide = torch.zeros(8, d, device=cuda)
+    w = torch.zeros(d, 50, device=cuda)
+    extra = (w, torch.zeros(50, device=cuda)) if mem else ()
+    fn = fh.fused_ce_bwd_dx_mem if mem else fh.fused_ce_bwd_dx
+    with pytest.raises(ValueError, match="embedding width 528"):
+        fn(wide, w, *extra, labels, t, scale, ab, t, t, t, 0,
+           mm_dtype=torch.bfloat16)
 
 
 def test_bf16_wrappers_reject_bad_inputs(cuda):

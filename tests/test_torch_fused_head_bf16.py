@@ -15,6 +15,12 @@ rounding boundary could round one way in JAX and the other in the port,
 moving one term of dx or dw by one bf16 ulp; on these inputs that does not
 happen at a visible size: the largest gradient difference measured over the
 six cases is 3.6e-7 (dx), the largest lse difference 3.8e-6.
+
+The split-C decomposition of the bf16 forward and dx (the kernels' per-range
+partials and their combine, in plain PyTorch) is held against the same JAX
+functions over several range plans, a last range past C among them; dx also
+against the JAX package's two-kernel backward (_bwd_dx_kernel), reached with
+its dx scratch budget set to 0. The tolerances are the ones above.
 """
 
 import functools
@@ -249,3 +255,73 @@ def test_bf16_split_forward_matches_jax(mode, clamp_eps, mem, splits,
     np.testing.assert_allclose(out.lse.numpy(), lse, **OUT_TOL)
     np.testing.assert_allclose(out.target_logit.numpy(), tlogit, **OUT_TOL)
     np.testing.assert_array_equal(out.higher.numpy(), higher)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_backward(mode, clamp_eps, mem):
+    """Inputs and the JAX package's bf16 forward and (dx, dw, dt, dscale)
+    through its single-sweep backward (interpret mode)."""
+    x = _inputs(mode, seed=30 + mode + 10 * mem, mem=mem)
+    out, grads = _jax(x, mode, clamp_eps, jnp.bfloat16)
+    return x, np.asarray(out.lse), grads
+
+
+def _check_dx_split(x, lse, mode, clamp_eps, splits, range_cols, jgrads):
+    """The arithmetic of the bf16 split-C dx: per-range partials with bf16
+    products (fused_ce_bwd_dx_partials_plain, on the JAX forward's lse),
+    merged by fused_ce_bwd_dx_combine_plain, against the JAX package's bf16
+    dx, dt and dscale; a range past C carries exact zeros."""
+    t = {k: torch.tensor(v) for k, v in x.items()}
+    kw = dict(memn=t["memn"], lam=t["lam"]) if "memn" in x else {}
+    dx_parts, row_parts = tfh.fused_ce_bwd_dx_partials_plain(
+        t["xn"], t["wn"], t["labels"], t["t"], t["scale"], t["ab"],
+        torch.tensor(lse), t["g_lse"], mode, clamp_eps, splits=splits,
+        range_cols=range_cols, mm_dtype=torch.bfloat16, **kw)
+    assert dx_parts.shape == (splits, N, D)
+    assert row_parts.shape == (splits, 2, N)
+    for (lo, hi), p, r in zip(tfh.split_ranges(C, splits, range_cols),
+                              dx_parts, row_parts):
+        if hi == lo:
+            assert float(p.abs().max()) == 0.0
+            assert float(r.abs().max()) == 0.0
+    got = tfh.fused_ce_bwd_dx_combine_plain(dx_parts, row_parts, t["t"],
+                                            t["scale"], t["g_t"])
+    for a, want, name in zip(got, (jgrads[0], jgrads[2], jgrads[3]),
+                             ("dx", "dt", "dscale")):
+        np.testing.assert_allclose(a.numpy(), want, err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("splits,range_cols", SPLIT_PLANS)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+def test_bf16_split_dx_matches_jax(mode, clamp_eps, mem, splits, range_cols):
+    """The bf16 split-C dx against the JAX package's bf16 single-sweep
+    backward (_bwd_fused_kernel, interpret mode), at the gradient tolerance
+    above."""
+    x, lse, jgrads = _jax_backward(mode, clamp_eps, mem)
+    _check_dx_split(x, lse, mode, clamp_eps, splits, range_cols, jgrads)
+
+
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+def test_bf16_split_dx_matches_jax_two_kernel_backward(monkeypatch, mode,
+                                                       clamp_eps, mem):
+    """The JAX package takes its two-kernel backward (_bwd_dx_kernel: K3a)
+    when the dx scratch would pass its VMEM budget; a budget of 0 sends
+    N = 24 there. The bf16 split-C dx over every plan of SPLIT_PLANS against
+    that dx, dt and dscale."""
+    calls = []
+
+    def counted(*refs, **kw):
+        calls.append(1)
+        return bwd_dx_kernel(*refs, **kw)
+
+    bwd_dx_kernel = jfh._bwd_dx_kernel
+    monkeypatch.setattr(jfh, "_DX_SCRATCH_BUDGET", 0)
+    monkeypatch.setattr(jfh, "_bwd_dx_kernel", counted)
+    x = _inputs(mode, seed=40 + mode + 10 * mem, mem=mem)
+    out, jgrads = _jax(x, mode, clamp_eps, jnp.bfloat16)
+    assert calls, "the two-kernel backward did not run"
+    for splits, range_cols in SPLIT_PLANS:
+        _check_dx_split(x, np.asarray(out.lse), mode, clamp_eps, splits,
+                        range_cols, jgrads)
