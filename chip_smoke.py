@@ -29,12 +29,13 @@ and no result line:
              library head (the median of 5 repeats, with their spread),
              beside the bound.
 4. conv    - the implicit-GEMM 3x3 conv against its plain version at small
-             fp32 and bf16 shapes on each route (the bf16 16-byte route and
-             the ragged one are chosen by width), then at the ResNet-50
-             stage shapes of its benchmark (b512 bf16: 28x28x128, 14x14x256,
-             7x7x512), timed beside its plain version and cuDNN's
-             channels-last conv; and the fp32 route at b512 14x14x256 beside
-             cuDNN's fp32 conv (TF32 off).
+             fp32 and bf16 shapes on each route (the 16-byte routes and the
+             ragged ones are chosen by width: bf16 wgmma or wmma, fp32
+             3xTF32 wgmma or IEEE FMA), then at the ResNet-50 stage shapes
+             of its benchmark (b512 bf16: 28x28x128, 14x14x256, 7x7x512),
+             timed beside its plain version and cuDNN's channels-last conv;
+             and the fp32 route at b512 14x14x256 beside cuDNN's fp32 conv
+             (TF32 off).
 5. train   - the port's `fit` at full width (resnet18, C=10,575, batch 512,
              112 px, bf16), 5 steps each of the ArcFace, VPL-ArcFace and
              QAFace heads. Each path's launch counters must equal the steps
@@ -49,9 +50,14 @@ and no result line:
              each bf16 kernel and none of the fp32 ones; the loss within 5%
              of the fp32 loss.
 7. conv3x3_bench - the conv's benchmark entry point
-             (`scripts/bench_conv3x3.bench`) on the card at 14x14x256, b512:
-             the kernel path and the cuDNN path.
-8. device_times - at the training shape, a device-only time (`device_ms`:
+             (`scripts/bench_conv3x3.bench`) on the card at 14x14x256, b512,
+             in bf16 and in fp32: the kernel path and the cuDNN path.
+8. conv_f32 - the fp32 routes at b512 14x14x256: two launches of the
+             3xTF32 route bitwise equal, its pre-pass and main kernel timed
+             apart by torch.profiler, the plain version's time, and the
+             ragged IEEE kernel (launched by name) against the plain version
+             and timed. After the train phases, as device_times.
+9. device_times - at the training shape, a device-only time (`device_ms`:
              the calls queued behind a spin kernel) of each bf16 kernel and
              of the eager bf16 backward, and the bf16 dx entry's three
              launches timed apart by torch.profiler.
@@ -74,9 +80,13 @@ import time
 import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound: fp32 outside
-# the tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
+# the tensor cores, dense bf16 and tf32 on the tensor cores, and HBM3
+# bandwidth. The fp32 conv's 16-byte route takes three tf32 products for
+# each fp32 one (3xTF32).
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
+PEAK_TF32_TC_FLOPS = 494.7e12
+TF32X3_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
 N_MAIN, D_MAIN, C_MAIN = 512, 512, 10575
 TRAIN_STEPS = 5
@@ -114,6 +124,8 @@ REPLACES = {
     "fused_ce_bwd_dw_mem_bf16":
         "face_recognition_models_tpu/ops/fused_head.py:305",
     "conv3x3_same": "face_recognition_models_tpu/ops/conv3x3.py:42",
+    # the same Pallas kernel with fp32 x
+    "conv3x3_same_f32": "face_recognition_models_tpu/ops/conv3x3.py:42",
 }
 PLAIN_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dx", "fused_ce_bwd_dw")
 MEM_KERNELS = ("fused_ce_fwd_mem", "fused_ce_bwd_dx_mem",
@@ -141,6 +153,19 @@ TOL_CONV = {"float32": 1e-5, "bfloat16": 2e-2}
 # the fp32 conv at b512 14x14x256: each output sums 2,304 fp32 products of
 # |y| ~ 2.4 in another order than the plain version's 9 matmuls
 TOL_CONV_DEEP = 1e-4
+# (n, h, w, c, co, dtype) of the small conv cases. The bf16 16-byte route
+# at M not a multiple of the 128-row tile, C_out of 24 and 40, C of 40 and
+# 72 and two C_out tiles; the bf16 ragged route at C = 12 and C_out = 12;
+# the fp32 3xTF32 route at the same kinds of shape (M = 135 with C = 40 and
+# C_out = 136, C_out = 4) and the fp32 ragged route at C = 6, C_out = 10.
+CONV_SMALL = ((4, 7, 7, 16, 24, "float32"), (2, 5, 9, 4, 12, "float32"),
+              (6, 4, 4, 8, 8, "float32"), (16, 7, 7, 72, 40, "float32"),
+              (2, 7, 7, 32, 16, "bfloat16"), (8, 14, 14, 40, 24, "bfloat16"),
+              (3, 5, 9, 40, 24, "bfloat16"), (8, 14, 14, 72, 40, "bfloat16"),
+              (1, 12, 12, 136, 136, "bfloat16"),
+              (4, 7, 7, 12, 16, "bfloat16"), (2, 6, 6, 16, 12, "bfloat16"),
+              (3, 5, 9, 40, 136, "float32"), (2, 7, 7, 8, 4, "float32"),
+              (2, 6, 6, 6, 10, "float32"), (4, 7, 7, 12, 10, "float32"))
 
 
 def emit(obj) -> None:
@@ -248,9 +273,10 @@ def device_ms(fn, warmup=3, iters=20, tries=3):
                          f"{spin_ms / 4.0:.1f} ms)")
 
 
-def launch_ms(fn, iters=20):
+def launch_ms(fn, iters=20, kernel=r"fused_ce_\w+"):
     """{kernel: device ms per call of `fn`} from a torch.profiler trace of
-    `iters` calls (kernels named by their fused_ce_* entry in the trace)."""
+    `iters` calls (kernels named by the match of the regex `kernel` in
+    their name in the trace)."""
     import re
 
     import torch
@@ -264,7 +290,7 @@ def launch_ms(fn, iters=20):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        found = re.search(r"fused_ce_\w+", e.key)
+        found = re.search(kernel, e.key)
         us = getattr(e, "device_time_total", None)
         if found and us:
             out[found.group(0)] = us / iters / 1e3
@@ -867,27 +893,16 @@ def phase_conv():
     each route, then the ResNet-50 stage shapes at b512 bf16, timed beside
     its plain version and cuDNN's channels-last conv (TF32 off), the
     library yardstick, and the fp32 route at b512 14x14x256 beside cuDNN's
-    fp32 conv. Returns the kernels line entry at CONV_MAIN."""
+    fp32 conv (the rest of its checks in phase_conv_f32). Returns the
+    kernels line entries at CONV_MAIN, bf16 and fp32."""
     import torch
 
     from face_recognition_models_tpu_torch.ops import conv3x3
     from face_recognition_models_tpu_torch.scripts import bench_conv3x3
 
-    # the bf16 16-byte route at M not a multiple of the 128-row tile, C_out
-    # of 24 and 40, C of 40 and 72 and two C_out tiles; the ragged route at
-    # C = 12 and C_out = 12
-    for i, (n, h, w, c, co, dtype) in enumerate((
-            (4, 7, 7, 16, 24, torch.float32), (2, 5, 9, 4, 12, torch.float32),
-            (6, 4, 4, 8, 8, torch.float32), (16, 7, 7, 72, 40, torch.float32),
-            (2, 7, 7, 32, 16, torch.bfloat16),
-            (8, 14, 14, 40, 24, torch.bfloat16),
-            (3, 5, 9, 40, 24, torch.bfloat16),
-            (8, 14, 14, 72, 40, torch.bfloat16),
-            (1, 12, 12, 136, 136, torch.bfloat16),
-            (4, 7, 7, 12, 16, torch.bfloat16),
-            (2, 6, 6, 16, 12, torch.bfloat16))):
+    for i, (n, h, w, c, co, dname) in enumerate(CONV_SMALL):
+        dtype = getattr(torch, dname)
         x, k = conv_case(n, h, w, c, co, dtype, seed=i)
-        dname = str(dtype).split(".")[1]
         tol = TOL_CONV[dname]
         y, route = conv_routes(x, k)
         err = close("conv3x3", y.float(),
@@ -932,7 +947,10 @@ def phase_conv():
         del x, k
         torch.cuda.empty_cache()
     # the fp32 route at the benchmark's shape, against cuDNN's fp32 conv
-    # (TF32 off); 2,304-deep fp32 sums in different orders: TOL_CONV_DEEP
+    # (TF32 off); 2,304-deep fp32 sums in different orders: TOL_CONV_DEEP.
+    # Its other checks and timers run after the train phases
+    # (phase_conv_f32): the train phases' peak memory depends on what the
+    # phases before them leave in the caching allocator.
     h, c = CONV_MAIN
     n = 512
     x, k = conv_case(n, h, h, c, c, torch.float32, seed=h)
@@ -945,19 +963,67 @@ def phase_conv():
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         lib_ms = cuda_ms(lambda: cudnn(x))
     flops = 2.0 * n * h * h * 9 * c * c
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = TF32X3_PRODUCTS * flops / PEAK_TF32_TC_FLOPS * 1e3
     t_bytes = 4.0 * (2 * n * h * h * c + 9 * c * c) / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
     emit({"phase": "conv", "case": f"N{n}_H{h}_C{c}_float32", "route": route,
           "max_abs_err": err,
           "tolerance": {"rtol": TOL_CONV_DEEP, "atol": TOL_CONV_DEEP},
-          "kernel_ms": ms, "library_ms": lib_ms,
-          "bound_ms": max(t_ops, t_bytes),
+          "kernel_ms": ms, "library_ms": lib_ms, "bound_ms": bound,
           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "bound_share": bound / ms,
           "kernel_tflops": flops / ms / 1e9,
           "library_tflops": flops / lib_ms / 1e9, "ok": True})
     del x, k
     torch.cuda.empty_cache()
-    return row
+    return [row, {"name": "conv3x3_same_f32", "route": "cuda",
+                  "source": CONV_SOURCE,
+                  "replaces": REPLACES["conv3x3_same_f32"], "launches": 0,
+                  "max_abs_err": err, "ms": ms, "plain_ms": None,
+                  "bound_ms": bound,
+                  "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                  "library_ms": lib_ms}]
+
+
+def phase_conv_f32():
+    """The fp32 routes at CONV_MAIN, b512, after the train phases: two
+    launches of the 3xTF32 route bitwise equal, its pre-pass and main kernel
+    timed apart (torch.profiler), the plain version's time, and the ragged
+    IEEE kernel, launched by name at the same shape, against the plain
+    version (TOL_CONV_DEEP) and timed beside its CUDA-core bound. Returns
+    the plain version's ms for the kernels line."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import conv3x3
+
+    h, c = CONV_MAIN
+    n = 512
+    x, k = conv_case(n, h, h, c, c, torch.float32, seed=h)
+    same("conv3x3 fp32", (conv3x3.conv3x3_same(x, k),
+                          conv3x3.conv3x3_same(x, k)))
+    plain = conv3x3.conv3x3_same_plain(x, k)
+    ragged = conv3x3._launch("conv3x3_same_f32_ragged", x, k)
+    err = close("conv3x3 fp32 ragged", ragged, plain, TOL_CONV_DEEP,
+                TOL_CONV_DEEP)
+    del ragged, plain
+    ragged_ms = cuda_ms(
+        lambda: conv3x3._launch("conv3x3_same_f32_ragged", x, k))
+    plain_ms = cuda_ms(lambda: conv3x3.conv3x3_same_plain(x, k))
+    parts_ms = launch_ms(lambda: conv3x3.conv3x3_same(x, k),
+                         kernel=r"conv3x3_\w+")
+    flops = 2.0 * n * h * h * 9 * c * c
+    t_simt = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = 4.0 * (2 * n * h * h * c + 9 * c * c) / PEAK_BYTES * 1e3
+    emit({"phase": "conv_f32", "case": f"N{n}_H{h}_C{c}_float32",
+          "launch_ms": parts_ms, "plain_ms": plain_ms,
+          "bound_fp32_simt_ms": t_simt, "ragged_max_abs_err": err,
+          "ragged_ms": ragged_ms,
+          "ragged_bound_share": max(t_simt, t_bytes) / ragged_ms,
+          "tolerance": {"rtol": TOL_CONV_DEEP, "atol": TOL_CONV_DEEP},
+          "ok": True})
+    del x, k
+    torch.cuda.empty_cache()
+    return plain_ms
 
 
 def train_batches(steps, bs, size, seed=0):
@@ -1211,25 +1277,33 @@ def phase_head_bf16():
 
 
 def phase_conv_bench():
-    """The conv's benchmark entry point on the card at CONV_MAIN, b512:
-    the kernel path (its launches counted) and the cuDNN path."""
+    """The conv's benchmark entry point on the card at CONV_MAIN, b512, in
+    bf16 and in fp32: the kernel path, whose launches are counted and must
+    all be of the dtype's 16-byte route, and the cuDNN path. Returns
+    {route: launches}."""
     from face_recognition_models_tpu_torch.ops import conv3x3
     from face_recognition_models_tpu_torch.scripts import bench_conv3x3
 
     shape = ",".join(map(str, CONV_MAIN))
     iters = 10
-    conv3x3.reset_launch_counts()
-    res = bench_conv3x3.bench(shape, 512, "kernel", iters, device="cuda")
-    launches = conv3x3.launch_counts["conv3x3_same"]
     want = (1 + bench_conv3x3.N_REPS) * iters
-    if launches != want:
-        raise AssertionError(f"conv3x3_bench: {launches} launches, not "
-                             f"{want}")
-    lib = bench_conv3x3.bench(shape, 512, "cudnn", iters, device="cuda")
-    for r in (res, lib):
-        if not (r["ms"] > 0 and math.isfinite(r["tflops"])):
-            raise AssertionError(f"conv3x3_bench: {r}")
-        emit({"phase": "conv3x3_bench", **r, "ok": True})
+    launches = {}
+    for dtype, key in (("bfloat16", "conv3x3_same"),
+                       ("float32", "conv3x3_same_f32")):
+        conv3x3.reset_launch_counts()
+        res = bench_conv3x3.bench(shape, 512, "kernel", iters, dtype=dtype,
+                                  device="cuda")
+        counts = dict(conv3x3.launch_counts)
+        if counts != {r: want * (r == key) for r in counts}:
+            raise AssertionError(f"conv3x3_bench {dtype}: launches {counts}, "
+                                 f"not {want} of {key}")
+        launches[key] = counts[key]
+        lib = bench_conv3x3.bench(shape, 512, "cudnn", iters, dtype=dtype,
+                                  device="cuda")
+        for r in (res, lib):
+            if not (r["ms"] > 0 and math.isfinite(r["tflops"])):
+                raise AssertionError(f"conv3x3_bench: {r}")
+            emit({"phase": "conv3x3_bench", **r, "ok": True})
     return launches
 
 
@@ -1254,17 +1328,20 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if "entry function" in ln or "registers" in ln
-                        or "spill" in ln]
+                        or "spill" in ln or "wgmma" in ln]
                     for k, v in reports.items()}})
 
     rows = phase_kernels()
-    rows.append(phase_conv())
+    rows += phase_conv()
     launches = phase_train()
     launches.update(phase_head_bf16())
-    launches["conv3x3_same"] = phase_conv_bench()
+    launches.update(phase_conv_bench())
+    f32_plain_ms = phase_conv_f32()
     device = phase_device_times()
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] == "conv3x3_same_f32":
+            r["plain_ms"] = f32_plain_ms
         if r["name"] in device:
             r["device_ms"] = device[r["name"]]
     emit({"kernels": rows})

@@ -13,7 +13,12 @@ with x taken as zero outside the image. On CUDA tensors a kernel of
   `wgmma` on the tensor cores;
 - bf16 at any other width: `conv3x3_same_bf16_ragged` (64 x 64 tiles,
   synchronous staging, wmma);
-- fp32: `conv3x3_same_f32`, IEEE fp32 on the CUDA cores.
+- fp32 with C and C_out multiples of 4: `conv3x3_same_f32`, fp32 accuracy
+  on the tensor cores as 3xTF32 (a pre-pass splits the weight into tf32
+  big and small parts in a workspace allocated here, then 128 x 128 tiles
+  of y on `wgmma`, three tf32 products for each fp32 one);
+- fp32 at any other width: `conv3x3_same_f32_ragged`, IEEE fp32 on the
+  CUDA cores.
 
 On CPU tensors `conv3x3_same_plain` runs, which is also the reference the
 card is checked against. There is no fallback from the card to the plain
@@ -30,10 +35,14 @@ import torch
 import torch.nn.functional as F
 
 # Launches per route since the last reset_launch_counts(); bumped only where
-# the wrapper launches a kernel. "conv3x3_same" is the bf16 16-byte route.
+# the wrapper launches a kernel. "conv3x3_same" is the bf16 16-byte route,
+# "conv3x3_same_f32" the fp32 one.
 _ROUTES = {"conv3x3_same": "conv3x3_same_bf16",
            "conv3x3_same_ragged": "conv3x3_same_bf16_ragged",
-           "conv3x3_same_f32": "conv3x3_same_f32"}
+           "conv3x3_same_f32": "conv3x3_same_f32",
+           "conv3x3_same_f32_ragged": "conv3x3_same_f32_ragged"}
+# the 16-byte routes: their kernels copy x (bf16: and w9) 16 bytes at a time
+_ALIGNED = ("conv3x3_same", "conv3x3_same_f32")
 launch_counts = {key: 0 for key in _ROUTES}
 _TAPS = tuple((a, b) for a in (-1, 0, 1) for b in (-1, 0, 1))
 
@@ -77,8 +86,10 @@ def _lib():
         for name in _ROUTES.values():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
+                ctypes.c_void_p] * (2 if name == "conv3x3_same_f32" else 1)
             fn.restype = ctypes.c_int
+        lib.conv3x3_f32_workspace.argtypes = [ctypes.c_int] * 2
+        lib.conv3x3_f32_workspace.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -87,7 +98,8 @@ def route(dtype, c: int, co: int) -> str:
     """The launch_counts key of the kernel that runs x of `dtype` with C
     input and C_out output channels on the card."""
     if dtype == torch.float32:
-        return "conv3x3_same_f32"
+        return "conv3x3_same_f32" if c % 4 == 0 and co % 4 == 0 else \
+            "conv3x3_same_f32_ragged"
     return "conv3x3_same" if c % 8 == 0 and co % 8 == 0 else \
         "conv3x3_same_ragged"
 
@@ -114,19 +126,30 @@ def conv3x3_same(x: torch.Tensor, kernel: torch.Tensor, *,
                          f"the card, got {x.dtype}")
     if kernel.device != x.device:
         raise ValueError(f"conv3x3_same: kernel must be on {x.device}")
+    return _launch(route(x.dtype, x.shape[3], kernel.shape[3]), x, kernel)
+
+
+def _launch(name: str, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """One launch of route `name` (a launch_counts key) on CUDA tensors that
+    conv3x3_same has checked. Its caller names the route: conv3x3_same by
+    shape, a measurement by choice."""
     n, h, w, c = x.shape
     co = kernel.shape[3]
-    name = route(x.dtype, c, co)
     x = x.contiguous()
     w9 = kernel.to(x.dtype).reshape(9, c, co).contiguous()
-    if name == "conv3x3_same":  # 16-byte copies: a view may start unaligned
+    if name in _ALIGNED:  # 16-byte copies: a view may start unaligned
         x, w9 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w9))
     y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
     if y.numel():
         with torch.cuda.device(x.device):
-            err = getattr(_lib(), _ROUTES[name])(
-                x.data_ptr(), w9.data_ptr(), y.data_ptr(), n, h, w, c, co,
-                torch.cuda.current_stream().cuda_stream)
+            lib = _lib()
+            args = [x.data_ptr(), w9.data_ptr(), y.data_ptr(), n, h, w, c, co]
+            if name == "conv3x3_same_f32":  # w_big, w_small: see the source
+                work = torch.empty(lib.conv3x3_f32_workspace(c, co),
+                                   dtype=torch.float32, device=x.device)
+                args.append(work.data_ptr())
+            err = getattr(lib, _ROUTES[name])(
+                *args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"conv3x3_same: CUDA error {err} at launch")
         launch_counts[name] += 1

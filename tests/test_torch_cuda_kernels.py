@@ -5,7 +5,8 @@ of the fp32 bwd_dw over row ranges (partials, combine, bitwise
 determinism),
 the bf16 tensor-core versions of all six (_bf16) with the split bf16
 forward's and dx's partials, combine and determinism, and the implicit-GEMM
-3x3 conv on each of its routes. Marked `cuda`: they skip where there is no CUDA device. On a
+3x3 conv on each of its routes (fp32: the 3xTF32 route and the ragged IEEE
+one, bitwise repeats of both). Marked `cuda`: they skip where there is no CUDA device. On a
 machine with a card (the JAX package need not be installed there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -558,7 +559,14 @@ def test_bf16_wrappers_reject_bad_inputs(cuda):
      (3, 5, 9, 40, 24, torch.bfloat16), (8, 14, 14, 72, 40, torch.bfloat16),
      (1, 12, 12, 136, 136, torch.bfloat16),
      # the ragged route: C or C_out not a multiple of 8
-     (4, 7, 7, 12, 16, torch.bfloat16), (2, 6, 6, 16, 12, torch.bfloat16)])
+     (4, 7, 7, 12, 16, torch.bfloat16), (2, 6, 6, 16, 12, torch.bfloat16),
+     # the fp32 3xTF32 route: M = 135 (not a multiple of the 128-row tile)
+     # with C = 40 (a 32-channel stage padded past C) and C_out = 136 (two
+     # output tiles); C_out = 4
+     (3, 5, 9, 40, 136, torch.float32), (2, 7, 7, 8, 4, torch.float32),
+     # the fp32 ragged route: C or C_out not a multiple of 4
+     (2, 6, 6, 6, 10, torch.float32), (4, 7, 7, 12, 10, torch.float32),
+     (2, 5, 5, 6, 8, torch.float32)])
 def test_conv3x3_matches_plain(cuda, n, h, w, c, co, dtype):
     g = torch.Generator(device=cuda).manual_seed(n + c)
     x = torch.randn(n, h, w, c, device=cuda, generator=g).to(dtype)
@@ -592,6 +600,38 @@ def test_conv3x3_takes_an_unaligned_view(cuda):
     torch.testing.assert_close(got.float(),
                                conv3x3.conv3x3_same_plain(x, k).float(),
                                rtol=2e-2, atol=2e-2)
+
+
+def test_conv3x3_f32_takes_an_unaligned_view(cuda):
+    """An fp32 view that starts 4 bytes into its storage still runs the
+    3xTF32 route (the wrapper copies it to an aligned start)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    n, h, w, c, co = 2, 6, 6, 16, 24
+    buf = torch.randn(1 + n * h * w * c, device=cuda, generator=g)
+    x = buf[1:].view(n, h, w, c)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    k = 0.1 * torch.randn(3, 3, c, co, device=cuda, generator=g)
+    conv3x3.reset_launch_counts()
+    got = conv3x3.conv3x3_same(x, k, block_n=n)
+    torch.cuda.synchronize()
+    assert conv3x3.launch_counts["conv3x3_same_f32"] == 1
+    torch.testing.assert_close(got, conv3x3.conv3x3_same_plain(x, k),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,co", [(72, 136), (6, 10)])
+def test_conv3x3_f32_repeats_bitwise(cuda, c, co):
+    """Two launches of each fp32 route on the same inputs are bitwise
+    equal: the sums run in a fixed order, with no atomics."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn(4, 9, 9, c, device=cuda, generator=g)
+    k = 0.1 * torch.randn(3, 3, c, co, device=cuda, generator=g)
+    conv3x3.reset_launch_counts()
+    a = conv3x3.conv3x3_same(x, k, block_n=4)
+    b = conv3x3.conv3x3_same(x, k, block_n=4)
+    torch.cuda.synchronize()
+    assert conv3x3.launch_counts[conv3x3.route(x.dtype, c, co)] == 2
+    assert torch.equal(a, b)
 
 
 def test_conv3x3_rejects_bad_inputs(cuda):
