@@ -20,14 +20,14 @@ and no result line:
              plus N=40 / D=72 / C=300 (D not a multiple of 16). The split
              fp32 and bf16 fwd and bwd_dx also at shapes of several class
              ranges (N=1, N not a multiple of 32, a ragged last range, D=72,
-             a last range holding only a target column), and the fp32 bwd_dw
-             at shapes of several row ranges (N=600 and 520, a ragged last
-             range): each range's partials and the combine kernels against
-             their plain versions, and two launches of every fp32 entry and
-             of the bf16 fwd and bwd_dx bitwise equal. Times (CUDA events,
-             after warm-up) of the kernel, its plain version and the eager
-             library head (the median of 5 repeats, with their spread),
-             beside the bound.
+             a last range holding only a target column), and the fp32 and
+             bf16 bwd_dw at shapes of several row ranges (N=600 and 520, a
+             ragged last range): each range's partials and the combine
+             kernels against their plain versions, and two launches of
+             every entry bitwise equal. Times (CUDA events, after warm-up)
+             of the kernel, its plain version and the eager library head
+             (the median of 5 repeats, with their spread), beside the
+             bound.
 4. conv    - the implicit-GEMM 3x3 conv against its plain version at small
              fp32 and bf16 shapes on each route (the 16-byte routes and the
              ragged ones are chosen by width: bf16 wgmma or wmma, fp32
@@ -59,7 +59,7 @@ and no result line:
              and timed. After the train phases, as device_times.
 9. device_times - at the training shape, a device-only time (`device_ms`:
              the calls queued behind a spin kernel) of each bf16 kernel and
-             of the eager bf16 backward, and the bf16 dx entry's three
+             of the eager bf16 backward, and the bf16 dx and dw entries'
              launches timed apart by torch.profiler.
 
 The line before the last is {"kernels": [...]} (each kernel's launches from
@@ -423,9 +423,8 @@ def check_case(x, mode, clamp_eps, bf16=False):
     """Each kernel against its plain version on inputs `x` (the _mem family
     when `x` holds memn, the bf16 products with `bf16`); returns (max abs
     err per kernel, number of rows where `higher` differs, and with `bf16`
-    {"dx": n, "dw": n} elements that needed the ulp allowance). The split
-    fp32 fwd, bwd_dx and bwd_dw and the split bf16 fwd and bwd_dx run twice
-    and must agree bitwise."""
+    {"dx": n, "dw": n} elements that needed the ulp allowance). Every
+    kernel runs twice and must agree bitwise."""
     names, fns = kernel_fns("memn" in x, bf16)
     fwd_args, _, _ = kernel_args(x, mode, clamp_eps)
     out = fns[0][0](*fwd_args)
@@ -446,8 +445,7 @@ def check_case(x, mode, clamp_eps, bf16=False):
                          close_grad("dt", dt, rdt),
                          close_grad("dscale", dscale, rdscale))
     dw = fns[2][0](*dw_args)
-    if not bf16:
-        same(names[2], (dw, fns[2][0](*dw_args)))
+    same(names[2], (dw, fns[2][0](*dw_args)))
     rdw = fns[2][1](*dw_args)
     errs[names[2]] = close_grad("dw", dw, rdw, dw_term)
     ulp = ({"dx": past_fp32_tol(dx, rdx), "dw": past_fp32_tol(dw, rdw)}
@@ -531,11 +529,13 @@ def check_split(x, mode, clamp_eps):
 
 
 def check_split_bf16(x, mode, clamp_eps):
-    """The split bf16 fwd and bwd_dx (the _mem ones when `x` holds memn) on
-    inputs `x`: each class range's partials from the front of the kernel's
-    workspace against fused_ce_*_partials_plain with bf16 products, and dx's
-    combine kernel on the plain partials against its plain version. Returns
-    ({check: max abs err}, {"fwd_bf16": ranges, "bwd_dx_bf16": ranges})."""
+    """The split bf16 fwd, bwd_dx and bwd_dw (the _mem ones when `x` holds
+    memn) on inputs `x`: each class range's (bwd_dw: row range's) partials
+    from the front of the kernel's workspace (bwd_dw of one range: dw
+    itself) against fused_ce_*_partials_plain with bf16 products, and the dx
+    and dw combine kernels on the plain partials against their plain
+    versions. Returns ({check: max abs err}, {"fwd_bf16": ranges,
+    "bwd_dx_bf16": ranges, "bwd_dw_bf16": ranges})."""
     import torch
 
     from face_recognition_models_tpu_torch.ops import fused_head as fh
@@ -569,7 +569,7 @@ def check_split_bf16(x, mode, clamp_eps):
     want_dx, want_rows = fh.fused_ce_bwd_dx_partials_plain(
         x["xn"], x["wn"], *bwd, mode, clamp_eps, splits=splits,
         range_cols=cols, mm_dtype=bf, **kw)
-    dx_term, _ = bf16_terms(x, mode, clamp_eps, lse)
+    dx_term, dw_term = bf16_terms(x, mode, clamp_eps, lse)
     errs["dx_bf16_partials"] = max(
         close_grad("bf16 dx partials", got_dx, want_dx, dx_term),
         close_grad("bf16 dt, dscale partials", got_rows, want_rows))
@@ -580,6 +580,22 @@ def check_split_bf16(x, mode, clamp_eps):
     errs["dx_bf16_combine"] = max(
         close_grad("bf16 combined " + k, a, b) for k, a, b
         in zip(("dx", "dt", "dscale"), comb, ref))
+    splits, rows = fh.dw_split_plan(n, c, mm_dtype=bf, mem=bool(mem))
+    ranges["bwd_dw_bf16"] = splits
+    ws = []
+    dw = fh._bwd_dw("fused_ce_bwd_dw" + sfx, which + 2, x["xn"], x["wn"], mem,
+                    *bwd, mode, clamp_eps, bf, ws)
+    got = (ws[0][:splits * d * c].view(splits, d, c) if splits > 1
+           else dw[None])
+    want = fh.fused_ce_bwd_dw_partials_plain(
+        x["xn"], x["wn"], *bwd, mode, clamp_eps, splits=splits,
+        range_rows=rows, mm_dtype=bf, **kw)
+    # each range's largest product term is at most the whole sum's
+    errs["dw_bf16_partials"] = close_grad("bf16 dw partials", got, want,
+                                          dw_term)
+    errs["dw_bf16_combine"] = close_grad(
+        "bf16 combined dw", fh.fused_ce_bwd_dw_combine(want),
+        fh.fused_ce_bwd_dw_combine_plain(want))
     return errs, ranges
 
 
@@ -751,7 +767,8 @@ def phase_kernels():
     # not a multiple of the 32-row tile, ragged last ranges, D = 72, and a
     # last range of one column that is row 0's target; bwd_dw over 3 row
     # ranges of 256-row tiles, the last ragged, at N = 600 and 520; the
-    # split bf16 fwd and bwd_dx (128-wide class tiles) over the same shapes
+    # split bf16 fwd and bwd_dx (128-wide class tiles) and the bf16 bwd_dw
+    # (ranges of 32-row tiles, 16 with the blend) over the same shapes
     for mem in (None, "mixed"):
         msfx = "_mem" if mem else ""
         for n, d, c, last in ((1, 64, 300, False), (40, 72, 300, False),
@@ -841,7 +858,8 @@ def phase_kernels():
 def phase_device_times():
     """device_ms of the bf16 kernels and of the eager bf16 backward at the
     training shape, on the cases that phase_kernels times, with the bf16
-    dx entry's per-launch device ms (pre-pass, split kernel, combine). It
+    dx and dw entries' per-launch device ms (pre-pass, split kernel, and
+    the combine where it runs). It
     runs after the train phases: these timers leave the caching allocator
     in another state, and the train phases' peak memory is read after the
     same allocations as before they existed. Returns {kernel: device_ms}
@@ -857,7 +875,8 @@ def phase_device_times():
               "device_ms": dev,
               "library_device_ms": {
                   "head_bwd": library_bwd_device_ms(x, eps, bf16=True)},
-              "dx_launch_ms": launch_ms(calls[1][1]), "ok": True})
+              "dx_launch_ms": launch_ms(calls[1][1]),
+              "dw_launch_ms": launch_ms(calls[2][1]), "ok": True})
         if mem != "dense":
             out.update(dev)
         del x, calls

@@ -110,11 +110,11 @@
 // kernels take: 8 warps x 64 columns of the accumulator). A width above 512
 // is refused by the wrapper.
 //   The bf16 kernels (layouts at fwd_bf16_smem, dx_bf16_smem and
-//   DwLayout): fwd 101,888 B, fwd_mem 134,656 B, bwd_dx 108,800 B,
-//   bwd_dx_mem 183,040 B, bwd_dw 141,824 B, bwd_dw_mem 192,000 B at D = 512.
-//   bwd_dx(_mem) take D up to 512 (8 warps x 64 columns of the dx
-//   accumulator, as the fp32 dx); the widest D of the others is 624
-//   (bwd_dw_mem), fwd_mem takes up to 1,264.
+//   dw_bf16_layout): fwd 101,888 B, fwd_mem 134,656 B, bwd_dx 108,800 B,
+//   bwd_dx_mem 183,040 B, bwd_dw 217,600 B, bwd_dw_mem 190,720 B at
+//   D = 512. bwd_dx(_mem) and bwd_dw(_mem) take D up to 512 (8 warps x 64
+//   columns of the dx or dw accumulator, as the fp32 dx and dw); fwd takes
+//   up to 1,520, fwd_mem up to 1,264.
 //
 // bf16 products (K5: the mm_dtype=jnp.bfloat16 option of every kernel above,
 // fused_head.py:119-126, 192-196, 237-243, 269-276, 307, 352-360, 396-407):
@@ -128,14 +128,8 @@
 //   - fwd(_mem) and bwd_dx(_mem): split-C like their fp32 counterparts, with
 //     mma.sync on operands rounded once by a pre-pass; see "bf16 split-C
 //     forward" and "bf16 split-C dx" below.
-//   - bwd_dw(_mem): a block per 32 classes sweeping all of N in chunks of 16
-//     rows, with a SIMT epilogue (margin, clamp, dcos) on a warp's two rows
-//     x a lane's column; the operands are rounded as they are staged in
-//     shared memory with synchronous loads, and the products are
-//     nvcuda::wmma 16x16x16 fragments: the 16 x 32 cosine block's depth is
-//     split over four warps per 16 columns (partial sums added in the
-//     epilogue), then bf16(xn)^T . bf16(dcos) is added into an fp32 [D][32]
-//     tile. D is padded with zeros to a multiple of 16.
+//   - bwd_dw(_mem): 32-wide class tiles x row ranges like the fp32 dw, on
+//     mma.sync, with xn rounded once by a pre-pass; see "bf16 dw" below.
 // What bounds them at N=512, D=512, C=10,575: one product is 5.5 GFLOP,
 // 5.6 us at 989 TFLOP/s dense bf16, against 21.7 MB of fp32 wn (6.5 us at
 // 3.35 TB/s): the forward is bound by bytes, the backward kernels (two or
@@ -148,7 +142,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <algorithm>
 
@@ -156,23 +149,11 @@
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;   // 8 warps
-// the bf16 bwd_dw: a chunk of 16 rows, warp w owning rows 2w and 2w + 1 of
-// its epilogue
-constexpr int kRows = 16;       // rows per chunk
 constexpr int kDwCols = 32;     // class-tile width of both bwd_dw
 constexpr float kNegInf = -1e30f;
-constexpr int kLdWb = kDwCols + 8;  // pitch of bwd_dw's bf16 [.][kDwCols] tiles
-constexpr int kLdP = kDwCols + 4;   // pitch of bwd_dw's fp32 [.][kDwCols] tiles
-constexpr int kSplitK = 4;          // bwd_dw warps sharing one cos block
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr int kModeMV = 1;
 constexpr int kModeCurricular = 2;
@@ -233,20 +214,6 @@ __host__ __device__ constexpr size_t align128(size_t b) {
   return (b + 127) & ~static_cast<size_t>(127);
 }
 
-// Rows [row0, row0 + kRows) of xn [N, D] into xb [kRows][dp + 8], rounded to
-// bf16; zero past N and D.
-__device__ __forceinline__ void load_rows_bf16(bf16* xb, const float* xn,
-                                               int row0, int n, int d,
-                                               int dp) {
-  for (int i = threadIdx.x; i < kRows * dp; i += kThreads) {
-    const int r = i / dp;
-    const int k = i - r * dp;
-    const int row = row0 + r;
-    xb[r * (dp + 8) + k] = __float2bfloat16_rn(
-        row < n && k < d ? xn[static_cast<size_t>(row) * d + k] : 0.0f);
-  }
-}
-
 // dlogit-side epilogue shared by both backward kernels. Returns dcos and
 // adds the row's target / scale gradient terms to dt, dsc.
 __device__ __forceinline__ float dcos_of(float cos_raw, int col, int c,
@@ -272,169 +239,6 @@ __device__ __forceinline__ float dcos_of(float cos_raw, int col, int c,
   }
   *dsc += dl * hv;
   return dl * r.scale * h_grad(mode, cs, r.a, r.b) * pass;
-}
-
-// Byte offsets of the bf16 bwd_dw buffers (dp = D padded to 16):
-//   wt    [dp][kLdWb]           bf16  the block's wn tile (mt: memn's, kMem)
-//   dws   [dp][kLdP]            fp32  dw accumulator
-//   xb    [kRows][dp + 8]       bf16  a chunk of rows of xn
-//   dcb   [kRows][kLdWb]        bf16  bf16(dcos (* (1 - lam)))
-//   part  [kSplitK][kRows][kLdP] fp32 partial cos blocks (partm: memn's)
-struct DwLayout {
-  size_t wt, mt, dws, xb, dcb, part, partm, total;
-};
-
-__host__ __device__ inline DwLayout dw_bf16_layout(int d, bool mem) {
-  const int dp = round16(d);
-  const size_t wtile = align128(sizeof(bf16) * dp * kLdWb);
-  const size_t ptile = align128(sizeof(float) * kSplitK * kRows * kLdP);
-  DwLayout L;
-  size_t o = 0;
-  L.wt = o;
-  o += wtile;
-  L.mt = o;
-  o += mem ? wtile : 0;
-  L.dws = o;
-  o += align128(sizeof(float) * dp * kLdP);
-  L.xb = o;
-  o += align128(sizeof(bf16) * kRows * (dp + 8));
-  L.dcb = o;
-  o += align128(sizeof(bf16) * kRows * kLdWb);
-  L.part = o;
-  o += ptile;
-  L.partm = o;
-  o += mem ? ptile : 0;
-  L.total = o;
-  return L;
-}
-
-// bwd_dw on the tensor cores: a block per 32 classes sweeping all of N. Per
-// chunk of 16 rows, warp w computes the 16 x 16 cosine block of columns
-// 16 (w % 2).. over the k-steps w / 2, w / 2 + 4, ... (four warps per block,
-// their partial sums added in the epilogue), then the warps share the
-// (dp / 16) x 2 blocks of dw += bf16(xn)^T . bf16(dcos (* (1 - lam))).
-template <bool kMem>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_ce_bwd_dw_bf16_kernel(const float* __restrict__ xn,
-                            const float* __restrict__ wn,
-                            const float* __restrict__ memn,
-                            const float* __restrict__ lam,
-                            const int* __restrict__ labels,
-                            const float* __restrict__ t,
-                            const float* __restrict__ scale,
-                            const float* __restrict__ ab,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ g_lse,
-                            float* __restrict__ dw, int n, int d, int c,
-                            int mode, int has_clamp, float clamp_eps) {
-  extern __shared__ float smem[];
-  char* base = reinterpret_cast<char*>(smem);
-  const DwLayout L = dw_bf16_layout(d, kMem);
-  bf16* wt = reinterpret_cast<bf16*>(base + L.wt);
-  bf16* mt = reinterpret_cast<bf16*>(base + L.mt);
-  float* dws = reinterpret_cast<float*>(base + L.dws);
-  bf16* xb = reinterpret_cast<bf16*>(base + L.xb);
-  bf16* dcb = reinterpret_cast<bf16*>(base + L.dcb);
-  float* part = reinterpret_cast<float*>(base + L.part);
-  float* partm = reinterpret_cast<float*>(base + L.partm);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int c0 = blockIdx.x * kDwCols;
-  const int col = c0 + lane;
-  const int r0 = 2 * warp;
-  const int dp = round16(d);
-  const int ksteps = dp / 16;
-  const int ct = warp & 1;   // column block of the cosine
-  const int ks0 = warp >> 1;  // first k-step of this warp's share
-  float lc = 0.0f;  // lam of the lane's column
-  if constexpr (kMem) lc = col < c ? lam[col] : 0.0f;
-
-  for (int i = threadIdx.x; i < dp * kDwCols; i += kThreads) {
-    const int k = i / kDwCols;
-    const int j = i - k * kDwCols;
-    const bool in = k < d && c0 + j < c;
-    const size_t at = static_cast<size_t>(k) * c + c0 + j;
-    wt[k * kLdWb + j] = __float2bfloat16_rn(in ? wn[at] : 0.0f);
-    if constexpr (kMem)
-      mt[k * kLdWb + j] = __float2bfloat16_rn(in ? memn[at] : 0.0f);
-    dws[k * kLdP + j] = 0.0f;
-  }
-
-  for (int row0 = 0; row0 < n; row0 += kRows) {
-    __syncthreads();  // tiles staged; previous readers of xb / dcb done
-    load_rows_bf16(xb, xn, row0, n, d, dp);
-    __syncthreads();
-    FragC fc, fm;
-    wmma::fill_fragment(fc, 0.0f);
-    if constexpr (kMem) wmma::fill_fragment(fm, 0.0f);
-    for (int ks = ks0; ks < ksteps; ks += kSplitK) {
-      FragA a;
-      FragB b;
-      wmma::load_matrix_sync(a, xb + ks * 16, dp + 8);
-      wmma::load_matrix_sync(b, wt + ks * 16 * kLdWb + ct * 16, kLdWb);
-      wmma::mma_sync(fc, a, b, fc);
-      if constexpr (kMem) {
-        wmma::load_matrix_sync(b, mt + ks * 16 * kLdWb + ct * 16, kLdWb);
-        wmma::mma_sync(fm, a, b, fm);
-      }
-    }
-    wmma::store_matrix_sync(part + ks0 * kRows * kLdP + ct * 16, fc, kLdP,
-                            wmma::mem_row_major);
-    if constexpr (kMem)
-      wmma::store_matrix_sync(partm + ks0 * kRows * kLdP + ct * 16, fm,
-                              kLdP, wmma::mem_row_major);
-    __syncthreads();
-    float acc0 = 0.0f, acc1 = 0.0f, m0 = 0.0f, m1 = 0.0f;
-#pragma unroll
-    for (int p = 0; p < kSplitK; ++p) {
-      const int at = p * kRows * kLdP + r0 * kLdP + lane;
-      acc0 += part[at];
-      acc1 += part[at + kLdP];
-      if constexpr (kMem) {
-        m0 += partm[at];
-        m1 += partm[at + kLdP];
-      }
-    }
-    if constexpr (kMem) {
-      acc0 = (1.0f - lc) * acc0 + lc * m0;
-      acc1 = (1.0f - lc) * acc1 + lc * m1;
-    }
-    float unused_dt = 0.0f, unused_dsc = 0.0f;
-    const Row ra = load_row(row0 + r0, n, labels, t, nullptr, scale, ab, lse,
-                            g_lse, nullptr);
-    const Row rb = load_row(row0 + r0 + 1, n, labels, t, nullptr, scale, ab,
-                            lse, g_lse, nullptr);
-    float g0 = dcos_of(acc0, col, c, ra, mode, has_clamp, clamp_eps,
-                       &unused_dt, &unused_dsc);
-    float g1 = dcos_of(acc1, col, c, rb, mode, has_clamp, clamp_eps,
-                       &unused_dt, &unused_dsc);
-    if constexpr (kMem) {
-      g0 *= 1.0f - lc;
-      g1 *= 1.0f - lc;
-    }
-    dcb[r0 * kLdWb + lane] = __float2bfloat16_rn(g0);
-    dcb[(r0 + 1) * kLdWb + lane] = __float2bfloat16_rn(g1);
-    __syncthreads();
-    for (int tile = warp; tile < 2 * ksteps; tile += kThreads / 32) {
-      const int mt_row = tile >> 1;
-      const int nt = tile & 1;
-      float* out = dws + mt_row * 16 * kLdP + nt * 16;
-      FragC f;
-      FragAt a;
-      FragB b;
-      wmma::load_matrix_sync(f, out, kLdP, wmma::mem_row_major);
-      wmma::load_matrix_sync(a, xb + mt_row * 16, dp + 8);
-      wmma::load_matrix_sync(b, dcb + nt * 16, kLdWb);
-      wmma::mma_sync(f, a, b, f);
-      wmma::store_matrix_sync(out, f, kLdP, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  if (col < c)
-    for (int k = warp; k < d; k += kThreads / 32)
-      dw[static_cast<size_t>(k) * c + col] = dws[k * kLdP + lane];
 }
 
 // ---- fp32 split-C forward and dx (see the note at the head of the file) --
@@ -920,8 +724,10 @@ struct BfWs {
   size_t xb, wb, mb, total;
 };
 
+// floats rounded up to 16 bytes
+inline size_t on16(size_t floats) { return (floats + 3) & ~size_t{3}; }
+
 inline BfWs bf16_ws(size_t part, int n, int d, int c, bool mem) {
-  auto on16 = [](size_t floats) { return (floats + 3) & ~size_t{3}; };
   const size_t w = static_cast<size_t>(d) * round8(c) / 2;
   BfWs L;
   L.xb = on16(part);
@@ -929,6 +735,13 @@ inline BfWs bf16_ws(size_t part, int n, int d, int c, bool mem) {
   L.mb = on16(L.wb + w);
   L.total = L.mb + (mem ? w : 0);
   return L;
+}
+
+// The bf16 bwd_dw's workspace: `part` floats of dw partials, then xb
+// [N][dp] on 16 bytes.
+inline size_t dw_bf16_xb(size_t part) { return on16(part); }
+inline size_t dw_bf16_xb_floats(int n, int d) {
+  return static_cast<size_t>(n) * round16(d) / 2;
 }
 
 // fp32 src [rows][cols] -> bf16 dst [rows][pitch] (round to nearest even),
@@ -2029,6 +1842,372 @@ fused_ce_bwd_dw_combine_kernel(const float* __restrict__ part,
   dw[i] = sum;
 }
 
+// ---- bf16 dw: class tiles x row ranges (fused_ce_bwd_dw(_mem)_bf16) -----
+//
+// The counterpart of _bwd_dw_kernel and of the dw half of _bwd_fused_kernel
+// with mm_dtype=bfloat16 (K5; with the blend their has_mem bodies):
+//   dw = bf16(xn)^T . bf16(dcos (* (1 - lam))), fp32 accumulation.
+// Two launches from one entry, three where it runs more than one row range:
+//   1. fused_ce_round_bf16_kernel rounds xn to bf16 once into the workspace
+//      (xb [N][dp], dp = round16(D), behind any dw partials). wn and memn
+//      are not pre-rounded: each class tile of them is read by one block
+//      only, so a pre-pass would add bytes to a kernel bound by them;
+//   2. fused_ce_bwd_dw_bf16_split_kernel on a grid of 32-wide class tiles x
+//      row ranges of whole row tiles (32 rows; 16 with the blend;
+//      range_rows: two blocks per SM where N allows, one range at the
+//      training shape) writes dw, or the range's dw partials [S][D][C];
+//   3. with S > 1, fused_ce_bwd_dw_combine_kernel sums them in range order:
+//      no atomics, so two launches give bitwise-equal dw.
+// A block rounds its [D][32] tile of wn (and memn) to bf16 as it loads it,
+// once, and warp w keeps its slice of D (columns 64 w .. 64 w + 63) of that
+// tile as mma.sync.m16n8k16 B fragments in registers for the whole kernel,
+// with the same slice of dw [64][32] as 64 fp32 accumulators. Only xb
+// streams, in row tiles through a 4-stage ring of 16-byte cp.async copies;
+// each staged tile feeds both products. Per row tile:
+//   - each warp forms the partial cosines [rows][32] over its D slice (A by
+//     ldmatrix of the staged tile) and stores them to a [8][rows][32] fp32
+//     tile; the partials are summed in warp order, and the blend, clamp,
+//     margin and dcos_of run on the sums, two classes of a row a thread per
+//     16 rows; bf16(dcos (* (1 - lam))) goes to a [rows][32] tile;
+//   - each warp adds xs^T . dcos into its dw slice: A by ldmatrix.trans of
+//     the same staged tile, B by ldmatrix.trans of the dcos tile.
+// The dw product of tile i runs after the cosines of tile i + 1, so one
+// block barrier separates the partial cosines from their sum and one the
+// dcos tile from its readers: two a tile. The loop's time goes to the
+// latency of that chain more than to the products (on the H100, dropping
+// either product moved the kernel by under 2%), so without the blend a tile
+// holds 32 rows, halving the trips; with it, 16 (the second set of
+// accumulators and partials would not fit). The dw slices leave through
+// shared memory as coalesced 128-byte rows of C. Rows past the range's end
+// are staged as zeros and given inert scalars; a warp whose slice lies past
+// D has no products and its partials are not summed.
+// Bytes at N=512, D=512, C=10,575: wn (memn) read once from device memory,
+// dw written once (43 MB); xb (0.5 MB) read from L2 by every block, 174 MB
+// in all.
+
+constexpr int kBwStages = 4;             // cp.async ring
+constexpr int kBwAhead = kBwStages - 2;  // tiles copied ahead of the one in use
+constexpr int kBwPitch = kDwCols + 8;    // pitch of the [.][32] tiles: 80 B
+static_assert(kThreads == 256 && kDwCols == 32,
+              "8 warps x 64 columns of D; 16 rows x 32 classes, two a thread");
+
+// Rows of a streamed tile of xb.
+__host__ __device__ constexpr int dw_bf16_rows(bool mem) {
+  return mem ? 16 : 32;
+}
+
+// Byte offsets in dynamic shared memory (dp = round16(D), R rows a tile):
+// the ring [kBwStages][R][dp + 8] bf16 at 0 (the pitch keeps ldmatrix's 8
+// rows on different banks), the partial cosines [kMem ? 2 : 1][8][R]
+// [kBwPitch] fp32, the dcos tile [R][kBwPitch] bf16, then the class tile
+// of wn (memn beside it) [kMem ? 2 : 1][dp][kBwPitch] bf16. At the end the
+// dw tile [D][kDwsPitch] fp32 reuses the buffer from 0.
+struct DwBfLayout {
+  size_t part, dcb, wt, total;
+};
+
+__host__ __device__ inline DwBfLayout dw_bf16_layout(int d, bool mem) {
+  const int dp = round16(d);
+  const int ops = mem ? 2 : 1;
+  const int rows = dw_bf16_rows(mem);
+  DwBfLayout L;
+  L.part = align128(sizeof(bf16) * kBwStages * rows * (dp + 8));
+  L.dcb = L.part + align128(sizeof(float) * ops * 8 * rows * kBwPitch);
+  L.wt = L.dcb + align128(sizeof(bf16) * rows * kBwPitch);
+  L.total = L.wt + ops * align128(sizeof(bf16) * dp * kBwPitch);
+  const size_t dws = sizeof(float) * d * kDwsPitch;
+  if (dws > L.total) L.total = dws;
+  return L;
+}
+
+// dw of one class tile over one row range (see above), into out [S][D][C]
+// (dw itself when S = 1). One block per SM: a thread holds 64 dw
+// accumulators and 32 B registers (64 with the blend).
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ce_bwd_dw_bf16_split_kernel(const bf16* __restrict__ xb,
+                                  const float* __restrict__ wn,
+                                  const float* __restrict__ memn,
+                                  const float* __restrict__ lam,
+                                  const int* __restrict__ labels,
+                                  const float* __restrict__ t,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ ab,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ g_lse,
+                                  float* __restrict__ out, int n, int d,
+                                  int c, int range_rows, int mode,
+                                  int has_clamp, float clamp_eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int kOps = kMem ? 2 : 1;
+  constexpr int kRowsT = dw_bf16_rows(kMem);
+  constexpr int kM = kRowsT / 16;  // m16 tiles of the cosines, k steps of dw
+  constexpr int kPart = 8 * kRowsT * kBwPitch;  // floats of an op's partials
+  const int dp = round16(d);
+  const int xp = dp + 8;
+  const DwBfLayout L = dw_bf16_layout(d, kMem);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  float* part = reinterpret_cast<float*>(smem_raw + L.part);
+  bf16* dcb = reinterpret_cast<bf16*>(smem_raw + L.dcb);
+  bf16* wt = reinterpret_cast<bf16*>(smem_raw + L.wt);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int wd = 64 * warp;  // the warp's slice of D
+  const int kst = max(0, min(4, (dp - wd) / 16));  // its 16-deep k steps
+  const int nact = ceil_div(dp, 64);               // warps with a slice
+  const int c0 = blockIdx.x * kDwCols;
+  const int r_lo = blockIdx.y * range_rows;
+  const int r_hi = min(n, r_lo + range_rows);
+  const int tiles = r_hi > r_lo ? ceil_div(r_hi - r_lo, kRowsT) : 0;
+  // the thread's row of 16 (of each 16 rows of a tile) in the copies and
+  // the epilogue, and its two classes of it in the epilogue
+  const int er = tid >> 4;
+  const int ej = 2 * (tid & 15);
+
+  // tile i of the range into slot i % kBwStages, zero past the range: 16
+  // threads a row, 16 bytes each in turn
+  const int segs = dp / 8;
+  auto prefetch = [&](int i) {
+#pragma unroll
+    for (int h = 0; h < kM; ++h) {
+      const int r = er + 16 * h;
+      bf16* st = ring + ((i % kBwStages) * kRowsT + r) * xp;
+      const int row = r_lo + i * kRowsT + r;
+      const bool in = row < r_hi;
+      const bf16* src = in ? xb + static_cast<size_t>(row) * dp : xb;
+      for (int sg = tid & 15; sg < segs; sg += 16)
+        tc::cp_async16(st + sg * 8, src + (in ? sg * 8 : 0), in);
+    }
+  };
+  for (int i = 0; i < kBwAhead; ++i) {
+    if (i < tiles) prefetch(i);
+    tc::commit();
+  }
+
+  // the class tile of wn (memn) rounded to bf16 once, zero past D and C:
+  // 16 threads a row of 32 classes, two each, 32 loads a thread in flight
+  constexpr int kBatch = 16 / kOps;  // rows a thread loads before it stores
+  for (int k0 = er; k0 < dp; k0 += 16 * kBatch) {
+    float v[kBatch][kOps][2];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int k = k0 + 16 * q;
+#pragma unroll
+      for (int op = 0; op < kOps; ++op) {
+        const float* src = (op ? memn : wn) + static_cast<size_t>(k) * c + c0;
+        v[q][op][0] = k < d && c0 + ej < c ? src[ej] : 0.0f;
+        v[q][op][1] = k < d && c0 + ej + 1 < c ? src[ej + 1] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int k = k0 + 16 * q;
+      if (k >= dp) break;
+#pragma unroll
+      for (int op = 0; op < kOps; ++op)
+        *reinterpret_cast<__nv_bfloat162*>(wt + (op * dp + k) * kBwPitch +
+                                           ej) =
+            __floats2bfloat162_rn(v[q][op][0], v[q][op][1]);
+    }
+  }
+  float lc[2] = {0.0f, 0.0f};
+  if constexpr (kMem) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      lc[e] = c0 + ej + e < c ? lam[c0 + ej + e] : 0.0f;
+  }
+  __syncthreads();
+
+  // the warp's slice of the class tile as B fragments [op][k step][n8 tile]
+  uint32_t bw[kOps][4][4][2];
+#pragma unroll
+  for (int op = 0; op < kOps; ++op)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r[4] = {0u, 0u, 0u, 0u};
+        if (ks < kst)
+          tc::ldmatrix_x4_trans(
+              r, wt + (op * dp + wd + 16 * ks + (lane & 15)) * kBwPitch +
+                     16 * jj + 8 * (lane >> 4));
+        bw[op][ks][2 * jj][0] = r[0];
+        bw[op][ks][2 * jj][1] = r[1];
+        bw[op][ks][2 * jj + 1][0] = r[2];
+        bw[op][ks][2 * jj + 1][1] = r[3];
+      }
+
+  // dw rows wd + 16 mt + g + 8 h, classes 8 nt + 2 qd + e: dwa[mt][nt][2 h + e]
+  float dwa[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dwa[mt][nt][e] = 0.0f;
+
+  // dw += xs^T . dcos over the rows of tile i (its slot, the dcos tile)
+  auto dw_step = [&](int i) {
+    const bf16* xs = ring + (i % kBwStages) * kRowsT * xp;
+    const int mat = lane >> 3;
+#pragma unroll
+    for (int kk = 0; kk < kM; ++kk) {
+      uint32_t bd[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r[4];
+        tc::ldmatrix_x4_trans(r, dcb + (16 * kk + (lane & 15)) * kBwPitch +
+                                     16 * jj + 8 * (lane >> 4));
+        bd[2 * jj][0] = r[0];
+        bd[2 * jj][1] = r[1];
+        bd[2 * jj + 1][0] = r[2];
+        bd[2 * jj + 1][1] = r[3];
+      }
+      // A [16 of D][16 rows] is xs transposed: matrix l / 8 of the ldmatrix
+      // holds rows 8 ((l / 8) / 2) .. + 7 and D columns 8 ((l / 8) % 2) ..
+      // + 7 of the m16 tile
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= kst) break;
+        uint32_t a[4];
+        tc::ldmatrix_x4_trans(
+            a, xs + (16 * kk + (lane & 7) + 8 * (mat >> 1)) * xp + wd +
+                   16 * mt + 8 * (mat & 1));
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          tc::mma_bf16(dwa[mt][nt], a, bd[nt][0], bd[nt][1]);
+      }
+    }
+  };
+
+  // the epilogue's row scalars, loaded a tile ahead
+  Row rw_next[kM];
+#pragma unroll
+  for (int h = 0; h < kM; ++h)
+    rw_next[h] = load_row(r_lo + er + 16 * h, r_hi, labels, t, nullptr, scale,
+                          ab, lse, g_lse, nullptr);
+  for (int i = 0; i < tiles; ++i) {
+    tc::wait<kBwAhead - 1>();
+    __syncthreads();  // tile i landed; the dcos tile of tile i - 1 written
+    if (i + kBwAhead < tiles) prefetch(i + kBwAhead);
+    tc::commit();
+    Row rw[kM];
+#pragma unroll
+    for (int h = 0; h < kM; ++h) {
+      rw[h] = rw_next[h];
+      rw_next[h] = load_row(r_lo + (i + 1) * kRowsT + er + 16 * h, r_hi,
+                            labels, t, nullptr, scale, ab, lse, g_lse,
+                            nullptr);
+    }
+    // partial cosines of the tile's rows over the warp's slice of D
+    const bf16* xs = ring + (i % kBwStages) * kRowsT * xp;
+    float acc[kOps][kM][4][4];
+#pragma unroll
+    for (int op = 0; op < kOps; ++op)
+#pragma unroll
+      for (int mt = 0; mt < kM; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[op][mt][nt][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (ks >= kst) break;
+#pragma unroll
+      for (int mt = 0; mt < kM; ++mt) {
+        uint32_t a[4];
+        tc::ldmatrix_x4(a, xs + (16 * mt + (lane & 15)) * xp + wd + 16 * ks +
+                               8 * (lane >> 4));
+#pragma unroll
+        for (int op = 0; op < kOps; ++op)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            tc::mma_bf16(acc[op][mt][nt], a, bw[op][ks][nt][0],
+                         bw[op][ks][nt][1]);
+      }
+    }
+    if (warp < nact) {
+#pragma unroll
+      for (int op = 0; op < kOps; ++op)
+#pragma unroll
+        for (int mt = 0; mt < kM; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            float* p = part + op * kPart +
+                       (warp * kRowsT + 16 * mt + g) * kBwPitch + 8 * nt +
+                       2 * qd;
+            *reinterpret_cast<float2*>(p) =
+                make_float2(acc[op][mt][nt][0], acc[op][mt][nt][1]);
+            *reinterpret_cast<float2*>(p + 8 * kBwPitch) =
+                make_float2(acc[op][mt][nt][2], acc[op][mt][nt][3]);
+          }
+    }
+    if (i > 0) dw_step(i - 1);
+    __syncthreads();  // the partials are in; the dcos tile's readers done
+    // per 16 rows: the cosines summed in warp order, then the blend, clamp,
+    // margin and dcos on two classes of one row
+#pragma unroll
+    for (int h = 0; h < kM; ++h) {
+      const int r = er + 16 * h;
+      float2 cs = make_float2(0.0f, 0.0f), cm = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        if (w >= nact) break;
+        const float* p = part + (w * kRowsT + r) * kBwPitch + ej;
+        const float2 v = *reinterpret_cast<const float2*>(p);
+        cs.x += v.x;
+        cs.y += v.y;
+        if constexpr (kMem) {
+          const float2 m = *reinterpret_cast<const float2*>(p + kPart);
+          cm.x += m.x;
+          cm.y += m.y;
+        }
+      }
+      float gv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float cv = e ? cs.y : cs.x;
+        if constexpr (kMem)
+          cv = (1.0f - lc[e]) * cv + lc[e] * (e ? cm.y : cm.x);
+        float unused_dt = 0.0f, unused_dsc = 0.0f;
+        gv[e] = dcos_of(cv, c0 + ej + e, c, rw[h], mode, has_clamp,
+                        clamp_eps, &unused_dt, &unused_dsc);
+        // only the weight-cosine share reaches W
+        if constexpr (kMem) gv[e] *= 1.0f - lc[e];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dcb + r * kBwPitch + ej) =
+          __floats2bfloat162_rn(gv[0], gv[1]);
+    }
+  }
+  tc::wait<0>();
+  __syncthreads();  // the last dcos tile is written
+  if (tiles > 0) dw_step(tiles - 1);
+  __syncthreads();  // every read done: dw [D][kDwsPitch] over the buffer
+  float* dws = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    if (mt >= kst) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = wd + 16 * mt + g + 8 * h;
+      if (k >= d) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        dws[k * kDwsPitch + 8 * nt + 2 * qd] = dwa[mt][nt][2 * h];
+        dws[k * kDwsPitch + 8 * nt + 2 * qd + 1] = dwa[mt][nt][2 * h + 1];
+      }
+    }
+  }
+  __syncthreads();
+  if (c0 + lane >= c) return;
+  float* o = out + static_cast<size_t>(blockIdx.y) * d * c + c0 + lane;
+  for (int k = warp; k < d; k += kThreads / 32)
+    o[static_cast<size_t>(k) * c] = dws[k * kDwsPitch + lane];
+}
+
 int sm_count() {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
@@ -2050,28 +2229,29 @@ int range_cols(int which, int n, int c) {
   return (want >= ctiles ? 1 : ctiles / want) * tile;
 }
 
-// Rows per row range of bwd_dw (which 2, 5): whole 256-row tiles, as many
-// per range as keep at least two blocks per SM (class tiles x ranges) where
-// N allows it.
-int range_rows(int n, int c) {
-  const int rtiles = ceil_div(n, kDwRows);
+// Rows per row range of the fp32 bwd_dw (which 2, 5) or the bf16 bwd_dw
+// (8, 11): whole row tiles (256 rows; the bf16 kernels' 32, 16 with the
+// blend), as many per range as keep at least two blocks per SM (class
+// tiles x ranges) where N allows it.
+int range_rows(int which, int n, int c) {
+  const int tile = which >= 6 ? dw_bf16_rows(which >= 9) : kDwRows;
+  const int rtiles = ceil_div(n, tile);
   const int want = ceil_div(2 * sm_count(), max(1, ceil_div(c, kDwCols)));
-  return (want >= rtiles ? 1 : rtiles / want) * kDwRows;
+  return (want >= rtiles ? 1 : rtiles / want) * tile;
 }
 
 int num_splits(int c, int cols) { return c > 0 ? ceil_div(c, cols) : 1; }
 
 // Workspace floats of the fp32 fwd (which 0, 3), bwd_dx (1, 4) and bwd_dw
-// (2, 5) entries and of the bf16 fwd (6, 9) and bwd_dx (7, 10): their
-// partials and, for the bf16 entries, the operands rounded to bf16 behind
-// them (bf16_ws). The fp32 bwd_dw takes none when it runs a single row
-// range, the bf16 bwd_dw (8, 11) none.
+// (2, 5) entries and of the bf16 ones (6-11): their partials and, for the
+// bf16 entries, the operands rounded to bf16 behind them (bf16_ws; bwd_dw
+// xb only, dw_bf16_xb). A bwd_dw of a single row range has no partials.
 size_t workspace_floats(int which, int n, int d, int c) {
   const int k = which % 3;
   if (k == 2) {
-    if (which >= 6) return 0;
-    const size_t s = num_splits(n, range_rows(n, c));
-    return s > 1 ? s * d * c : 0;
+    const size_t s = num_splits(n, range_rows(which, n, c));
+    const size_t part = s > 1 ? s * d * c : 0;
+    return which >= 6 ? dw_bf16_xb(part) + dw_bf16_xb_floats(n, d) : part;
   }
   const int s = num_splits(c, range_cols(which, n, c));
   const size_t part =
@@ -2161,8 +2341,20 @@ int launch_bwd_dx(const float* xn, const float* wn, const float* memn,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 entries' pre-pass: xn, wn (and memn) rounded to bf16 once into
-// the workspace at L (xb [N][dp], wb and mb [D][Cp], zero-padded).
+// fused_ce_round_bf16_kernel on the first `njobs` jobs, `groups` 8-element
+// groups in the largest.
+cudaError_t launch_round(const RoundJobs& jobs, int njobs, long long groups,
+                         cudaStream_t st) {
+  const dim3 grid(
+      static_cast<unsigned>(std::min<long long>(ceil_div(groups, kThreads),
+                                                8LL * sm_count())),
+      njobs);
+  fused_ce_round_bf16_kernel<<<grid, kThreads, 0, st>>>(jobs);
+  return cudaGetLastError();
+}
+
+// The bf16 fwd and dx entries' pre-pass: xn, wn (and memn) rounded to bf16
+// once into the workspace at L (xb [N][dp], wb and mb [D][Cp], zero-padded).
 cudaError_t round_bf16(const float* xn, const float* wn, const float* memn,
                        float* ws, const BfWs& L, int n, int d, int c,
                        bool mem, cudaStream_t st) {
@@ -2170,15 +2362,10 @@ cudaError_t round_bf16(const float* xn, const float* wn, const float* memn,
       {{xn, reinterpret_cast<bf16*>(ws + L.xb), n, d, round16(d)},
        {wn, reinterpret_cast<bf16*>(ws + L.wb), d, c, round8(c)},
        {memn, reinterpret_cast<bf16*>(ws + L.mb), d, c, round8(c)}}};
-  const long long groups =
-      std::max(static_cast<long long>(n) * round16(d),
-               static_cast<long long>(d) * round8(c)) / 8;
-  const dim3 round_grid(
-      static_cast<unsigned>(std::min<long long>(ceil_div(groups, kThreads),
-                                                8LL * sm_count())),
-      mem ? 3 : 2);
-  fused_ce_round_bf16_kernel<<<round_grid, kThreads, 0, st>>>(jobs);
-  return cudaGetLastError();
+  return launch_round(jobs, mem ? 3 : 2,
+                      std::max(static_cast<long long>(n) * round16(d),
+                               static_cast<long long>(d) * round8(c)) / 8,
+                      st);
 }
 
 // fused_ce_fwd(_mem)_bf16, the counterpart of _fwd_kernel with
@@ -2275,7 +2462,7 @@ int launch_bwd_dw(const float* xn, const float* wn, const float* memn,
   auto* kernel = fused_ce_bwd_dw_split_kernel<kMem>;
   cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = range_rows(n, c);
+  const int rows = range_rows(kMem ? 5 : 2, n, c);
   const int splits = num_splits(n, rows);
   const auto st = static_cast<cudaStream_t>(stream);
   kernel<<<dim3(ceil_div(c, kDwCols), splits), kThreads, smem, st>>>(
@@ -2290,21 +2477,42 @@ int launch_bwd_dw(const float* xn, const float* wn, const float* memn,
   return static_cast<int>(cudaGetLastError());
 }
 
+// fused_ce_bwd_dw(_mem)_bf16, the counterpart of _bwd_dw_kernel and the dw
+// half of _bwd_fused_kernel with mm_dtype=bfloat16 (K5; with the blend
+// their has_mem bodies). Bound at N=512, D=512, C=10,575 by bytes: wn read
+// and dw written once, 43 MB, 0.0132 ms at 3.35 TB/s (memn adds what lam
+// needs). The pre-pass rounds xn to bf16 behind any partials, the split
+// kernel puts ceil(C / 32) x S blocks on the card, and with S > 1 the
+// combine sums the ranges' partials in order of range.
 template <bool kMem>
 int launch_bwd_dw_bf16(const float* xn, const float* wn, const float* memn,
                        const float* lam, const int* labels, const float* t,
                        const float* scale, const float* ab, const float* lse,
-                       const float* g_lse, float* dw, int n, int d, int c,
-                       int mode, int has_clamp, float clamp_eps,
+                       const float* g_lse, float* dw, float* ws, int n, int d,
+                       int c, int mode, int has_clamp, float clamp_eps,
                        void* stream) {
-  const size_t smem = smem_bytes(8 + (kMem ? 3 : 0), d);
-  auto* kernel = fused_ce_bwd_dw_bf16_kernel<kMem>;
+  if (d > kMaxSplitD) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = dw_bf16_layout(d, kMem).total;
+  auto* kernel = fused_ce_bwd_dw_bf16_split_kernel<kMem>;
   cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (c + kDwCols - 1) / kDwCols;
-  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xn, wn, memn, lam, labels, t, scale, ab, lse, g_lse, dw, n, d, c, mode,
-      has_clamp, clamp_eps);
+  const int rows = range_rows(kMem ? 11 : 8, n, c);
+  const int splits = num_splits(n, rows);
+  const size_t elems = static_cast<size_t>(d) * c;
+  bf16* xb = reinterpret_cast<bf16*>(
+      ws + dw_bf16_xb(splits > 1 ? splits * elems : 0));
+  const auto st = static_cast<cudaStream_t>(stream);
+  const RoundJobs jobs = {{{xn, xb, n, d, round16(d)}, {}, {}}};
+  err = launch_round(jobs, 1, static_cast<long long>(n) * round16(d) / 8, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(ceil_div(c, kDwCols), splits), kThreads, smem, st>>>(
+      xb, wn, memn, lam, labels, t, scale, ab, lse, g_lse,
+      splits > 1 ? ws : dw, n, d, c, rows, mode, has_clamp, clamp_eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  fused_ce_bwd_dw_combine_kernel<<<
+      static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
+      st>>>(ws, dw, elems, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2325,16 +2533,19 @@ int fused_ce_range_cols(int which, int n, int c) {
   return range_cols(which, n, c);
 }
 
-// Rows per row range of the fp32 bwd_dw (which 2, 5) at (n, c) on the
-// current device; the number of ranges is ceil(n / rows) (1 if n = 0).
-int fused_ce_dw_range_rows(int n, int c) { return range_rows(n, c); }
+// Rows per row range of the fp32 bwd_dw (which 2, 5) or the bf16 bwd_dw
+// (8, 11) at (n, c) on the current device; the number of ranges is
+// ceil(n / rows) (1 if n = 0).
+int fused_ce_dw_range_rows(int which, int n, int c) {
+  return range_rows(which, n, c);
+}
 
 // Floats of the workspace the fp32 fwd (which 0, 3), bwd_dx (1, 4) or
 // bwd_dw (2, 5) entry takes: fwd [S][3][N] (m, l, higher per range);
 // bwd_dx [S][N][round4(D)] dx partials followed by [S][2][N] (dt, dscale
 // without the direct path); bwd_dw [S][D][C] dw partials, none if S = 1.
-// The bf16 fwd (6, 9) and bwd_dx (7, 10) take the same partials followed
-// by their operands rounded to bf16; the bf16 bwd_dw (8, 11) none.
+// The bf16 entries (6-11) take the same partials followed by their
+// operands rounded to bf16 (bwd_dw: xn only, as [N][round16(D)]).
 size_t fused_ce_workspace_floats(int which, int n, int d, int c) {
   return workspace_floats(which, n, d, c);
 }
@@ -2439,9 +2650,8 @@ int fused_ce_bwd_dw_mem(const float* xn, const float* wn, const float* memn,
                              clamp_eps, stream);
 }
 
-// bf16 tensor-core entries: the arguments of the fp32 ones; the forward
-// and dx take a workspace (fused_ce_workspace_floats, which 6, 9 and 7, 10),
-// dw none.
+// bf16 tensor-core entries: the arguments of the fp32 ones, the workspace
+// of fused_ce_workspace_floats (which 6-11) among them.
 int fused_ce_fwd_bf16(const float* xn, const float* wn, const int* labels,
                       const float* t, const float* tcos, const float* scale,
                       const float* ab, float* lse, float* tlogit,
@@ -2467,11 +2677,11 @@ int fused_ce_bwd_dx_bf16(const float* xn, const float* wn, const int* labels,
 int fused_ce_bwd_dw_bf16(const float* xn, const float* wn, const int* labels,
                          const float* t, const float* scale, const float* ab,
                          const float* lse, const float* g_lse, float* dw,
-                         int n, int d, int c, int mode, int has_clamp,
-                         float clamp_eps, void* stream) {
+                         float* ws, int n, int d, int c, int mode,
+                         int has_clamp, float clamp_eps, void* stream) {
   return launch_bwd_dw_bf16<false>(xn, wn, nullptr, nullptr, labels, t,
-                                   scale, ab, lse, g_lse, dw, n, d, c, mode,
-                                   has_clamp, clamp_eps, stream);
+                                   scale, ab, lse, g_lse, dw, ws, n, d, c,
+                                   mode, has_clamp, clamp_eps, stream);
 }
 
 int fused_ce_fwd_mem_bf16(const float* xn, const float* wn, const float* memn,
@@ -2505,11 +2715,11 @@ int fused_ce_bwd_dw_mem_bf16(const float* xn, const float* wn,
                              const int* labels, const float* t,
                              const float* scale, const float* ab,
                              const float* lse, const float* g_lse, float* dw,
-                             int n, int d, int c, int mode, int has_clamp,
-                             float clamp_eps, void* stream) {
+                             float* ws, int n, int d, int c, int mode,
+                             int has_clamp, float clamp_eps, void* stream) {
   return launch_bwd_dw_bf16<true>(xn, wn, memn, lam, labels, t, scale, ab,
-                                  lse, g_lse, dw, n, d, c, mode, has_clamp,
-                                  clamp_eps, stream);
+                                  lse, g_lse, dw, ws, n, d, c, mode,
+                                  has_clamp, clamp_eps, stream);
 }
 
 }  // extern "C"

@@ -45,10 +45,13 @@ PyTorch, for the tests and the card checks; the main path never calls them.
 every product on bf16 operands with fp32 accumulation: the `_bf16` kernels
 on the tensor cores. The bf16 forward and dx entries are split-C like the
 fp32 ones (128-wide class tiles, `split_plan(..., mm_dtype=torch.bfloat16)`
-and `split_plan(..., dx=True, mm_dtype=torch.bfloat16)`), their workspace
-holding the partials in the fp32 layout ([S, 3, N]; dx [S, N, round4(D)]
-then [S, 2, N]) and, after them, the operands rounded to bf16 once by a
-pre-pass. The operands are rounded to bf16 (round to nearest
+and `split_plan(..., dx=True, mm_dtype=torch.bfloat16)`), and the bf16 dw
+entries split rows like the fp32 dw (32-wide class tiles x ranges of
+32-row tiles, 16 with the blend, `dw_split_plan(...,
+mm_dtype=torch.bfloat16)`). Their workspace holds the partials in the fp32
+layout ([S, 3, N]; dx [S, N, round4(D)] then [S, 2, N]; dw [S, D, C] when
+S > 1) and, after them, the operands rounded to bf16 once by a pre-pass
+(for dw, xn only). The operands are rounded to bf16 (round to nearest
 even) at exactly six places, and everything else stays fp32: xn and wn
 before every cosine product, memn, dcos before the dx and dw products, and,
 with the blend, dcos * (1 - lam) and dcos * lam, each rounded on its own.
@@ -75,9 +78,8 @@ launch_counts = {name + suffix: 0 for suffix in ("", "_bf16")
                  for name in _KERNELS}
 # Per-block shared memory of an H100 (bytes); bounds the embedding width.
 _MAX_SMEM = 232_448
-# Widest embedding of the fp32 bwd_dx and bwd_dw kernels and of the bf16
-# bwd_dx: 8 warps hold 64 columns of D each of the dx (dw) accumulator in
-# registers.
+# Widest embedding of the bwd_dx and bwd_dw kernels, fp32 and bf16: 8 warps
+# hold 64 columns of D each of the dx (dw) accumulator in registers.
 _MAX_SPLIT_WIDTH = 512
 # A range with no valid column carries this max logit (the kernels' -1e30).
 _NEG_INF = -1e30
@@ -365,15 +367,18 @@ def fused_ce_bwd_dw_partials_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
                                    mode: int,
                                    clamp_eps: Optional[float] = None, *,
                                    splits: int, range_rows: int, memn=None,
-                                   lam=None) -> torch.Tensor:
+                                   lam=None, mm_dtype=torch.float32
+                                   ) -> torch.Tensor:
     """Per-range partials of dw, [S, D, C]: xn^T . dcos over the rows of
     each range (a range past N gives zeros). With memn and lam, the
-    dcos * (1 - lam) share."""
+    dcos * (1 - lam) share; with mm_dtype=torch.bfloat16, the products on
+    bf16 operands (xn, and dcos or its share)."""
     dcos, _, _ = _dcos_terms_plain(xn, wn, labels, t, scale, ab, lse, g_lse,
-                                   mode, clamp_eps, memn, lam)
+                                   mode, clamp_eps, memn, lam, mm_dtype)
     if memn is not None:
         dcos = dcos * (1.0 - lam)
-    return torch.stack([xn[lo:hi].T @ dcos[lo:hi] for lo, hi
+    xm, dm = _mm(xn, mm_dtype), _mm(dcos, mm_dtype)
+    return torch.stack([xm[lo:hi].T @ dm[lo:hi] for lo, hi
                         in split_ranges(xn.shape[0], splits, range_rows)])
 
 
@@ -400,22 +405,21 @@ def _lib():
 
     lib = _build.load("fused_head")
     if not getattr(lib, "_typed", False):
-        # each _mem entry takes memn and lam right after wn; each entry but
-        # the bf16 bwd_dw a workspace after its outputs
+        # each _mem entry takes memn and lam right after wn; each entry a
+        # workspace after its outputs
         for name, ptrs in (("fused_ce_fwd", 10), ("fused_ce_bwd_dx", 12),
                            ("fused_ce_bwd_dw", 9)):
             for mem, extra in (("", 0), ("_mem", 2)):
                 for bf16 in ("", "_bf16"):
-                    ws = int(not bf16 or name != "fused_ce_bwd_dw")
                     fn = getattr(lib, name + mem + bf16)
-                    fn.argtypes = ([_P] * (ptrs + extra + ws) + [_I] * 5
+                    fn.argtypes = ([_P] * (ptrs + extra + 1) + [_I] * 5
                                    + [_F, _P])
                     fn.restype = _I
         lib.fused_ce_smem_bytes.argtypes = [_I, _I]
         lib.fused_ce_smem_bytes.restype = ctypes.c_size_t
         lib.fused_ce_range_cols.argtypes = [_I] * 3
         lib.fused_ce_range_cols.restype = _I
-        lib.fused_ce_dw_range_rows.argtypes = [_I] * 2
+        lib.fused_ce_dw_range_rows.argtypes = [_I] * 3
         lib.fused_ce_dw_range_rows.restype = _I
         lib.fused_ce_workspace_floats.argtypes = [_I] * 4
         lib.fused_ce_workspace_floats.restype = ctypes.c_size_t
@@ -487,9 +491,9 @@ def _ptr(x):
 
 
 def _check_width(name, which, d):
-    """The fp32 bwd_dx and bwd_dw kernels and the bf16 bwd_dx take D up to
+    """The bwd_dx and bwd_dw kernels, fp32 and bf16, take D up to
     _MAX_SPLIT_WIDTH."""
-    if (which % 3 == 1 or which in (2, 5)) and d > _MAX_SPLIT_WIDTH:
+    if which % 3 != 0 and d > _MAX_SPLIT_WIDTH:
         raise ValueError(f"{name}: embedding width {d} above the kernel's "
                          f"{_MAX_SPLIT_WIDTH}")
 
@@ -510,23 +514,23 @@ def split_plan(n: int, c: int, dx: bool = False, device=None,
     return max(1, -(-c // cols)), cols
 
 
-def dw_split_plan(n: int, c: int, device=None) -> Tuple[int, int]:
-    """(ranges S, rows per range) of the fp32 bwd_dw kernels at (n, c) on
-    the card `device`: at least two blocks per SM where N allows."""
+def dw_split_plan(n: int, c: int, device=None, mm_dtype=torch.float32,
+                  mem: bool = False) -> Tuple[int, int]:
+    """(ranges S, rows per range) of the bwd_dw kernels (with `mem` the
+    _mem ones), fp32 or with mm_dtype=torch.bfloat16 bf16, at (n, c) on the
+    card `device`: at least two blocks per SM where N allows."""
+    which = _kernel("", 5 if mem else 2, mm_dtype)[1]
     with torch.cuda.device(device):
-        rows = _lib().fused_ce_dw_range_rows(n, c)
+        rows = _lib().fused_ce_dw_range_rows(which, n, c)
     return max(1, -(-n // rows)), rows
 
 
 def _workspace(which, n, d, c, device):
-    """() for a bf16 bwd_dw entry; else the workspace its entry fills
-    (fused_ce_workspace_floats: partials, empty for an fp32 bwd_dw of one
-    range; for the bf16 fwd and bwd_dx their partials, then their bf16
-    operands)."""
-    if which in (8, 11):
-        return ()
+    """The workspace an entry fills (fused_ce_workspace_floats: partials,
+    none for a bwd_dw of one range; for the bf16 entries their bf16
+    operands after the partials)."""
     floats = _lib().fused_ce_workspace_floats(which, n, d, c)
-    return (torch.empty(floats, dtype=torch.float32, device=device),)
+    return torch.empty(floats, dtype=torch.float32, device=device)
 
 
 def _fwd(name, which, xn, wn, mem, labels, t, tcos, scale, ab, mode,
@@ -543,10 +547,10 @@ def _fwd(name, which, xn, wn, mem, labels, t, tcos, scale, ab, mode,
             _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
                     _ptr(labels), _ptr(t), _ptr(tcos), _ptr(scale), _ptr(ab),
                     _ptr(out[0]), _ptr(out[1]), _ptr(out[2]),
-                    *map(_ptr, ws), n, d, wn.shape[1], mode,
+                    _ptr(ws), n, d, wn.shape[1], mode,
                     *_eps_args(clamp_eps))
             if parts is not None:
-                parts.extend(ws)
+                parts.append(ws)
     return FusedHeadOut(out[0], out[1], out[2])
 
 
@@ -566,10 +570,10 @@ def _bwd_dx(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, g_t,
             _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
                     _ptr(labels), _ptr(t), _ptr(scale), _ptr(ab), _ptr(lse),
                     _ptr(g_lse), _ptr(g_t), _ptr(dx), _ptr(rows[0]),
-                    _ptr(rows[1]), *map(_ptr, ws), n, d, wn.shape[1], mode,
+                    _ptr(rows[1]), _ptr(ws), n, d, wn.shape[1], mode,
                     *_eps_args(clamp_eps))
             if parts is not None:
-                parts.extend(ws)
+                parts.append(ws)
     return dx, rows[0], rows[1]
 
 
@@ -627,9 +631,9 @@ def fused_ce_bwd_dx_combine(dx_parts, row_parts, t, scale, g_t):
 
 def _bwd_dw(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, mode,
             clamp_eps, mm_dtype, parts=None):
-    """The dw entry; `parts`, a list, receives the workspace of per-range
-    partials of an fp32 launch ([S, D, C] flattened; empty when S = 1, where
-    the kernel writes dw itself)."""
+    """The dw entry; `parts`, a list, receives its workspace, which starts
+    with the per-range partials ([S, D, C] flattened; none when S = 1, where
+    the kernel writes dw itself; a bf16 launch's bf16 xn follows them)."""
     name, which = _kernel(name, which, mm_dtype)
     _check(name, xn, wn, labels, (t, scale, lse, g_lse), ab, mem)
     n, d = xn.shape
@@ -640,10 +644,10 @@ def _bwd_dw(name, which, xn, wn, mem, labels, t, scale, ab, lse, g_lse, mode,
             ws = _workspace(which, n, d, wn.shape[1], xn.device)
             _launch(name, which, d, _ptr(xn), _ptr(wn), *map(_ptr, mem),
                     _ptr(labels), _ptr(t), _ptr(scale), _ptr(ab), _ptr(lse),
-                    _ptr(g_lse), _ptr(dw), *map(_ptr, ws), n, d, wn.shape[1],
+                    _ptr(g_lse), _ptr(dw), _ptr(ws), n, d, wn.shape[1],
                     mode, *_eps_args(clamp_eps))
             if parts is not None:
-                parts.extend(ws)
+                parts.append(ws)
     return dw
 
 

@@ -4,7 +4,8 @@ the split decomposition of the fp32 fwd and bwd_dx over class ranges and
 of the fp32 bwd_dw over row ranges (partials, combine, bitwise
 determinism),
 the bf16 tensor-core versions of all six (_bf16) with the split bf16
-forward's and dx's partials, combine and determinism, and the implicit-GEMM
+forward's and dx's partials, combine and determinism and the bf16 dw's over
+row ranges, and the implicit-GEMM
 3x3 conv on each of its routes (fp32: the 3xTF32 route and the ragged IEEE
 one, bitwise repeats of both). Marked `cuda`: they skip where there is no CUDA device. On a
 machine with a card (the JAX package need not be installed there):
@@ -536,6 +537,82 @@ def test_bf16_split_dx_rejects_wide_embeddings(cuda, mem):
     with pytest.raises(ValueError, match="embedding width 528"):
         fn(wide, w, *extra, labels, t, scale, ab, t, t, t, 0,
            mm_dtype=torch.bfloat16)
+
+
+# The bf16 bwd_dw splits N into ranges of whole row tiles (32 rows, 16 with
+# the blend) where the class tiles leave the card short of two blocks per
+# SM: N = 600, 300 and 520 of DW_SHAPES run more than one range
+# (dw_split_plan with mm_dtype=torch.bfloat16), and D = 72 and 200 leave
+# warps with part of a 64-column slice of D or none.
+@pytest.mark.parametrize("n,d,c", DW_SHAPES)
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_bf16_split_dw_partials_combine_determinism(cuda, n, d, c, mode,
+                                                    clamp_eps, mem):
+    """The bf16 bwd_dw entries: each row range's partials from the
+    workspace against fused_ce_bwd_dw_partials_plain with bf16 products,
+    the combine kernel against its plain version, dw against the unsplit
+    plain version, one launch counted per call, two launches bitwise
+    equal, and with the blend exact zeros in the lam = 1 columns."""
+    xn, wn, labels, t, tcos, scale, ab = _inputs(n, d, c, mode, n + d + mode,
+                                                 cuda)
+    extra = _mem_inputs(d, c, n + 7 * mode, cuda) if mem else ()
+    kw = dict(memn=extra[0], lam=extra[1]) if mem else {}
+    sfx, which = ("_mem", 5) if mem else ("", 2)
+    bf = torch.bfloat16
+    ref = getattr(fh, f"fused_margin_ce{sfx}_plain")(
+        xn, wn, *extra, labels, t, tcos, scale, ab, mode, clamp_eps,
+        mm_dtype=bf)
+    g_lse = torch.full_like(t, 1.0 / n)
+    bwd = (labels, t, scale, ab, ref.lse, g_lse)
+    want = getattr(fh, f"fused_ce_bwd_dw{sfx}_plain")(
+        xn, wn, *extra, *bwd, mode, clamp_eps, mm_dtype=bf)
+    dcos, _, _ = fh._dcos_plain(xn, wn, labels, t, scale, ab, ref.lse, g_lse,
+                                mode, clamp_eps, *(extra or (None, None)), bf)
+    term = xn.abs().amax(0)[:, None] * dcos.abs().amax(0)[None, :]
+    splits, rows = fh.dw_split_plan(n, c, mm_dtype=bf, mem=mem)
+    assert rows % 16 == 0 and splits == -(-n // rows)
+    if n >= 300:
+        assert splits > 1
+    fh.reset_launch_counts()
+    outs, parts = [], []
+    for _ in range(2):
+        outs.append(fh._bwd_dw("fused_ce_bwd_dw" + sfx, which, xn, wn, extra,
+                               *bwd, mode, clamp_eps, bf, parts))
+    torch.cuda.synchronize()
+    name = "fused_ce_bwd_dw" + sfx + "_bf16"
+    assert fh.launch_counts == {k: 2 * int(k == name)
+                                for k in fh.launch_counts}
+    _bf16_grad_close(outs[0], want, term)
+    assert bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1])
+    want_parts = fh.fused_ce_bwd_dw_partials_plain(
+        xn, wn, *bwd, mode, clamp_eps, splits=splits, range_rows=rows,
+        mm_dtype=bf, **kw)
+    if splits > 1:
+        got = parts[0][:splits * d * c].view(splits, d, c)
+        _bf16_grad_close(got, want_parts, term)
+        assert torch.equal(got, parts[1][:splits * d * c].view(splits, d, c))
+    _grad_close(fh.fused_ce_bwd_dw_combine(want_parts),
+                fh.fused_ce_bwd_dw_combine_plain(want_parts))
+    if mem:
+        assert float(outs[0][:, extra[1] == 1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+def test_bf16_dw_rejects_wide_embeddings(cuda, mem):
+    """8 warps x 64 columns of D hold the bf16 dw accumulator: D <= 512."""
+    xn, wn, labels, t, tcos, scale, ab = _inputs(8, 64, 50, 0, 1, cuda)
+    d = 528
+    wide = torch.zeros(8, d, device=cuda)
+    w = torch.zeros(d, 50, device=cuda)
+    extra = (w, torch.zeros(50, device=cuda)) if mem else ()
+    fn = fh.fused_ce_bwd_dw_mem if mem else fh.fused_ce_bwd_dw
+    fh.reset_launch_counts()
+    with pytest.raises(ValueError, match="embedding width 528"):
+        fn(wide, w, *extra, labels, t, scale, ab, t, t, 0,
+           mm_dtype=torch.bfloat16)
+    assert all(v == 0 for v in fh.launch_counts.values())
 
 
 def test_bf16_wrappers_reject_bad_inputs(cuda):

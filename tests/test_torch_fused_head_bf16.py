@@ -20,7 +20,10 @@ The split-C decomposition of the bf16 forward and dx (the kernels' per-range
 partials and their combine, in plain PyTorch) is held against the same JAX
 functions over several range plans, a last range past C among them; dx also
 against the JAX package's two-kernel backward (_bwd_dx_kernel), reached with
-its dx scratch budget set to 0. The tolerances are the ones above.
+its dx scratch budget set to 0. The bf16 dw's split over row ranges is held
+the same way, over row plans with a ragged range and a range past N,
+against the single sweep and the two-kernel backward (_bwd_dw_kernel). The
+tolerances are the ones above.
 """
 
 import functools
@@ -325,3 +328,67 @@ def test_bf16_split_dx_matches_jax_two_kernel_backward(monkeypatch, mode,
     for splits, range_cols in SPLIT_PLANS:
         _check_dx_split(x, np.asarray(out.lse), mode, clamp_eps, splits,
                         range_cols, jgrads)
+
+
+# (ranges S, rows per range) over N = 24: one range, ranges that cut N
+# evenly, a ragged last range, and a last range past N (empty)
+ROW_PLANS = [(1, 24), (3, 8), (4, 6), (5, 5), (7, 4)]
+
+
+def _check_dw_split(x, lse, mode, clamp_eps, splits, range_rows, jdw):
+    """The arithmetic of the bf16 dw over row ranges: per-range partials
+    with bf16 products (fused_ce_bwd_dw_partials_plain, on the JAX
+    forward's lse), summed by fused_ce_bwd_dw_combine_plain, against the
+    JAX package's bf16 dw; a range past N carries exact zeros, and with
+    the blend the lam = 1 columns of every partial and of dw are 0."""
+    t = {k: torch.tensor(v) for k, v in x.items()}
+    kw = dict(memn=t["memn"], lam=t["lam"]) if "memn" in x else {}
+    parts = tfh.fused_ce_bwd_dw_partials_plain(
+        t["xn"], t["wn"], t["labels"], t["t"], t["scale"], t["ab"],
+        torch.tensor(lse), t["g_lse"], mode, clamp_eps, splits=splits,
+        range_rows=range_rows, mm_dtype=torch.bfloat16, **kw)
+    assert parts.shape == (splits, D, C)
+    for (lo, hi), p in zip(tfh.split_ranges(N, splits, range_rows), parts):
+        if hi == lo:
+            assert float(p.abs().max()) == 0.0
+    dw = tfh.fused_ce_bwd_dw_combine_plain(parts)
+    if kw:
+        assert float(parts[:, :, t["lam"] == 1].abs().max()) == 0.0
+        assert float(dw[:, t["lam"] == 1].abs().max()) == 0.0
+    np.testing.assert_allclose(dw.numpy(), jdw, err_msg="dw", **GRAD_TOL)
+
+
+@pytest.mark.parametrize("splits,range_rows", ROW_PLANS)
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+def test_bf16_split_dw_matches_jax(mode, clamp_eps, mem, splits, range_rows):
+    """The bf16 dw over row ranges against the JAX package's bf16
+    single-sweep backward (_bwd_fused_kernel, interpret mode), at the
+    gradient tolerance above."""
+    x, lse, jgrads = _jax_backward(mode, clamp_eps, mem)
+    _check_dw_split(x, lse, mode, clamp_eps, splits, range_rows, jgrads[1])
+
+
+@pytest.mark.parametrize("mem", [False, True], ids=["plain", "mem"])
+@pytest.mark.parametrize("mode,clamp_eps", MODES)
+def test_bf16_split_dw_matches_jax_two_kernel_backward(monkeypatch, mode,
+                                                       clamp_eps, mem):
+    """The JAX package takes its two-kernel backward (_bwd_dw_kernel: K3b)
+    when the dx scratch would pass its VMEM budget; a budget of 0 sends
+    N = 24 there. The bf16 dw over every plan of ROW_PLANS against that
+    dw."""
+    calls = []
+
+    def counted(*refs, **kw):
+        calls.append(1)
+        return bwd_dw_kernel(*refs, **kw)
+
+    bwd_dw_kernel = jfh._bwd_dw_kernel
+    monkeypatch.setattr(jfh, "_DX_SCRATCH_BUDGET", 0)
+    monkeypatch.setattr(jfh, "_bwd_dw_kernel", counted)
+    x = _inputs(mode, seed=50 + mode + 10 * mem, mem=mem)
+    out, jgrads = _jax(x, mode, clamp_eps, jnp.bfloat16)
+    assert calls, "the two-kernel backward did not run"
+    for splits, range_rows in ROW_PLANS:
+        _check_dw_split(x, np.asarray(out.lse), mode, clamp_eps, splits,
+                        range_rows, jgrads[1])
