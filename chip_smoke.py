@@ -61,6 +61,29 @@ and no result line:
              the calls queued behind a spin kernel) of each bf16 kernel and
              of the eager bf16 backward, and the bf16 dx and dw entries'
              launches timed apart by torch.profiler.
+10. checkpoint - `fit` at full width (resnet18, C=10,575, b512, 112 px,
+             ArcFace, fused head) on 256 synthetic identities x 4 images,
+             with a CheckpointManager in a temporary directory: run A
+             takes 2 epochs x 2 steps; run B 1 epoch, then a new `fit`
+             with continue_train='latest' for epoch 2, both in PyTorch's
+             deterministic mode. Run B's losses, kernel_w, backbone
+             tensors and momentum buffers must equal run A's bit for bit. A state restored into a fresh one
+             equals the saved one bit for bit, channels-last weights
+             included; keep-3 rotation and min_loss resume (the epoch files
+             go). File sizes, save and restore seconds.
+11. eval   - run A's <model>_final through `restore_backbone`, on a
+             synthetic LFW-size benchmark (6,000 pairs, half genuine, over
+             12,000 `synthetic_identities` images, a .bin of uint8 arrays):
+             its embeddings equal the live state's bit for bit; the `eval`
+             CLI at batch 256 with the host and the device protocol and
+             --tpr-far 1e-2,1e-3: equal fold thresholds and accuracies, AUC
+             within 1e-12, mean AUC >= 0.9; the embedding img/s.
+12. bench_embed - the headline workload (`scripts/bench_embed.bench`:
+             ResNet-50, b512, 112 px, bf16 BatchNorm, 20 batches in a CUDA
+             graph) and the same with fp32 BatchNorm, one eager step's
+             device time by category (torch.profiler), and the bf16-BN
+             embeddings against the fp32-BN ones of the same weights and
+             batch: the least row cosine >= 0.99.
 
 The line before the last is {"kernels": [...]} (each kernel's launches from
 the phase that runs its entry point: train, head_bf16, conv3x3_bench), the
@@ -74,7 +97,10 @@ import copy
 import functools
 import json
 import math
+import os
+import pickle
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1326,6 +1352,286 @@ def phase_conv_bench():
     return launches
 
 
+def state_tensors(state):
+    """{name: tensor} of everything a resumed run must carry over bit for
+    bit: backbone parameters and buffers, kernel_w, momentum buffers."""
+    out = {f"backbone.{k}": v for k, v in state.backbone.state_dict().items()}
+    out["kernel_w"] = state.kernel_w.detach()
+    for i, slot in state.optimizer.state_dict()["state"].items():
+        out[f"momentum.{i}"] = slot["momentum_buffer"]
+    return out
+
+
+def same_tensors(name, got, want, layout=False):
+    """Raise unless `got` and `want` hold equal tensors bit for bit; with
+    `layout`, the backbone's tensors must have the same strides too (the
+    card's channels-last weights). Momentum buffers may come back in
+    another layout; their values must still be equal."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{name}: tensors {sorted(got)} vs "
+                             f"{sorted(want)}")
+    import torch
+
+    for key in want:
+        a, b = got[key], want[key]
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{name}: {key} differs")
+        if (layout and key.startswith("backbone.")
+                and got[key].stride() != want[key].stride()):
+            raise AssertionError(f"{name}: {key} strides {got[key].stride()}"
+                                 f" vs {want[key].stride()}")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic mode inside the block. The train step's
+    target-cosine gather (`index_select` over the class axis) sums its
+    backward with float atomics where labels repeat in a batch, so two runs
+    of the same steps need not agree bit for bit without it."""
+    import torch
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        torch.backends.cudnn.deterministic = before[1]
+
+
+def phase_checkpoint(root):
+    """Checkpoints and resume at full width under `root` (run A's files
+    stay there for phase_eval). Returns run A's fit result."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.train.loop import fit
+    from face_recognition_models_tpu_torch.train.state import (
+        create_train_state)
+
+    from face_recognition_models_tpu_torch.data.synthetic import (
+        synthetic_identities)
+
+    bs, size, steps = 512, 112, 2
+    # identity-structured data (256 identities x 4 images): the eval phase
+    # verifies this model on other identities; 4 steps at lr 0.1 on uniform
+    # noise with random labels collapse the embeddings instead
+    images, labels = synthetic_identities(steps * bs // 4, 4,
+                                          image_size=size, seed=1)
+    loader = ArrayLoader(images, labels, batch_size=bs, seed=0)
+
+    def config(epochs, resume=None):
+        return cfg_lib.TrainConfig(head="arcface", num_classes=C_MAIN,
+                                   batch_size=bs, epochs=epochs,
+                                   print_freq=100, seed=0,
+                                   continue_train=resume)
+
+    def run(directory, epochs, resume=None):
+        mgr = CheckpointManager(directory, "arcface")
+        res = fit(config(epochs, resume), loader, device="cuda",
+                  checkpoint_manager=mgr)
+        torch.cuda.synchronize()
+        return res, mgr
+
+    dir_a = os.path.join(root, "a", "arcface")
+    dir_b = os.path.join(root, "b", "arcface")
+    # two runs compared bit for bit: deterministic mode (see deterministic)
+    with deterministic():
+        a, mgr_a = run(dir_a, 2)
+        b1, mgr_b = run(dir_b, 1)
+        b2, _ = run(dir_b, 1, "latest")
+    mgr_a.save_final(a.state.backbone.state_dict())
+    if b1.losses + b2.losses != a.losses:
+        raise AssertionError(f"checkpoint: resumed losses {b1.losses} + "
+                             f"{b2.losses} vs {a.losses}")
+    same_tensors("resumed run", state_tensors(b2.state),
+                 state_tensors(a.state))
+
+    # one save and one restore timed; the restored state bit for bit
+    head_cfg = cfg_lib.make_head_config("arcface", num_classes=C_MAIN)
+    epoch_loss = float(np.mean(a.losses[steps:]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr_a.save(a.state, 2, epoch_loss)
+    save_s = time.perf_counter() - t0
+    _, _, fresh = create_train_state(config(1), head_cfg,
+                                     torch.device("cuda"))
+    t0 = time.perf_counter()
+    restored, start, loss = mgr_a.restore(fresh, "latest")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if (start, loss) != (3, epoch_loss) or restored.step != a.state.step:
+        raise AssertionError(f"checkpoint: restore gave epoch {start}, "
+                             f"loss {loss}, step {restored.step}")
+    same_tensors("restored state", state_tensors(restored),
+                 state_tensors(a.state), layout=True)
+    sizes = {name: os.path.getsize(os.path.join(dir_a, name))
+             for name in sorted(os.listdir(dir_a))}
+
+    # keep-3 rotation, then min_loss resume deletes the epoch files
+    for epoch in (3, 4, 5):
+        mgr_b.save(b2.state, epoch, 1e9)
+    kept = sorted(n for n in os.listdir(dir_b) if n.startswith("epoch_"))
+    if kept != ["epoch_3", "epoch_4", "epoch_5"]:
+        raise AssertionError(f"checkpoint: rotation kept {kept}")
+    best = min(np.mean(a.losses[:steps]), np.mean(a.losses[steps:]))
+    _, start, loss = mgr_b.restore(fresh, "min_loss")
+    left = sorted(os.listdir(dir_b))
+    if loss != best or any(n.startswith("epoch_") for n in left):
+        raise AssertionError(f"checkpoint: min_loss resume gave loss {loss} "
+                             f"(best {best}), left {left}")
+    emit({"phase": "checkpoint", "backbone": "resnet18", "head": "arcface",
+          "num_classes": C_MAIN, "batch": bs, "steps_per_epoch": steps,
+          "losses": a.losses, "bytes": sizes, "save_seconds": save_s,
+          "restore_seconds": restore_s, "min_loss_start_epoch": start,
+          "ok": True})
+    return a
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """Record the return value of every call of module.name."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append(out)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def synthetic_benchmark(path, identities=3000, size=112):
+    """A .bin of uint8 arrays in the insightface layout: for each identity
+    one genuine pair (its images 0 and 1) and one impostor pair (its image
+    2 and the next identity's image 3): 2 x identities pairs."""
+    from face_recognition_models_tpu_torch.data.synthetic import (
+        synthetic_identities)
+
+    images, _ = synthetic_identities(identities, 4, image_size=size, seed=2)
+    bins, issame = [], []
+    for i in range(identities):
+        j = (i + 1) % identities
+        bins += [images[4 * i], images[4 * i + 1],
+                 images[4 * i + 2], images[4 * j + 3]]
+        issame += [True, False]
+    with open(path, "wb") as f:
+        pickle.dump((bins, issame), f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def phase_eval(root, run_a):
+    """Run A's final artifact through restore_backbone and the `eval` CLI
+    on a synthetic LFW-size benchmark (see the module docstring)."""
+    import torch
+
+    from face_recognition_models_tpu_torch.checkpoint import restore_backbone
+    from face_recognition_models_tpu_torch.cli.main import main as cli_main
+    from face_recognition_models_tpu_torch.data.pairs import load_bin
+    from face_recognition_models_tpu_torch.evaluation import batch_eval
+    from face_recognition_models_tpu_torch.evaluation.verification import (
+        embed_unique_images)
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.models.backbones import to_device
+
+    bench_dir = os.path.join(root, "benchmarks")
+    os.makedirs(bench_dir)
+    synthetic_benchmark(os.path.join(bench_dir, "synth_lfw.bin"))
+    stack, pairs = load_bin(os.path.join(bench_dir, "synth_lfw.bin"))
+    model = get_backbone("resnet18")
+    model.load_state_dict(restore_backbone(os.path.join(root, "a", "arcface"),
+                                           "final"))
+    model = to_device(model, torch.device("cuda"))
+    live = embed_unique_images(
+        batch_eval.make_embed_fn(run_a.state.backbone, device="cuda"),
+        stack, 256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = embed_unique_images(batch_eval.make_embed_fn(model, device="cuda"),
+                              stack, 256)
+    embed_s = time.perf_counter() - t0
+    if not np.array_equal(emb, live):
+        raise AssertionError("eval: restored embeddings differ from the live "
+                             f"state's by {np.abs(emb - live).max()}")
+    results, rates = {}, {}
+    for protocol, flag in (("host", []), ("device", ["--device-protocol"])):
+        out_dir = os.path.join(root, "eval_" + protocol)
+        with recorded(batch_eval, "evaluate_model_on_benchmark") as calls:
+            rc = cli_main(["eval", "--checkpoint-dir",
+                           os.path.join(root, "a"), "--eval-data-path",
+                           bench_dir, "--benchmarks", "synth_lfw",
+                           "--batch-size", "256", "--tpr-far", "1e-2,1e-3",
+                           "--output-dir", out_dir] + flag)
+        tables = [os.path.join(out_dir, f) for f in
+                  ("accuracy_10fold.csv", "auc_10fold.csv")]
+        if rc != 0 or len(calls) != 1 or not all(map(os.path.isfile,
+                                                     tables)):
+            raise AssertionError(f"eval {protocol}: rc {rc}, {len(calls)} "
+                                 f"benchmark runs, tables {tables}")
+        results[protocol], rates[protocol] = calls[0]
+    host, dev = results["host"], results["device"]
+    auc_err = float(np.max(np.abs(np.subtract(host.fold_aucs,
+                                              dev.fold_aucs))))
+    if (host.fold_thresholds != dev.fold_thresholds
+            or host.fold_accuracies != dev.fold_accuracies
+            or auc_err > 1e-12 or rates["host"] != rates["device"]):
+        raise AssertionError(f"eval: host {host} vs device {dev} "
+                             f"(auc err {auc_err})")
+    if not host.mean_auc >= 0.9:
+        raise AssertionError(f"eval: mean AUC {host.mean_auc} below 0.9")
+    emit({"phase": "eval", "backbone": "resnet18", "pairs": len(pairs),
+          "images": len(stack), "batch": 256,
+          "mean_accuracy": host.mean_accuracy, "std_accuracy":
+          host.std_accuracy, "mean_auc": host.mean_auc,
+          "fold_thresholds": host.fold_thresholds,
+          "auc_host_vs_device_max_abs_err": auc_err,
+          "tpr_at_far": {f"{k:g}": v for k, v in rates["host"].items()},
+          "embed_img_per_s": len(stack) / embed_s, "ok": True})
+
+
+def phase_bench_embed():
+    """The headline workload at full size, its device split, and bf16 vs
+    fp32 BatchNorm on the same weights and batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from face_recognition_models_tpu_torch.scripts import bench_embed
+    from face_recognition_models_tpu_torch.train.step import make_eval_step
+
+    res = bench_embed.bench(device="cuda")
+    res32 = bench_embed.bench(bn_dtype="float32", device="cuda")
+    for r in (res, res32):
+        if not (r["value"] > 0 and math.isfinite(r["value"])):
+            raise AssertionError(f"bench_embed: {r}")
+    cuda = torch.device("cuda")
+    images = bench_embed.make_batches(1, 512, 112, 0, cuda)[0]
+    split, emb = {}, {}
+    for bn in ("bfloat16", "float32"):
+        step = make_eval_step(bench_embed.build_model("resnet50", bn, 0, cuda),
+                              device=cuda)
+        split[bn] = bench_embed.device_split(step, images)
+        emb[bn] = step(images)
+    cos = F.cosine_similarity(emb["bfloat16"], emb["float32"], dim=1)
+    min_cos = float(cos.min())
+    if not min_cos >= 0.99:
+        raise AssertionError(f"bench_embed: bf16-BN vs fp32-BN least cosine "
+                             f"{min_cos}")
+    emit({"phase": "bench_embed", **res,
+          "fp32_bn": {k: res32[k] for k in ("value", "ms_per_batch")},
+          "device_ms_by_category": split,
+          "min_cosine_bf16_vs_fp32_bn": min_cos,
+          "mean_cosine_bf16_vs_fp32_bn": float(cos.mean()), "ok": True})
+
+
 def main() -> int:
     import torch
 
@@ -1357,6 +1663,12 @@ def main() -> int:
     launches.update(phase_conv_bench())
     f32_plain_ms = phase_conv_f32()
     device = phase_device_times()
+    with tempfile.TemporaryDirectory() as root:
+        run_a = phase_checkpoint(root)
+        phase_eval(root, run_a)
+        del run_a
+    torch.cuda.empty_cache()
+    phase_bench_embed()
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] == "conv3x3_same_f32":

@@ -4,17 +4,20 @@ The port's own copy of the fields of face_recognition_models_tpu/config.py
 that the ResNet training path reads, with the ArcFace, VPL-ArcFace and
 QAFace heads; defaults are the same values (the reference's recipe:
 resnet18, ArcFace m=0.5 s=64, CASIA's 10,575 classes, batch 512, 112 px, SGD
-lr 0.1 momentum 0.9 wd 5e-4, customstep).
+lr 0.1 momentum 0.9 wd 5e-4, customstep), plus the checkpoint and resume
+fields and the benchmarks `eval` reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 FEATURE_DIM = 512
 CASIA_NUM_CLASSES = 10575
 IMAGE_SIZE = 112
+# the verification benchmarks of `eval` (evaluate_models.py's five)
+EVAL_BENCHMARKS = ("agedb_30", "cfp_fp", "lfw", "calfw", "cplfw")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,7 +146,14 @@ class TrainConfig:
     print_freq: int = 100
     # bf16 convolutions (autocast) with fp32 parameters, BatchNorm and head
     compute_dtype: str = "bfloat16"
+    # BatchNorm output dtype: statistics, normalize and affine math run in
+    # fp32 either way (flax BatchNorm(dtype=...)); "bfloat16" rounds the
+    # output, as the embedding benchmark runs it
+    bn_dtype: str = "float32"
     seed: int = 0
+    working_path: str = ""
+    continue_train: Optional[str] = None  # None | 'latest' | 'min_loss'
+    keep_checkpoints: int = 3      # rotation keep-3 (model_utils.py:72-78)
     # True: the fused margin + CE kernels; False: the eager [N, C] head
     use_fused_head: bool = True
     optimizer: OptimizerConfig = OptimizerConfig()

@@ -11,8 +11,11 @@ Numerics follow the flax model: convolutions and the Dense layer run in
 `dtype` (bf16 under autocast on the training path); BatchNorm statistics and
 affine math are fp32 with flax's momentum 0.9 / eps 1e-5, and the running
 variance is updated with the *biased* batch variance (nn.BatchNorm2d would
-use the unbiased one). The stem is the plain 7x7/2 conv: the JAX package's
-default space-to-depth stem is numerically the same conv.
+use the unbiased one). `bn_dtype` is flax's `BatchNorm(dtype=...)`: the
+statistics, normalize and affine math stay fp32 and the output is rounded
+to `bn_dtype` (bf16: the residual adds then run in bf16 too). The stem is
+the plain 7x7/2 conv: the JAX package's default space-to-depth stem is
+numerically the same conv.
 
 `running_stats_frozen(model)` runs train-mode forwards (batch statistics)
 that leave the running buffers as they are: the JAX train step runs QAFace's
@@ -30,17 +33,19 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) in fp32, NCHW.
+    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype), NCHW.
 
-    Output is fp32 whatever the input dtype. In training mode it normalises
-    with the batch statistics and, unless `update_stats` is False, moves the
-    running averages as ra = 0.9 * ra + 0.1 * batch_stat, with the biased
-    variance."""
+    The math is fp32; the output is `dtype` whatever the input dtype (fp32
+    by default; a bf16 input with dtype bf16 goes through F.batch_norm's
+    mixed-dtype path, which computes in fp32 and rounds once). In training
+    mode it normalises with the batch statistics and, unless `update_stats`
+    is False, moves the running averages as ra = 0.9 * ra + 0.1 *
+    batch_stat, with the biased variance."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -50,18 +55,21 @@ class BatchNorm(nn.Module):
         self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32)
+        if self.dtype == torch.float32:
+            x = x.to(torch.float32)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(self.dtype)
         if self.update_stats:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           unbiased=False)
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
                 self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+                            self.eps).to(self.dtype)
 
 
 @contextlib.contextmanager
@@ -88,17 +96,18 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.conv1 = _conv(cin, filters, 3, stride)
-        self.bn1 = BatchNorm(filters)
+        self.bn1 = BatchNorm(filters, dtype=bn_dtype)
         self.conv2 = _conv(filters, filters, 3)
-        self.bn2 = BatchNorm(filters)
+        self.bn2 = BatchNorm(filters, dtype=bn_dtype)
         self.downsample = None
         if stride != 1 or cin != filters:
             self.downsample = nn.Sequential(_conv(cin, filters, 1, stride),
-                                            BatchNorm(filters))
+                                            BatchNorm(filters, dtype=bn_dtype))
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -113,20 +122,21 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         cout = filters * self.expansion
         self.conv1 = _conv(cin, filters, 1)
-        self.bn1 = BatchNorm(filters)
+        self.bn1 = BatchNorm(filters, dtype=bn_dtype)
         self.conv2 = _conv(filters, filters, 3, stride)
-        self.bn2 = BatchNorm(filters)
+        self.bn2 = BatchNorm(filters, dtype=bn_dtype)
         self.conv3 = _conv(filters, cout, 1)
-        self.bn3 = BatchNorm(cout)
+        self.bn3 = BatchNorm(cout, dtype=bn_dtype)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
-                                            BatchNorm(cout))
+                                            BatchNorm(cout, dtype=bn_dtype))
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -140,22 +150,24 @@ class ResNet(nn.Module):
     """ResNet trunk -> global average pool -> Dense(embed_dim).
 
     forward takes NHWC images [N, H, W, 3] and returns [N, embed_dim]
-    embeddings in `dtype`."""
+    embeddings in `dtype`. `bn_dtype` is every BatchNorm's output dtype."""
 
     def __init__(self, stage_sizes: Sequence[int],
                  block: Type[nn.Module], embed_dim: int = 512,
-                 num_filters: int = 64, dtype: torch.dtype = torch.bfloat16):
+                 num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.conv1 = nn.Conv2d(3, num_filters, 7, stride=2, padding=3,
                                bias=False)
-        self.bn1 = BatchNorm(num_filters)
+        self.bn1 = BatchNorm(num_filters, dtype=bn_dtype)
         cin = num_filters
         for i, n_blocks in enumerate(stage_sizes):
             blocks = []
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
-                blocks.append(block(cin, num_filters * 2 ** i, stride, dtype))
+                blocks.append(block(cin, num_filters * 2 ** i, stride, dtype,
+                                    bn_dtype))
                 cin = num_filters * 2 ** i * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -195,11 +207,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                     mod.bias.zero_()
 
 
-def resnet18(embed_dim: int = 512, dtype: torch.dtype = torch.bfloat16
-             ) -> ResNet:
-    return ResNet((2, 2, 2, 2), BasicBlock, embed_dim=embed_dim, dtype=dtype)
+def resnet18(embed_dim: int = 512, dtype: torch.dtype = torch.bfloat16,
+             bn_dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet((2, 2, 2, 2), BasicBlock, embed_dim=embed_dim, dtype=dtype,
+                  bn_dtype=bn_dtype)
 
 
-def resnet50(embed_dim: int = 512, dtype: torch.dtype = torch.bfloat16
-             ) -> ResNet:
-    return ResNet((3, 4, 6, 3), Bottleneck, embed_dim=embed_dim, dtype=dtype)
+def resnet50(embed_dim: int = 512, dtype: torch.dtype = torch.bfloat16,
+             bn_dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet((3, 4, 6, 3), Bottleneck, embed_dim=embed_dim, dtype=dtype,
+                  bn_dtype=bn_dtype)

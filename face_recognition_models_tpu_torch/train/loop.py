@@ -1,16 +1,24 @@
 """The epoch loop. Port of `fit` from face_recognition_models_tpu/train/
-loop.py, without mesh, partial-FC, EMA, distillation or checkpoints yet.
+loop.py, with checkpoints and resume, without mesh, partial-FC, EMA or
+distillation yet.
 
 Metrics stay on the device and are read (which waits for the card) only at
 `print_freq` steps and at the end of each epoch. Heads that need a second
 view of the batch (QAFace) get `degrade_images` of it, made on the device.
+
+With a checkpoint manager, a fresh run wipes its directory and a run with
+`cfg.continue_train` resumes from it; each epoch saves the best-by-loss
+checkpoint when its loss is a new minimum, then its epoch checkpoint; a
+SIGTERM or SIGINT finishes the current step, saves epoch - 1 (resume with
+continue_train='latest') and returns.
 """
 
 from __future__ import annotations
 
+import signal
 import time
 from dataclasses import dataclass, field
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +43,8 @@ class FitResult:
     # the next (they include the wait for the card only at print_freq steps)
     losses: List[float] = field(default_factory=list)
     step_seconds: List[float] = field(default_factory=list)
+    # a SIGTERM / SIGINT ended the run after a checkpoint of epoch - 1
+    preempted: bool = False
 
 
 def degrade_images(images: torch.Tensor) -> torch.Tensor:
@@ -58,11 +68,31 @@ def degrade_images(images: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _install_preemption_handlers(flag: dict) -> dict:
+    """Point SIGTERM and SIGINT at a handler that sets flag['set'];
+    returns the previous handlers. Off the main thread signal.signal
+    raises and nothing is installed."""
+    def on_signal(signum, frame):
+        flag["set"] = True
+
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            previous[sig] = signal.signal(sig, on_signal)
+        except ValueError:  # not the main thread
+            break
+    return previous
+
+
 def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
-        head_cfg=None) -> FitResult:
+        head_cfg=None, checkpoint_manager: Optional[Any] = None
+        ) -> FitResult:
     """Train for cfg.epochs over `loader` (any object with steps_per_epoch()
     and epoch(i) -> iterator of (uint8 NHWC images, int labels)).
 
+    With `checkpoint_manager` (checkpoint/manager.CheckpointManager) the
+    run saves and resumes as the module docstring says; a resumed run
+    takes cfg.epochs more epochs from the one after the checkpoint's.
     Runs on the card unless device='cpu' is passed; raises without one.
     """
     device = resolve_device(device)
@@ -81,36 +111,75 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
                               device=device)
 
     min_train_loss = float("inf")
+    start_epoch = 1
+    if checkpoint_manager is not None:
+        if cfg.continue_train is None:
+            checkpoint_manager.reset()
+        else:
+            restored, start_epoch, loss = checkpoint_manager.restore(
+                state, mode=cfg.continue_train)
+            if restored is not None:
+                min_train_loss = loss
+                print(f"### Resuming from epoch {start_epoch - 1} "
+                      f"(train_loss={loss:.6f}) ###")
+
+    preempted = {"set": False}
+    previous = (_install_preemption_handlers(preempted)
+                if checkpoint_manager is not None else {})
+    last_epoch = cfg.epochs + start_epoch - 1
     all_losses, step_seconds = [], []
-    total_images = 0
+    total_images = steps_run = 0
     t_start = end = time.perf_counter()
-    for epoch in range(1, cfg.epochs + 1):
-        losses = []
-        for i, (images, labels) in enumerate(loader.epoch(epoch)):
-            images = torch.as_tensor(images).to(device, non_blocking=True)
-            if head.requires_minput:
-                state, metrics = step_fn(state, images, labels,
-                                         degrade_images(images))
+    try:
+        for epoch in range(start_epoch, last_epoch + 1):
+            losses = []
+            for i, (images, labels) in enumerate(loader.epoch(epoch)):
+                images = torch.as_tensor(images).to(device, non_blocking=True)
+                if head.requires_minput:
+                    state, metrics = step_fn(state, images, labels,
+                                             degrade_images(images))
+                else:
+                    state, metrics = step_fn(state, images, labels)
+                losses.append(metrics["loss"])
+                total_images += len(images)
+                steps_run += 1
+                if i % cfg.print_freq == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    print(f"Epoch: [{epoch}/{last_epoch}][{i + 1}/"
+                          f"{steps_per_epoch}] loss {m['loss']:.4f} "
+                          f"acc1 {m['acc1']:.2f} acc5 {m['acc5']:.2f} "
+                          f"lr {m['lr']:.5f} feat_norm {m['feat_norm']:.3f}",
+                          flush=True)
+                now = time.perf_counter()
+                step_seconds.append(now - end)
+                end = now
+                if preempted["set"]:
+                    break
+            epoch_losses = [float(x) for x in losses]
+            all_losses += epoch_losses
+            train_loss = float(np.mean(epoch_losses))
+            if preempted["set"]:
+                checkpoint_manager.save(state, epoch - 1, train_loss)
+                print(f"### Preemption: saved checkpoint at epoch "
+                      f"{epoch - 1} step {len(losses)} — resume with "
+                      f"continue_train='latest' ###", flush=True)
+                break
+            if checkpoint_manager is not None:
+                if train_loss < min_train_loss:
+                    min_train_loss = train_loss
+                    checkpoint_manager.save(state, epoch, train_loss,
+                                            is_best=True)
+                    print(f"New best model saved: {train_loss:.6f}")
+                checkpoint_manager.save(state, epoch, train_loss)
             else:
-                state, metrics = step_fn(state, images, labels)
-            losses.append(metrics["loss"])
-            total_images += len(images)
-            if i % cfg.print_freq == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                print(f"Epoch: [{epoch}/{cfg.epochs}][{i + 1}/"
-                      f"{steps_per_epoch}] loss {m['loss']:.4f} "
-                      f"acc1 {m['acc1']:.2f} acc5 {m['acc5']:.2f} "
-                      f"lr {m['lr']:.5f} feat_norm {m['feat_norm']:.3f}",
-                      flush=True)
-            now = time.perf_counter()
-            step_seconds.append(now - end)
-            end = now
-        epoch_losses = [float(x) for x in losses]
-        all_losses += epoch_losses
-        min_train_loss = min(min_train_loss, float(np.mean(epoch_losses)))
+                min_train_loss = min(min_train_loss, train_loss)
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
     wall = time.perf_counter() - t_start
     return FitResult(state=state, head_cfg=head_cfg,
                      min_train_loss=min_train_loss, epochs_run=cfg.epochs,
-                     steps_per_sec=state.step / max(wall, 1e-9),
+                     steps_per_sec=steps_run / max(wall, 1e-9),
                      images_per_sec=total_images / max(wall, 1e-9),
-                     losses=all_losses, step_seconds=step_seconds)
+                     losses=all_losses, step_seconds=step_seconds,
+                     preempted=preempted["set"])

@@ -16,6 +16,7 @@ from torch import nn
 from face_recognition_models_tpu_torch.config import TrainConfig
 from face_recognition_models_tpu_torch.heads import get_head
 from face_recognition_models_tpu_torch.models import get_backbone
+from face_recognition_models_tpu_torch.models.backbones import to_device
 from face_recognition_models_tpu_torch.models.resnet import init_weights
 from face_recognition_models_tpu_torch.train.optim import get_optimizer
 
@@ -33,13 +34,10 @@ def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device):
     """Initialise (backbone, head, TrainState) from cfg.seed on `device`."""
     gen = torch.Generator().manual_seed(cfg.seed)
     backbone = get_backbone(cfg.backbone, embed_dim=head_cfg.feature_dim,
-                            dtype=getattr(torch, cfg.compute_dtype))
+                            dtype=getattr(torch, cfg.compute_dtype),
+                            bn_dtype=getattr(torch, cfg.bn_dtype))
     init_weights(backbone, gen)
-    backbone = backbone.to(device)
-    if device.type == "cuda":
-        # NHWC batches arrive as channels-last NCHW views; cuDNN's bf16
-        # convolutions are fastest with weights in the same layout
-        backbone = backbone.to(memory_format=torch.channels_last)
+    backbone = to_device(backbone, device)
     head = get_head(cfg.head)
     kernel_w = nn.Parameter(head.init_kernel(head_cfg, gen, device))
     opt = cfg.optimizer

@@ -23,7 +23,10 @@ from face_recognition_models_tpu_torch.heads.fused_adapter import (
 from face_recognition_models_tpu_torch.models.resnet import (
     running_stats_frozen,
 )
-from face_recognition_models_tpu_torch.ops.image_ops import normalize_images
+from face_recognition_models_tpu_torch.ops.image_ops import (
+    normalization_constants,
+    normalize_images,
+)
 from face_recognition_models_tpu_torch.train.losses import mean_cross_entropy
 from face_recognition_models_tpu_torch.train.metrics import topk_accuracy
 from face_recognition_models_tpu_torch.train.state import TrainState
@@ -103,14 +106,18 @@ def _detached(head_state):
 def make_eval_step(backbone, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
                    device=None) -> Callable:
     """Embedding extraction: images -> [N, D] fp32 embeddings with the
-    running BatchNorm statistics. Runs on the card unless device='cpu'."""
+    running BatchNorm statistics. Runs on the card unless device='cpu'.
+    The normalisation constants are made on the device once, so a step on
+    a batch already there copies nothing from the host (and can be
+    captured in a CUDA graph)."""
     device = resolve_device(device)
+    scale, bias = normalization_constants(mean, std, device=device)
 
     @torch.no_grad()
     def eval_step(images):
         images = torch.as_tensor(images).to(device, non_blocking=True)
         if images.dtype == torch.uint8:
-            images = normalize_images(images, mean, std)
+            images = images.to(torch.float32) * scale + bias
         backbone.eval()
         return backbone(images).to(torch.float32)
 
