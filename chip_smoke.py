@@ -66,8 +66,9 @@ and no result line:
              with a CheckpointManager in a temporary directory: run A
              takes 2 epochs x 2 steps; run B 1 epoch, then a new `fit`
              with continue_train='latest' for epoch 2, both in PyTorch's
-             deterministic mode. Run B's losses, kernel_w, backbone
-             tensors and momentum buffers must equal run A's bit for bit. A state restored into a fresh one
+             default (not deterministic) mode. Run B's losses, kernel_w,
+             backbone tensors and momentum buffers must equal run A's bit
+             for bit. A state restored into a fresh one
              equals the saved one bit for bit, channels-last weights
              included; keep-3 rotation and min_loss resume (the epoch files
              go). File sizes, save and restore seconds.
@@ -1382,25 +1383,6 @@ def same_tensors(name, got, want, layout=False):
                                  f" vs {want[key].stride()}")
 
 
-@contextlib.contextmanager
-def deterministic():
-    """PyTorch's deterministic mode inside the block. The train step's
-    target-cosine gather (`index_select` over the class axis) sums its
-    backward with float atomics where labels repeat in a batch, so two runs
-    of the same steps need not agree bit for bit without it."""
-    import torch
-
-    before = (torch.are_deterministic_algorithms_enabled(),
-              torch.backends.cudnn.deterministic)
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(before[0])
-        torch.backends.cudnn.deterministic = before[1]
-
-
 def phase_checkpoint(root):
     """Checkpoints and resume at full width under `root` (run A's files
     stay there for phase_eval). Returns run A's fit result."""
@@ -1440,11 +1422,12 @@ def phase_checkpoint(root):
 
     dir_a = os.path.join(root, "a", "arcface")
     dir_b = os.path.join(root, "b", "arcface")
-    # two runs compared bit for bit: deterministic mode (see deterministic)
-    with deterministic():
-        a, mgr_a = run(dir_a, 2)
-        b1, mgr_b = run(dir_b, 1)
-        b2, _ = run(dir_b, 1, "latest")
+    # two runs compared bit for bit, in PyTorch's default mode
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("checkpoint: deterministic mode is on")
+    a, mgr_a = run(dir_a, 2)
+    b1, mgr_b = run(dir_b, 1)
+    b2, _ = run(dir_b, 1, "latest")
     mgr_a.save_final(a.state.backbone.state_dict())
     if b1.losses + b2.losses != a.losses:
         raise AssertionError(f"checkpoint: resumed losses {b1.losses} + "
@@ -1598,6 +1581,234 @@ def phase_eval(root, run_a):
           "embed_img_per_s": len(stack) / embed_s, "ok": True})
 
 
+def fit_arcface(loader, steps_label):
+    """`fit` of the full-width ArcFace recipe over `loader` for one epoch,
+    in PyTorch's default mode, the loss read only at the epoch's end (so
+    the host runs ahead of the card as in a real run). Returns the result
+    and {kernel: launches} of the run."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.train.loop import fit
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError(f"{steps_label}: deterministic mode is on")
+    cfg = cfg_lib.TrainConfig(head="arcface", num_classes=C_MAIN,
+                              batch_size=loader.batch_size, epochs=1,
+                              print_freq=10_000, seed=0)
+    fh.reset_launch_counts()
+    res = fit(cfg, loader, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(fh.launch_counts)
+    steps = len(res.losses)
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"{steps_label}: non-finite loss {res.losses}")
+    for name, count in launches.items():
+        want = steps if name in PLAIN_KERNELS else 0
+        if count != want:
+            raise AssertionError(f"{steps_label}: {name} launched {count} "
+                                 f"times in {steps} steps, not {want}")
+    return res, launches
+
+
+def phase_gather():
+    """The target-column gather's backward (`heads.base.take_columns`)
+    at the training shape: bitwise repeats where labels repeat, against
+    index_select's backward (float atomics) and the one-hot product, and
+    each one's device ms; then two default-mode runs of 3 full-width
+    ArcFace steps on the same batches must be bitwise equal."""
+    import torch
+
+    from face_recognition_models_tpu_torch.heads.base import (
+        one_hot, take_columns)
+
+    cuda = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the one-hot product
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn(D_MAIN, C_MAIN, device=cuda, generator=g)
+    idx = torch.randint(0, C_MAIN, (N_MAIN,), device=cuda, generator=g)
+    grad = torch.randn(D_MAIN, N_MAIN, device=cuda, generator=g)
+    repeated = N_MAIN - int(torch.unique(idx).numel())
+    w.requires_grad_()
+
+    def index_select_bwd():
+        return torch.autograd.grad(w.index_select(1, idx), w, grad)[0]
+
+    def take_columns_bwd():
+        return torch.autograd.grad(take_columns(w, idx), w, grad)[0]
+
+    def one_hot_bwd():
+        return grad @ one_hot(idx, C_MAIN)
+
+    got = take_columns_bwd()
+    if not torch.equal(got, take_columns_bwd()):
+        raise AssertionError("gather: take_columns' backward did not repeat")
+    err = max(close("gather vs index_select", got, index_select_bwd(),
+                    1e-6, 1e-6),
+              close("gather vs one-hot", got, one_hot_bwd(), 1e-6, 1e-6))
+    ms = {name: device_ms(fn) for name, fn in (
+        ("take_columns", take_columns_bwd),
+        ("index_select", index_select_bwd), ("one_hot", one_hot_bwd))}
+
+    bs, steps = N_MAIN, 3
+    images, labels = train_batches(steps, bs, 112, seed=2)
+    dup = [bs - len(np.unique(labels[i * bs:(i + 1) * bs]))
+           for i in range(steps)]
+    if min(dup) == 0:
+        raise AssertionError(f"gather: no repeated label in a batch: {dup}")
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+
+    runs = []
+    for _ in range(2):
+        res, _ = fit_arcface(ArrayLoader(images, labels, batch_size=bs,
+                                         seed=0), "gather")
+        runs.append((res.losses, state_tensors(res.state)))
+        del res
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError(f"gather: losses {runs[0][0]} vs {runs[1][0]}")
+    same_tensors("gather: the second default-mode run", runs[1][1],
+                 runs[0][1])
+    emit({"phase": "gather", "shape": [N_MAIN, D_MAIN, C_MAIN],
+          "repeated_labels": repeated, "max_abs_err": err,
+          "backward_device_ms": ms, "chosen": "take_columns",
+          "train_steps": steps, "repeated_labels_per_batch": dup,
+          "losses": runs[0][0], "bitwise_equal_runs": True, "ok": True})
+
+
+class PackableArrays:
+    """An ArrayLoader's one unshuffled full pass, with the two fields
+    `pack_from_loader` reads (`dataset` for the length and
+    `skipped_images`), so seeded arrays pack with no decoder."""
+
+    def __init__(self, images, labels, batch_size):
+        from face_recognition_models_tpu_torch.data.pipeline import (
+            ArrayLoader)
+
+        self.loader = ArrayLoader(images, labels, batch_size, shuffle=False,
+                                  drop_remainder=False)
+        self.dataset = images
+        self.skipped_images = 0
+
+    def epoch(self, epoch=0):
+        return self.loader.epoch(epoch)
+
+
+def phase_train_packed():
+    """This slice's path: the ArcFace phase's seeded batches (20 steps at
+    b512, 112 px) packed with `pack_from_loader`, then the full-width
+    `fit` from `PackedLoader` and from `ArrayLoader` over the same arrays
+    with the same seed: bitwise equal losses. Pack write GB/s, PackedLoader
+    batches/s on the host alone, img/s and host ms/step of both runs, and
+    each run once more under torch.profiler: device ms/step, idle share
+    and the host-to-device copy's device ms."""
+    import torch
+
+    from face_recognition_models_tpu_torch.data.packed import (
+        PackedDataset, PackedLoader, pack_from_loader)
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.utils.profiling import summarize
+
+    steps, bs, size = 20, N_MAIN, 112
+    images, labels = train_batches(steps, bs, size)
+    out = {"phase": "train_packed", "steps": steps, "batch": bs,
+           "image_size": size, "num_classes": C_MAIN}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        meta = pack_from_loader(PackableArrays(images, labels, bs),
+                                [str(c) for c in range(C_MAIN)], root, size)
+        write_s = time.perf_counter() - t0
+        ds = PackedDataset.open(root)
+        if not (np.array_equal(np.asarray(ds.images), images)
+                and np.array_equal(ds.labels, labels)):
+            raise AssertionError("train_packed: the pack differs from the "
+                                 "arrays it was written from")
+        t0 = time.perf_counter()
+        batches = sum(1 for _ in PackedLoader(ds, bs, seed=0).epoch(1))
+        read_s = time.perf_counter() - t0
+        runs = {}
+        for name, make in (
+                ("packed", lambda: PackedLoader(ds, batch_size=bs, seed=0)),
+                ("array", lambda: ArrayLoader(images, labels, batch_size=bs,
+                                              seed=0))):
+            res, launches = fit_arcface(make(), f"train_packed {name}")
+            runs[name] = {
+                "losses": res.losses, "img_per_s": res.images_per_sec,
+                "host_ms_per_step_after_1":
+                    1e3 * float(np.mean(res.step_seconds[1:])),
+                "launches": launches}
+            del res
+            # the same run again under the profiler, for its device times
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res, _ = fit_arcface(make(), f"train_packed {name}")
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            if res.losses != runs[name]["losses"]:
+                raise AssertionError(f"train_packed {name}: the profiled "
+                                     "run's losses differ")
+            runs[name]["profiler"] = {k: v for k, v in summarize(
+                prof, steps, wall_ms).items() if k != "top_kernels"}
+            del res, prof
+    if runs["packed"]["losses"] != runs["array"]["losses"]:
+        raise AssertionError("train_packed: losses from the pack "
+                             f"{runs['packed']['losses']} vs the arrays "
+                             f"{runs['array']['losses']}")
+    emit({**out, "pack_bytes": int(meta["num_samples"]) * size * size * 3,
+          "pack_write_seconds": write_s,
+          "pack_write_gb_per_s": images.nbytes / write_s / 1e9,
+          "packed_loader_batches": batches,
+          "packed_loader_batches_per_s": batches / read_s,
+          "runs": runs, "losses_bitwise_equal": True, "ok": True})
+    return runs["packed"]["launches"]
+
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "data", "jpeg_fixture")
+DECODE_MAD = 2.0   # mean abs diff vs PIL, the JAX test's bound
+
+
+def phase_decode():
+    """Whether the port's native JPEG decoder builds here; if it does, the
+    committed fixture decoded at 112 px against PIL's decode of it (the
+    committed .npy) and `decode_batch`'s img/s at b512 (the fixture tiled)
+    with 8 threads. A failed build is reported and does not fail the
+    smoke (the pack path needs no decoder); a wrong decode does."""
+    from face_recognition_models_tpu_torch.native import fastdecode
+
+    t0 = time.perf_counter()
+    if not fastdecode.is_available():
+        emit({"phase": "decode", "native_builds": False,
+              "build_error": fastdecode.build_error(), "ok": True})
+        return
+    build_s = time.perf_counter() - t0
+    paths = sorted(os.path.join(FIXTURE, f) for f in os.listdir(FIXTURE)
+                   if f.endswith(".jpg"))
+    want = np.load(os.path.join(FIXTURE, "pil_112.npy"))
+    got, status = fastdecode.decode_batch(paths, 112, n_threads=8)
+    mad = float(np.abs(got.astype(np.int32) - want.astype(np.int32)).mean())
+    if status.any() or not mad < DECODE_MAD:
+        raise AssertionError(f"decode: status {status.tolist()}, mean abs "
+                             f"diff {mad} vs PIL (bound {DECODE_MAD})")
+    batch = (paths * (-(-N_MAIN // len(paths))))[:N_MAIN]
+    out = np.empty((N_MAIN, 112, 112, 3), np.uint8)
+    fastdecode.decode_batch(batch, 112, out=out, n_threads=8)
+    seconds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, status = fastdecode.decode_batch(batch, 112, out=out, n_threads=8)
+        seconds.append(time.perf_counter() - t0)
+        if status.any():
+            raise AssertionError("decode: a tiled fixture image failed")
+    emit({"phase": "decode", "native_builds": True, "build_seconds": build_s,
+          "library": fastdecode.library_path().name, "images": len(paths),
+          "source_size": 250, "mean_abs_diff_vs_pil": mad,
+          "tolerance": DECODE_MAD, "batch": N_MAIN, "threads": 8,
+          "img_per_s": N_MAIN / float(np.median(seconds)),
+          "seconds": seconds, "ok": True})
+
+
 def phase_bench_embed():
     """The headline workload at full size, its device split, and bf16 vs
     fp32 BatchNorm on the same weights and batch."""
@@ -1663,10 +1874,14 @@ def main() -> int:
     launches.update(phase_conv_bench())
     f32_plain_ms = phase_conv_f32()
     device = phase_device_times()
+    phase_gather()
     with tempfile.TemporaryDirectory() as root:
         run_a = phase_checkpoint(root)
         phase_eval(root, run_a)
         del run_a
+    torch.cuda.empty_cache()
+    phase_train_packed()
+    phase_decode()
     torch.cuda.empty_cache()
     phase_bench_embed()
     for r in rows:

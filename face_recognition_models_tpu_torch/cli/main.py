@@ -1,20 +1,29 @@
-"""Command line of the port. Port of the `train` and `eval` subcommands of
-face_recognition_models_tpu/cli/main.py; flag names and defaults follow it.
+"""Command line of the port. Port of the `train`, `eval` and `pack`
+subcommands of face_recognition_models_tpu/cli/main.py; flag names and
+defaults follow it.
 
-    python -m face_recognition_models_tpu_torch.cli train --synthetic \
+    python -m face_recognition_models_tpu_torch.cli train \
+        --dataset-path P | --synthetic \
         [--working-path W] [--continue_train latest] [--device cpu] ...
+    python -m face_recognition_models_tpu_torch.cli pack \
+        --dataset-path P --output DIR [--image-size 112] [--backend auto]
     python -m face_recognition_models_tpu_torch.cli eval \
         --checkpoint-dir W/checkpoints --eval-data-path E [--device cpu] ...
 
-`train` writes its checkpoints under <working>/checkpoints/<model> and
-tees its output to <working>/log/<model>.txt; `eval` reads them. Both run
-on the card unless `--device cpu` is given, and fail without one.
+`train --dataset-path` reads a pack (`pack`'s output, no decode), an
+insightface RecordIO set (`train.rec` / `train.idx`: either path, their
+prefix, or a dir holding `train.rec`) or an identity tree
+(`P/CASIA-WebFace[/{train,valid}]/<id>/*.jpg`, or `P/<id>/*.jpg`). `train`
+writes its checkpoints under <working>/checkpoints/<model> and tees its
+output to <working>/log/<model>.txt; `eval` reads them. Both run on the card
+unless `--device cpu` is given, and fail without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import sys
 import time
@@ -54,6 +63,15 @@ def _add_train_parser(sub):
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dataset-path", default=os.environ.get("DATASET_PATH", ""),
+                   help="identity tree root, a `pack` dir, or an "
+                        "insightface RecordIO set (train.rec/.idx: pass "
+                        "the .rec/.idx path, their prefix, or a dir "
+                        "holding train.rec)")
+    p.add_argument("--num-classes", type=int,
+                   default=cfg_lib.CASIA_NUM_CLASSES)
+    p.add_argument("--num-workers", type=int, default=8,
+                   help="decode threads of the tree and RecordIO loaders")
     p.add_argument("--synthetic", action="store_true",
                    help="train on a synthetic identity set (smoke runs)")
     p.add_argument("--synthetic-classes", type=int, default=64)
@@ -78,9 +96,51 @@ class Tee:
             s.flush()
 
 
+class UsageError(Exception):
+    """A refusal of the command line's arguments: printed, exit code 2."""
+
+
+def _open_dataset(args, cfg):
+    """(loader, cfg) for `train --dataset-path`. A pack's image size
+    overrides --image-size; more identities than --num-classes raise
+    UsageError."""
+    from face_recognition_models_tpu_torch.data.index import index_tree
+    from face_recognition_models_tpu_torch.data.packed import (
+        PackedDataset, PackedLoader, is_packed_dir)
+    from face_recognition_models_tpu_torch.data.pipeline import Loader
+    from face_recognition_models_tpu_torch.data.recordio import (
+        RecLoader, RecordIODataset, is_recordio)
+
+    path = args.dataset_path
+    if is_recordio(path):
+        rec = RecordIODataset.open(path)
+        if rec.num_identities > args.num_classes:
+            raise UsageError(f"error: rec has {rec.num_identities} "
+                             f"identities > --num-classes {args.num_classes}")
+        return RecLoader(rec, batch_size=cfg.batch_size,
+                         image_size=cfg.data.image_size,
+                         num_workers=args.num_workers, seed=cfg.seed), cfg
+    if is_packed_dir(path):
+        # a pack from `pack`: no JPEG work on the host
+        packed = PackedDataset.open(path)
+        if packed.num_identities > args.num_classes:
+            raise UsageError(f"error: pack has {packed.num_identities} "
+                             f"identities > --num-classes {args.num_classes}")
+        if packed.image_size != cfg.data.image_size:
+            print(f"[pack] image size {packed.image_size} overrides "
+                  f"--image-size {cfg.data.image_size}")
+            cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+                cfg.data, image_size=packed.image_size))
+        return PackedLoader(packed, batch_size=cfg.batch_size,
+                            seed=cfg.seed), cfg
+    return Loader(index_tree(path), batch_size=cfg.batch_size,
+                  image_size=cfg.data.image_size,
+                  num_workers=args.num_workers, seed=cfg.seed), cfg
+
+
 def cmd_train(args) -> int:
-    if not args.synthetic:
-        print("error: only --synthetic data is ported so far",
+    if not args.synthetic and not args.dataset_path:
+        print("error: --dataset-path required (or --synthetic)",
               file=sys.stderr)
         return 2
     from face_recognition_models_tpu_torch.checkpoint import (
@@ -93,7 +153,9 @@ def cmd_train(args) -> int:
     model_name = args.head
     cfg = cfg_lib.TrainConfig(
         backbone=args.backbone, head=args.head,
-        num_classes=args.synthetic_classes, batch_size=args.batch_size,
+        num_classes=(args.synthetic_classes if args.synthetic
+                     else args.num_classes),
+        batch_size=args.batch_size,
         epochs=args.epochs, print_freq=args.print_freq,
         seed=args.seed, working_path=args.working_path,
         continue_train=args.continue_train,
@@ -107,11 +169,18 @@ def cmd_train(args) -> int:
     head_cfg = cfg_lib.make_head_config(
         args.head, num_classes=cfg.num_classes,
         **cfg_lib.parse_head_overrides(args.head, args.head_arg))
-    images, labels = synthetic_identities(
-        args.synthetic_classes, args.synthetic_per_class,
-        image_size=args.image_size, seed=cfg.seed)
-    loader = ArrayLoader(images, labels, batch_size=cfg.batch_size,
-                         seed=cfg.seed)
+    if args.synthetic:
+        images, labels = synthetic_identities(
+            args.synthetic_classes, args.synthetic_per_class,
+            image_size=args.image_size, seed=cfg.seed)
+        loader = ArrayLoader(images, labels, batch_size=cfg.batch_size,
+                             seed=cfg.seed)
+    else:
+        try:
+            loader, cfg = _open_dataset(args, cfg)
+        except UsageError as e:
+            print(e, file=sys.stderr)
+            return 2
     log_dir = os.path.join(args.working_path, "log")
     os.makedirs(log_dir, exist_ok=True)
     ckpt_dir = args.model_save_path or os.path.join(
@@ -209,18 +278,73 @@ def cmd_eval(args) -> int:
     )
 
 
+def _add_pack_parser(sub):
+    p = sub.add_parser("pack",
+                       help="decode a dataset once into a uint8 memmap "
+                            "pack; `train --dataset-path <pack>` then "
+                            "trains with no decode on the host")
+    p.add_argument("--dataset-path", required=True,
+                   help="identity tree root (the layouts train reads: "
+                        "<root>/CASIA-WebFace[/{train,valid}]/<id>/*.jpg "
+                        "or <root>/<id>/*.jpg) or an insightface RecordIO "
+                        "train.rec/.idx set")
+    p.add_argument("--output", required=True, metavar="DIR")
+    p.add_argument("--image-size", type=int, default=cfg_lib.IMAGE_SIZE)
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--backend", choices=["auto", "native", "pil"],
+                   default="auto")
+    return p
+
+
+def cmd_pack(args) -> int:
+    from face_recognition_models_tpu_torch.data.index import index_tree
+    from face_recognition_models_tpu_torch.data.packed import (
+        pack_dataset, pack_from_loader)
+    from face_recognition_models_tpu_torch.data.recordio import (
+        RecLoader, RecordIODataset, is_recordio)
+
+    t0 = time.time()
+    if is_recordio(args.dataset_path):
+        rec = RecordIODataset.open(args.dataset_path)
+        loader = RecLoader(rec, batch_size=min(1024, len(rec)),
+                           image_size=args.image_size, shuffle=False,
+                           num_workers=args.num_workers,
+                           drop_remainder=False, backend=args.backend)
+        meta = pack_from_loader(loader, rec.identities, args.output,
+                                args.image_size,
+                                decode_backend=loader.backend,
+                                progress_every=50_000)
+        source = "RecordIO"
+    else:
+        meta = pack_dataset(index_tree(args.dataset_path), args.output,
+                            image_size=args.image_size,
+                            num_workers=args.num_workers,
+                            backend=args.backend, progress_every=50_000)
+        source = "an identity tree"
+    n = meta["num_samples"]
+    print(f"packed {n} images from {source} "
+          f"({n * args.image_size**2 * 3 / 1e9:.2f} GB, "
+          f"{len(meta['identities'])} identities) in {time.time() - t0:.0f}s "
+          f"via {meta['decode_backend']} decode; "
+          f"{meta['skipped_images']} corrupt resampled -> {args.output}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m face_recognition_models_tpu_torch.cli",
-        description="PyTorch/CUDA face-recognition training and "
-                    "evaluation")
+        description="PyTorch/CUDA face-recognition training, "
+                    "evaluation and dataset packing")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train_parser(sub)
     _add_eval_parser(sub)
+    _add_pack_parser(sub)
     args = parser.parse_args(argv)
     if args.command == "train":
         return cmd_train(args)
     if args.command == "eval":
         return cmd_eval(args)
+    if args.command == "pack":
+        return cmd_pack(args)
     parser.error(f"unknown command {args.command}")
     return 2

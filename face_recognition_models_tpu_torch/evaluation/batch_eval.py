@@ -165,14 +165,13 @@ def run_batch_evaluation(checkpoint_dir: str, eval_data_path: str,
     acc_rows: List[dict] = []
     auc_rows: List[dict] = []
     for name in model_names:
+        model = get_backbone(backbone, embed_dim=embed_dim)
         try:
-            state_dict = restore_backbone(
-                os.path.join(checkpoint_dir, name), which, model_name=name)
-        except (OSError, KeyError) as e:  # missing checkpoint (ref :44-46)
+            model.load_state_dict(restore_backbone(
+                os.path.join(checkpoint_dir, name), which, model_name=name))
+        except Exception as e:  # missing, corrupt or another backbone's
             print(f"[skip] {name}: could not load checkpoint ({e})")
             continue
-        model = get_backbone(backbone, embed_dim=embed_dim)
-        model.load_state_dict(state_dict)
         embed_fn = make_embed_fn(to_device(model, device), device=device)
         acc_row, auc_row = {"model": name}, {"model": name}
         for bench in benchmarks:

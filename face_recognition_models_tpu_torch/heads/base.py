@@ -38,6 +38,47 @@ def one_hot(labels: torch.Tensor, num_classes: int,
     return (labels.long()[:, None] == cols[None, :]).to(dtype)
 
 
+class _TakeColumns(torch.autograd.Function):
+    """w.index_select(1, idx) with a backward that adds each column's rows
+    in one fixed order. index_select's own backward (index_add_) adds
+    repeated indices with float atomics on the card, in an order that moves
+    with timing; there index_put_ with accumulate=True sorts the indices
+    stably and adds each index's rows in that order. On the CPU index_add_
+    already adds them one after another, in batch order; index_put_ would
+    add them with atomics across threads."""
+
+    @staticmethod
+    def forward(ctx, w, idx):
+        ctx.save_for_backward(idx)
+        ctx.columns = w.shape[1]
+        return w.index_select(1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        if grad.device.type != "cuda":
+            return grad.new_zeros((grad.shape[0], ctx.columns)).index_add_(
+                1, idx, grad), None
+        return sorted_column_sums(grad, idx, ctx.columns), None
+
+
+def sorted_column_sums(grad: torch.Tensor, idx: torch.Tensor,
+                       columns: int) -> torch.Tensor:
+    """[D, columns]: column c the sum of the grad [D, N] columns n with
+    idx[n] == c, through index_put_'s sorted accumulate (take_columns'
+    backward on the card)."""
+    rows = grad.new_zeros((columns, grad.shape[0]))   # [C, D]
+    rows.index_put_((idx,), grad.T.contiguous(), accumulate=True)
+    return rows.T
+
+
+def take_columns(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The columns `idx` of w [D, C] as [D, N], the same values as
+    w.index_select(1, idx); its gradient is bitwise repeatable where idx
+    repeats (the target-column gathers of the heads)."""
+    return _TakeColumns.apply(w, idx.long())
+
+
 class Head(NamedTuple):
     name: str
     init_kernel: Callable[..., torch.Tensor]

@@ -16,6 +16,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from face_recognition_models_tpu_torch.heads import margins as m
+from face_recognition_models_tpu_torch.heads.base import take_columns
 from face_recognition_models_tpu_torch.ops.fused_head import (
     MODE_IDENTITY,
     fused_margin_ce,
@@ -112,7 +113,7 @@ def _mem_row_params(cfg, kernel, xn, feats, labels, tcos_raw, state,
         lam = torch.where(use_mem, (new_state.life > 0).float(), 0.0)
         # target: cosine against the RAW weight column + the injection
         # (:1479-1482); the gradient reaches `kernel` through this gather
-        target_w = kernel.to(torch.float32).index_select(1, target).T
+        target_w = take_columns(kernel.to(torch.float32), target).T
         cosine2 = torch.where(
             use_mem,
             (xn * l2_normalize(target_w + injection, dim=1)).sum(1),
@@ -136,8 +137,9 @@ def fused_apply(cfg, kernel, feats, labels, state=None,
     xn = l2_normalize(feats, dim=1)
     wn = l2_normalize(kernel, dim=0)
     norms = feature_norms(feats)
-    # target cosine: a row gather of W columns, O(N * D)
-    tcos_raw = (xn * wn.index_select(1, labels.long()).T).sum(1)
+    # target cosine: a row gather of W columns, O(N * D), whose gradient
+    # adds repeated labels in a fixed order
+    tcos_raw = (xn * take_columns(wn, labels).T).sum(1)
     if cfg.name in MEM_FUSED_HEADS:
         rp, memn, lam = _mem_row_params(cfg, kernel, xn, feats, labels,
                                         tcos_raw, state, minput)

@@ -17,6 +17,7 @@ from face_recognition_models_tpu_torch.heads.base import (
     Head,
     HeadOutput,
     register_head,
+    take_columns,
 )
 from face_recognition_models_tpu_torch.heads.base import one_hot as _one_hot
 from face_recognition_models_tpu_torch.ops.normalize import (
@@ -203,8 +204,8 @@ def _qaface_apply(cfg, kernel, feats, labels, state: QAFaceState, rng=None,
     # non-target: full memory replacement where active (:1476)
     cosine1 = (1.0 - active) * cos_w + active * cos_mem
     # target: cosine against (raw class weight + injection) (:1479-1482)
-    target_w = kernel.to(torch.float32).index_select(
-        1, torch.where(labels >= 0, labels, 0).long()).T + injection
+    target_w = take_columns(kernel.to(torch.float32),
+                            torch.where(labels >= 0, labels, 0)).T + injection
     cosine2 = (xn * l2_normalize(target_w, dim=1)).sum(1, keepdim=True)
     blended = one_hot * cosine2 + (1.0 - one_hot) * cosine1
     cosine = torch.where(use_mem, blended, cos_w)

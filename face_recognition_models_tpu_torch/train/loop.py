@@ -68,6 +68,51 @@ def degrade_images(images: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class HostStaging:
+    """Copies each loader batch to the device through two reusable pinned
+    host buffers, the PyTorch form of the JAX loop's device_put of a
+    prefetched batch: a copy from pinned memory runs asynchronously on the
+    stream, where one from pageable memory is staged by the driver first.
+
+    A batch is copied into the next buffer, sent with non_blocking=True,
+    and a CUDA event is recorded after its copies; a buffer is refilled
+    only once its event has completed, so a copy in flight is never
+    overwritten. On the CPU a batch goes as it is, with no pinning.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._slots: List[Optional[tuple]] = [None, None]
+        self._next = 0
+
+    def __call__(self, images, labels):
+        """(images, labels) on the device for one loader batch."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(images).to(self.device), labels
+        images = torch.as_tensor(images)
+        labels = torch.as_tensor(labels, dtype=torch.int32)
+        i, self._next = self._next, (self._next + 1) % len(self._slots)
+        slot = self._slots[i]
+        if slot is not None:
+            slot[2].synchronize()   # the copy out of this buffer is done
+        if (slot is None or slot[0].shape != images.shape
+                or slot[0].dtype != images.dtype
+                or slot[1].shape != labels.shape):
+            slot = (torch.empty(images.shape, dtype=images.dtype,
+                                pin_memory=True),
+                    torch.empty(labels.shape, dtype=torch.int32,
+                                pin_memory=True),
+                    torch.cuda.Event())
+            self._slots[i] = slot
+        host_images, host_labels, done = slot
+        host_images.copy_(images)
+        host_labels.copy_(labels)
+        out = (host_images.to(self.device, non_blocking=True),
+               host_labels.to(self.device, non_blocking=True))
+        done.record()
+        return out
+
+
 def _install_preemption_handlers(flag: dict) -> dict:
     """Point SIGTERM and SIGINT at a handler that sets flag['set'];
     returns the previous handlers. Off the main thread signal.signal
@@ -119,10 +164,12 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
             restored, start_epoch, loss = checkpoint_manager.restore(
                 state, mode=cfg.continue_train)
             if restored is not None:
-                min_train_loss = loss
+                # a non-finite saved loss must not block every later best
+                min_train_loss = loss if np.isfinite(loss) else float("inf")
                 print(f"### Resuming from epoch {start_epoch - 1} "
                       f"(train_loss={loss:.6f}) ###")
 
+    stage = HostStaging(device)
     preempted = {"set": False}
     previous = (_install_preemption_handlers(preempted)
                 if checkpoint_manager is not None else {})
@@ -134,7 +181,7 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
         for epoch in range(start_epoch, last_epoch + 1):
             losses = []
             for i, (images, labels) in enumerate(loader.epoch(epoch)):
-                images = torch.as_tensor(images).to(device, non_blocking=True)
+                images, labels = stage(images, labels)
                 if head.requires_minput:
                     state, metrics = step_fn(state, images, labels,
                                              degrade_images(images))

@@ -225,6 +225,21 @@ def test_fit_resumed_equals_uninterrupted(tmp_path, head):
                                                    "min_loss"]
 
 
+def test_resume_from_a_nan_loss_takes_the_next_best(tmp_path):
+    """A resumed run whose saved epoch loss is not finite starts from an
+    infinite best (as the JAX loop does), so its next epoch writes
+    min_loss; from a NaN best no loss would ever compare below it."""
+    run = _fit_setup(tmp_path, "arcface")
+    first = run(1)
+    mgr = CheckpointManager(str(tmp_path / "arcface"), "arcface")
+    mgr.save(first.state, 1, float("nan"))
+    second = run(1, "latest")
+    epoch_2 = float(np.mean(second.losses))
+    assert second.min_train_loss == epoch_2
+    _, start, loss = mgr.restore(second.state, "min_loss")
+    assert (start, loss) == (3, epoch_2)
+
+
 def test_fit_without_manager_is_unchanged(tmp_path):
     run = _fit_setup(tmp_path, "arcface")
     with_mgr = run(2)

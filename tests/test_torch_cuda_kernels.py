@@ -719,3 +719,62 @@ def test_conv3x3_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="block_n"):
         conv3x3.conv3x3_same(x.float(), torch.zeros(3, 3, 8, 8, device=cuda),
                              block_n=3)
+
+
+def test_train_steps_repeat_bitwise(cuda):
+    """Two default-mode runs of 3 full-width ArcFace steps (resnet18,
+    C=10,575, b512, 112 px) on the same batches, whose labels repeat, give
+    bitwise equal losses and weights: the target-column gather adds
+    repeated labels' gradients in a fixed order (heads.base.take_columns),
+    where index_select's backward adds them with float atomics."""
+    import numpy as np
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.train.loop import fit
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    bs, steps, c = 512, 3, 10575
+    rs = np.random.RandomState(0)
+    images = rs.randint(0, 256, (steps * bs, 112, 112, 3), np.uint8)
+    labels = rs.randint(0, c, steps * bs).astype(np.int32)
+    assert all(len(np.unique(labels[i * bs:(i + 1) * bs])) < bs
+               for i in range(steps))
+    cfg = cfg_lib.TrainConfig(num_classes=c, batch_size=bs, epochs=1,
+                              print_freq=100, seed=0)
+    runs = []
+    for _ in range(2):
+        res = fit(cfg, ArrayLoader(images, labels, batch_size=bs, seed=0),
+                  device=cuda)
+        runs.append((res.losses, res.state.kernel_w.detach().clone(),
+                     {k: v.clone() for k, v in
+                      res.state.backbone.state_dict().items()}))
+        del res
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1], runs[1][1])
+    for key, value in runs[0][2].items():
+        assert torch.equal(value, runs[1][2][key]), key
+
+
+def test_host_staging_copies_every_batch(cuda):
+    """`fit`'s pinned staging: each batch arrives on the card intact,
+    though its two host buffers are refilled while earlier copies may be
+    in flight, and a batch of another shape gets a buffer of its own."""
+    import numpy as np
+
+    from face_recognition_models_tpu_torch.train.loop import HostStaging
+
+    stage = HostStaging(cuda)
+    rs = np.random.RandomState(0)
+    sent, got = [], []
+    for n in (64, 64, 64, 64, 40, 64):
+        images = rs.randint(0, 256, (n, 112, 112, 3), np.uint8)
+        labels = rs.randint(0, 10575, n).astype(np.int32)
+        dev_images, dev_labels = stage(images, labels)
+        assert dev_images.is_cuda and dev_labels.dtype == torch.int32
+        sent.append((images, labels))
+        got.append((dev_images, dev_labels))
+    torch.cuda.synchronize()
+    for (images, labels), (dev_images, dev_labels) in zip(sent, got):
+        assert np.array_equal(dev_images.cpu().numpy(), images)
+        assert np.array_equal(dev_labels.cpu().numpy(), labels)

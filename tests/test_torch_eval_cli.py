@@ -19,7 +19,10 @@ from PIL import Image
 from face_recognition_models_tpu.data import pairs as jpairs
 from face_recognition_models_tpu.evaluation import batch_eval as jbatch
 from face_recognition_models_tpu.evaluation import verification as jver
-from face_recognition_models_tpu_torch.checkpoint import restore_backbone
+from face_recognition_models_tpu_torch.checkpoint import (
+    CheckpointManager,
+    restore_backbone,
+)
 from face_recognition_models_tpu_torch.cli.main import main as cli
 from face_recognition_models_tpu_torch.data.synthetic import (
     synthetic_identities,
@@ -195,6 +198,29 @@ def test_eval_min_loss_flip_and_missing_models(trained, tmp_path):
                                                      rel=1e-12)
     assert cli(["eval", "--checkpoint-dir", str(tmp_path / "nothing"),
                 "--eval-data-path", bench_root, "--device", "cpu"]) == 1
+
+
+def test_eval_skips_a_checkpoint_that_does_not_load(trained, tmp_path,
+                                                   capsys):
+    """A model dir whose final artifact is another backbone's (resnet50
+    weights under `eval --backbone resnet18`) is skipped with a note, as
+    the JAX eval skips it; the other model's tables are still written."""
+    work, bench_root = trained
+    ckpt_root = tmp_path / "ckpts"
+    os.makedirs(ckpt_root)
+    os.symlink(os.path.join(work, "checkpoints", "arcface"),
+               ckpt_root / "arcface")
+    CheckpointManager(str(ckpt_root / "other"), "other").save_final(
+        get_backbone("resnet50").state_dict())
+    rc = cli(["eval", "--checkpoint-dir", str(ckpt_root), "--eval-data-path",
+              bench_root, "--benchmarks", "packed", "--image-size",
+              str(SIZE), "--batch-size", "16", "--backbone", "resnet18",
+              "--output-dir", str(tmp_path / "out"), "--device", "cpu"])
+    assert rc == 0
+    assert "[skip] other: could not load checkpoint" in capsys.readouterr().out
+    for table in ("accuracy_10fold.csv", "auc_10fold.csv"):
+        rows = _read_csv(tmp_path / "out" / table)
+        assert [r["model"] for r in rows] == ["arcface"]
 
 
 def test_entry_points_raise_without_a_card(trained, tmp_path):

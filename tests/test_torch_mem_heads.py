@@ -323,13 +323,14 @@ def test_parse_head_overrides_matches_jax():
 @pytest.mark.parametrize("name,extra", [("vpl_arcface", []),
                                         ("qaface", ["--head-arg",
                                                     "delta=1"])])
-def test_cli_trains_mem_head_on_cpu(name, extra):
+def test_cli_trains_mem_head_on_cpu(name, extra, tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "face_recognition_models_tpu_torch.cli",
          "train", "--synthetic", "--head", name, *extra,
          "--synthetic-classes", "8", "--synthetic-per-class", "4",
          "--batch_size", "16", "--epochs", "1", "--image-size", "32",
-         "--print_freq", "1", "--device", "cpu"],
+         "--print_freq", "1", "--device", "cpu",
+         "--working-path", str(tmp_path / "work")],
         cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

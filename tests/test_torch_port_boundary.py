@@ -45,7 +45,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == "", f"the port pulled in {bad}"
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works")
     from face_recognition_models_tpu_torch import config as cfg_lib
@@ -69,17 +69,19 @@ def test_entry_points_raise_without_a_card():
     proc = _run([sys.executable, "-m", "face_recognition_models_tpu_torch.cli",
                  "train", "--synthetic", "--synthetic-classes", "2",
                  "--synthetic-per-class", "2", "--batch_size", "4",
-                 "--epochs", "1", "--image-size", "16"])
+                 "--epochs", "1", "--image-size", "16",
+                 "--working-path", str(tmp_path / "work")])
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
 
 
-def test_cli_train_synthetic_on_cpu():
+def test_cli_train_synthetic_on_cpu(tmp_path):
     proc = _run([sys.executable, "-m", "face_recognition_models_tpu_torch.cli",
                  "train", "--synthetic", "--backbone", "resnet18",
                  "--synthetic-classes", "8", "--synthetic-per-class", "2",
                  "--batch_size", "16", "--epochs", "1", "--image-size", "32",
-                 "--print_freq", "1", "--device", "cpu"])
+                 "--print_freq", "1", "--device", "cpu",
+                 "--working-path", str(tmp_path / "work")])
     assert proc.returncode == 0, proc.stderr
     losses = [float(x) for x in re.findall(r"\] loss (\S+)", proc.stdout)]
     assert len(losses) == 1 and np.isfinite(losses[0]), proc.stdout
