@@ -44,6 +44,18 @@ and no result line:
              the kernels and through the eager head (ArcFace, VPL-ArcFace),
              and QAFace's BatchNorm buffers after a step with its degraded
              view against a step without it.
+5b. heads  - 3 full-width `fit` steps of each of the eleven other heads
+             (sphereface, cosface, mv_softmax, curricularface, adaface,
+             elastic_cosface, elastic_arcface, magface, combined_margin on
+             the kernels, launched once a step; subcenter_arcface and adacos
+             on the eager head, launching none), then one step through the
+             kernels against one through the eager head for each fused
+             head, and each head's forward + backward device ms (kernels
+             and eager) at N=512, D=512, C=10,575.
+5c. pretrained - a seeded torchvision-layout resnet18 state_dict (1000-class
+             fc) saved and loaded (seconds), then 2 ArcFace steps of `fit`
+             from it with bf16 BatchNorm: the trunk equals the file before
+             step 1.
 6. head_bf16 - one forward and backward through the public
              `fused_margin_ce` and `fused_margin_ce_mem` with
              mm_dtype=torch.bfloat16 at the training shape: one launch of
@@ -126,6 +138,18 @@ CONV_MAIN = (14, 256)   # the benchmark phase's shape, and the kernels line's
 TIMED_CASES = ((None, 0, None, "N512_D512_C10575_identity"),
                ("vpl", 0, 1e-7, "N512_D512_C10575_vpl_mem"),
                ("dense", 0, 1e-7, "N512_D512_C10575_vpl_mem_dense"))
+# (fused head, case): the training shape with the row scalars of a head in
+# each margin mode the other heads bring (fused_head.MODE_MV = 1,
+# MODE_CURRICULAR = 2, and MODE_IDENTITY with a per-row norm scale)
+MODE_CASES = (("mv_softmax", "N512_D512_C10575_mv"),
+              ("curricularface", "N512_D512_C10575_curricular"),
+              ("sphereface", "N512_D512_C10575_identity_normscale"))
+# the heads beyond ArcFace, VPL-ArcFace and QAFace, and their steps of fit
+NEW_HEADS = ("sphereface", "cosface", "mv_softmax", "curricularface",
+             "adaface", "elastic_cosface", "elastic_arcface", "magface",
+             "combined_margin", "subcenter_arcface", "adacos")
+HEAD_STEPS = 3
+HEAD_TIMED_CALLS = 5   # calls a head's device_ms reading averages
 SOURCE = "face_recognition_models_tpu_torch/csrc/fused_head.cu"
 CONV_SOURCE = "face_recognition_models_tpu_torch/csrc/conv3x3.cu"
 REPLACES = {
@@ -626,9 +650,10 @@ def check_split_bf16(x, mode, clamp_eps):
     return errs, ranges
 
 
-def eager_head(x, clamp_eps=None, bf16=False):
+def eager_head(x, clamp_eps=None, bf16=False, mode=0):
     """(xn, wn, forward) of the eager head on inputs `x`: forward() returns
-    the mean loss through torch.matmul + the margin select +
+    the mean loss through torch.matmul + the margin `mode`'s non-target
+    map (fused_head._h: none in the identity mode) + the margin select +
     F.cross_entropy, with xn and wn as leaves of its graph. With memn in
     `x`, the eager VPL head: two torch.matmul + the blend (+ the clamp)
     before the select. With `bf16`, each torch.matmul takes bf16 operands
@@ -636,6 +661,8 @@ def eager_head(x, clamp_eps=None, bf16=False):
     bf16 result is taken on in fp32."""
     import torch
     import torch.nn.functional as F
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
 
     xn = x["xn"].clone().requires_grad_(True)
     wn = x["wn"].clone().requires_grad_(True)
@@ -653,6 +680,7 @@ def eager_head(x, clamp_eps=None, bf16=False):
             cos = (1.0 - x["lam"]) * cos + x["lam"] * mm(xn, x["memn"])
         if clamp_eps is not None:
             cos = cos.clamp(-1.0 + clamp_eps, 1.0 - clamp_eps)
+        cos = fh._h(mode, cos, x["ab"][:, :1], x["ab"][:, 1:])
         logits = x["scale"][:, None] * torch.where(onehot, x["t"][:, None],
                                                    cos)
         return F.cross_entropy(logits, labels)
@@ -671,14 +699,14 @@ def library_bwd_device_ms(x, clamp_eps=None, bf16=False):
                                                  retain_graph=True))
 
 
-def library_head_ms(x, clamp_eps=None, bf16=False):
+def library_head_ms(x, clamp_eps=None, bf16=False, mode=0):
     """The eager head (eager_head) as the yardstick, forward and backward
     timed apart (CUDA events). Each is timed LIB_REPEATS times over 20
     iterations; returns (forward ms, backward ms, spread), the times the
     medians of the repeats, the spread their [min, max]."""
     import torch
 
-    _, _, forward = eager_head(x, clamp_eps, bf16)
+    _, _, forward = eager_head(x, clamp_eps, bf16, mode)
     fwd = [cuda_ms(forward) for _ in range(LIB_REPEATS)]
     for _ in range(3):
         forward().backward()
@@ -755,6 +783,72 @@ def time_family(x, mode, clamp_eps, bf16=False):
     """{name: (kernel ms, plain ms)} of one family on inputs `x`."""
     return {name: (cuda_ms(kernel), cuda_ms(plain)) for name, kernel, plain
             in family_calls(x, mode, clamp_eps, bf16)}
+
+
+def head_inputs(name, seed):
+    """(inputs of the fp32 family at the training shape, mode, clamp) with
+    the row scalars (t, tcos, scale, ab) that the fused head `name`
+    (heads/fused_adapter._row_params, from its initial state) gives random
+    features of norm ~22 and the head's own kernel initialisation."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.heads import fused_adapter as fa
+    from face_recognition_models_tpu_torch.heads import get_head
+    from face_recognition_models_tpu_torch.ops.normalize import (
+        feature_norms, l2_normalize)
+
+    dev = "cuda"
+    cfg = cfg_lib.make_head_config(name, feature_dim=D_MAIN,
+                                   num_classes=C_MAIN)
+    head = get_head(name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn(N_MAIN, D_MAIN, device=dev, generator=g)
+    labels = torch.randint(0, C_MAIN, (N_MAIN,), device=dev, generator=g,
+                           dtype=torch.int32)
+    kernel = head.init_kernel(cfg, torch.Generator().manual_seed(seed), dev)
+    xn = l2_normalize(feats, dim=1)
+    wn = l2_normalize(kernel, dim=0).contiguous()
+    tcos = (xn * wn[:, labels.long()].T).sum(1)
+    rp = fa._row_params(cfg, tcos, feature_norms(feats),
+                        head.init_state(cfg, dev))
+    x = dict(xn=xn, wn=wn, labels=labels, t=rp.t.contiguous(),
+             tcos=rp.tcos.contiguous(), scale=rp.scale.contiguous(),
+             ab=rp.ab.contiguous(),
+             g_lse=torch.full((N_MAIN,), 1.0 / N_MAIN, device=dev),
+             g_t=torch.full((N_MAIN,), -1.0 / N_MAIN, device=dev))
+    return x, rp.mode, rp.clamp_eps
+
+
+def check_mode_cases():
+    """The fp32 family at MODE_CASES against the plain versions (bitwise
+    repeat, split partials and combine), timed beside the plain versions,
+    the eager library head in the same mode and the bound."""
+    import torch
+
+    for name, case in MODE_CASES:
+        x, mode, eps = head_inputs(name, seed=17)
+        errs, flips, _ = check_case(x, mode, eps)
+        split, splits = check_split(x, mode, eps)
+        ms = time_family(x, mode, eps)
+        lib_fwd, lib_bwd, lib_spread = library_head_ms(x, eps, mode=mode)
+        fam = bound_rows(x, PLAIN_KERNELS, errs, ms,
+                         (lib_fwd, lib_bwd, lib_bwd))
+        emit({"phase": "kernels", "case": case, "head": name, "mode": mode,
+              "clamp_eps": eps, "splits": splits,
+              "scale_range": [float(x["scale"].min()),
+                              float(x["scale"].max())],
+              "max_abs_err": {**errs, **split}, "higher_flips": flips,
+              "bitwise_repeat": True, "tolerance": TOLERANCE,
+              "kernel_ms": {r["name"]: r["ms"] for r in fam},
+              "plain_ms": {r["name"]: r["plain_ms"] for r in fam},
+              "library_ms": {"head_fwd": lib_fwd, "head_bwd": lib_bwd},
+              "library_spread": lib_spread,
+              "bound_ms": {r["name"]: r["bound_ms"] for r in fam},
+              "bound_by": {r["name"]: r["bound_by"] for r in fam},
+              "ok": True})
+        del x
+        torch.cuda.empty_cache()
 
 
 def phase_kernels():
@@ -879,6 +973,7 @@ def phase_kernels():
                 rows += fam
         del x
         torch.cuda.empty_cache()
+    check_mode_cases()
     return rows
 
 
@@ -1080,9 +1175,10 @@ def train_batches(steps, bs, size, seed=0):
 
 
 @contextlib.contextmanager
-def after_each_step(record):
-    """Run `record(state)` after every train step that `fit` takes (by
-    wrapping the loop's `make_train_step`); the step itself is as is."""
+def observe_steps(after=None, before=None):
+    """Run `before(state)` before and `after(state)` after every train step
+    that `fit` takes (by wrapping the loop's `make_train_step`); the step
+    itself is as is."""
     from face_recognition_models_tpu_torch.train import loop
 
     build = loop.make_train_step
@@ -1091,8 +1187,11 @@ def after_each_step(record):
         step = build(*args, **kwargs)
 
         def observed(state, *batch):
+            if before is not None:
+                before(state)
             out = step(state, *batch)
-            record(out[0])
+            if after is not None:
+                after(out[0])
             return out
         return observed
 
@@ -1103,10 +1202,12 @@ def after_each_step(record):
         loop.make_train_step = build
 
 
-def train_phase(head_name, kernels):
-    """5 full-width steps of resnet18 + `head_name` through the port's `fit`.
-    The counters of `kernels` must equal the steps and all others stay 0.
-    Returns (fit result, the step's batch, launch counts)."""
+def train_phase(head_name, kernels, steps=TRAIN_STEPS, phase="train",
+                **cfg_kw):
+    """`steps` full-width steps of resnet18 + `head_name` through the port's
+    `fit` (TrainConfig fields in `cfg_kw`). The counters of `kernels` must
+    equal the steps and all others stay 0. Returns (fit result, the step's
+    batch, launch counts)."""
     import torch
 
     from face_recognition_models_tpu_torch import config as cfg_lib
@@ -1116,42 +1217,45 @@ def train_phase(head_name, kernels):
 
     bs, size = 512, 112
     cfg = cfg_lib.TrainConfig(head=head_name, num_classes=C_MAIN,
-                              batch_size=bs, epochs=1, print_freq=1, seed=0)
-    images, labels = train_batches(TRAIN_STEPS, bs, size)
+                              batch_size=bs, epochs=1, print_freq=1, seed=0,
+                              **cfg_kw)
+    images, labels = train_batches(steps, bs, size)
     loader = ArrayLoader(images, labels, batch_size=bs, seed=0)
     active = []
 
     def count_active(state):
-        if state.head_state is not None:
+        if hasattr(state.head_state, "life"):
             active.append(int((state.head_state.life > 0).sum()))
 
     torch.cuda.reset_peak_memory_stats()
     fh.reset_launch_counts()
-    with after_each_step(count_active):
+    with observe_steps(count_active):
         res = fit(cfg, loader, device="cuda")
     torch.cuda.synchronize()
     launches = dict(fh.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(v) for v in res.losses):
         raise AssertionError(f"{head_name}: non-finite loss: {res.losses}")
-    if len(res.losses) != TRAIN_STEPS:
+    if len(res.losses) != steps:
         raise AssertionError(f"{head_name}: {len(res.losses)} steps run")
     for name, count in launches.items():
-        want = TRAIN_STEPS if name in kernels else 0
+        want = steps if name in kernels else 0
         if count != want:
             raise AssertionError(f"{head_name}: {name} launched {count} "
-                                 f"times in {TRAIN_STEPS} steps, not {want}")
+                                 f"times in {steps} steps, not {want}")
     if head_name == "vpl_arcface" and not (
-            len(active) == TRAIN_STEPS and min(active) > 0):
+            len(active) == steps and min(active) > 0):
         raise AssertionError(f"vpl_arcface: active classes {active}: the "
                              "memory blend was not exercised")
     # print_freq=1 reads the loss every step, so each step time includes
     # the wait for the card; step 1 carries cuDNN's first-call set-up
     ms_step = 1e3 * float(np.mean(res.step_seconds[1:]))
     extra = {"active_classes": active} if active else {}
-    emit({"phase": "train", "backbone": "resnet18", "head": head_name,
+    emit({"phase": phase, "backbone": "resnet18", "head": head_name,
           "num_classes": C_MAIN, "batch": bs, "image_size": size,
-          "dtype": cfg.compute_dtype, "losses": res.losses, **extra,
+          "dtype": cfg.compute_dtype, "bn_dtype": cfg.bn_dtype,
+          "use_fused_head": cfg.use_fused_head, "losses": res.losses,
+          **extra,
           "step_ms": [1e3 * s for s in res.step_seconds],
           "ms_per_step_after_1": ms_step, "img_per_s_after_1": bs / ms_step
           * 1e3, "max_memory_allocated": peak, "launches": launches,
@@ -1163,7 +1267,8 @@ def snapshot(state):
     return (copy.deepcopy(state.backbone.state_dict()),
             state.kernel_w.detach().clone(),
             copy.deepcopy(state.optimizer.state_dict()), state.step,
-            state.head_state)
+            state.head_state,
+            None if state.rng is None else state.rng.get_state())
 
 
 def restore(state, saved):
@@ -1175,6 +1280,8 @@ def restore(state, saved):
     state.optimizer.load_state_dict(copy.deepcopy(saved[2]))
     state.step = saved[3]
     state.head_state = saved[4]
+    if saved[5] is not None:
+        state.rng.set_state(saved[5])
 
 
 def train_vs_eager(res, batch):
@@ -1262,6 +1369,157 @@ def phase_train():
     qaface_bn_check(res, batch)
     return {**{k: arc[k] for k in PLAIN_KERNELS},
             **{k: vpl[k] for k in MEM_KERNELS}}
+
+
+def head_device_ms(name):
+    """{path: device ms} (device_ms over HEAD_TIMED_CALLS calls) of one
+    forward + backward of head `name` at N=512,
+    D=512, C=10,575 on random features (norm ~22) and the head's own kernel
+    initialisation, from its initial state: through the kernels
+    (fused_apply, where the head has them) and through the eager head
+    (head.apply + the CE), each with the loss_g term; plus the memory each
+    holds at its peak above what was allocated before it (MB)."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.heads import get_head
+    from face_recognition_models_tpu_torch.heads.fused_adapter import (
+        fused_apply, fused_supported)
+    from face_recognition_models_tpu_torch.train.losses import (
+        mean_cross_entropy)
+
+    dev = "cuda"
+    cfg = cfg_lib.make_head_config(name, feature_dim=D_MAIN,
+                                   num_classes=C_MAIN)
+    head = get_head(name)
+    g = torch.Generator(device=dev).manual_seed(3)
+    feats = torch.randn(N_MAIN, D_MAIN, device=dev,
+                        generator=g).requires_grad_(True)
+    labels = torch.randint(0, C_MAIN, (N_MAIN,), device=dev, generator=g)
+    kernel = head.init_kernel(cfg, torch.Generator().manual_seed(3),
+                              dev).requires_grad_(True)
+    state = head.init_state(cfg, dev)
+    rng = torch.Generator(device=dev).manual_seed(4)
+
+    def fused():
+        out = fused_apply(cfg, kernel, feats, labels, state, rng=rng)
+        torch.autograd.grad(out.loss_id + out.loss_g, (feats, kernel))
+
+    def eager():
+        out = head.apply(cfg, kernel, feats, labels, state, rng=rng)
+        loss = mean_cross_entropy(out.logits, labels) + out.loss_g
+        torch.autograd.grad(loss, (feats, kernel))
+
+    out = {}
+    paths = (("fused", fused), ("eager", eager)) if fused_supported(name) \
+        else (("eager", eager),)
+    for path, fn in paths:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{path}_peak_mb"] = (torch.cuda.max_memory_allocated()
+                                  - base) / 2 ** 20
+        # 5 calls: a forward + backward is 60-120 launches, and the card's
+        # launch queue (about a thousand) must hold all the calls queued
+        # behind the spin
+        out[f"{path}_ms"] = device_ms(fn, warmup=2, iters=HEAD_TIMED_CALLS)
+    return out
+
+
+def phase_heads():
+    """Each of NEW_HEADS at full width: HEAD_STEPS steps of `fit` on the
+    path `train --head-path auto` gives it (K1 / K2 once a step for the
+    fused heads, no kernel for the eager two), one step through the kernels
+    against one through the eager head for each fused head, and the head's
+    own forward + backward device ms on both paths. Returns {head:
+    launches}."""
+    from face_recognition_models_tpu_torch.heads.fused_adapter import (
+        use_fused)
+
+    out = {}
+    for name in NEW_HEADS:
+        fused = use_fused(name)
+        res, batch, launches = train_phase(
+            name, PLAIN_KERNELS if fused else (), steps=HEAD_STEPS,
+            phase="heads", use_fused_head=fused)
+        if fused:
+            train_vs_eager(res, batch)
+        del res
+        emit({"phase": "heads_head_ms", "head": name,
+              "N": N_MAIN, "D": D_MAIN, "C": C_MAIN, **head_device_ms(name),
+              "ok": True})
+        out[name] = launches
+    return out
+
+
+def torchvision_state_dict(seed):
+    """A seeded resnet18 state_dict in torchvision's layout (the port's
+    names) with a 1000-class fc and random BatchNorm statistics."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models import get_backbone
+
+    g = torch.Generator().manual_seed(seed)
+    sd = get_backbone("resnet18", embed_dim=1000,
+                      dtype=torch.float32).state_dict()
+    for k, v in sd.items():
+        if k.endswith("running_var") or (k.endswith("weight")
+                                         and v.ndim == 1):
+            sd[k] = 0.5 + torch.rand(v.shape, generator=g)
+        elif v.dtype.is_floating_point:
+            sd[k] = 0.05 * torch.randn(v.shape, generator=g)
+    return sd
+
+
+def phase_pretrained(root):
+    """`train --pretrained` with `--bn-dtype bfloat16`: a seeded
+    torchvision-layout resnet18 state_dict saved under `root`, its load
+    timed on the host, then 2 full-width ArcFace steps of `fit` from it
+    with bf16 BatchNorm. Before step 1 the trunk equals the file (every key
+    but the 1000-class fc) bit for bit and every BatchNorm rounds to
+    bf16."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.utils.pretrained import (
+        load_pretrained_backbone)
+
+    sd = torchvision_state_dict(seed=5)
+    path = os.path.join(root, "resnet18_torchvision.pth")
+    torch.save(sd, path)
+    trunk = get_backbone("resnet18")
+    t0 = time.perf_counter()
+    load_pretrained_backbone(path, "resnet18", trunk)
+    load_s = time.perf_counter() - t0
+    del trunk
+    checked = []
+
+    def trunk_is_file(state):
+        if checked:
+            return
+        got = state.backbone.state_dict()
+        for key, value in sd.items():
+            if not key.startswith("fc.") and not torch.equal(
+                    got[key].cpu(), value):
+                raise AssertionError(f"pretrained: {key} differs from the "
+                                     "file before step 1")
+        dtypes = {m.dtype for m in state.backbone.modules()
+                  if type(m).__name__ == "BatchNorm"}
+        if dtypes != {torch.bfloat16}:
+            raise AssertionError(f"pretrained: BatchNorm dtypes {dtypes}")
+        checked.append(len(sd))
+
+    with observe_steps(before=trunk_is_file):
+        res, _, launches = train_phase(
+            "arcface", PLAIN_KERNELS, steps=2, phase="pretrained_train",
+            pretrained_path=path, bn_dtype="bfloat16")
+    if not checked:
+        raise AssertionError("pretrained: no step ran")
+    emit({"phase": "pretrained", "file_bytes": os.path.getsize(path),
+          "load_seconds": load_s, "keys_checked": checked[0],
+          "losses": res.losses, "launches": launches, "ok": True})
 
 
 def phase_head_bf16():
@@ -1870,6 +2128,9 @@ def main() -> int:
     rows = phase_kernels()
     rows += phase_conv()
     launches = phase_train()
+    phase_heads()
+    with tempfile.TemporaryDirectory() as root:
+        phase_pretrained(root)
     launches.update(phase_head_bf16())
     launches.update(phase_conv_bench())
     f32_plain_ms = phase_conv_f32()

@@ -21,10 +21,13 @@ Saves are synchronous.
 The payload is everything a resumed run needs to repeat the uninterrupted
 one bit for bit: the backbone's state_dict (parameters and BatchNorm
 buffers, num_batches_tracked included), `kernel_w`, every head-state
-tensor (the VPL / QAFace memory and counters), the optimizer's state_dict
-(momentum), the step, and the default generators (CPU and the card's)
-that dropout or sampling would draw from; plus the epoch and its train
-loss (a Python float; the JAX package rounds it to float32). Restoring
+tensor in its own dtype (the VPL / QAFace memory and counters, SphereFace's
+int iter, CurricularFace's t, AdaFace's statistics, AdaCos's scale), the
+optimizer's state_dict (momentum), the step, the state's step generator
+(`TrainState.rng`, the elastic heads' draws) and the default generators
+(CPU and the card's) that dropout or sampling would draw from; plus the
+epoch and its train loss (a Python float; the JAX package rounds it to
+float32). Restoring
 loads into a live TrainState in place: the parameters keep their objects
 and layout (channels-last on the card), so the optimizer's slots stay bound
 to them.
@@ -64,7 +67,9 @@ def _payload(state) -> Dict[str, Any]:
                            else list(state.head_state)),
             "optimizer": state.optimizer.state_dict(),
             "step": state.step,
-            "rng": rng}
+            "rng": rng,
+            "generator": (None if state.rng is None
+                          else state.rng.get_state())}
 
 
 def _load_into(state, payload: Dict[str, Any]) -> None:
@@ -77,6 +82,8 @@ def _load_into(state, payload: Dict[str, Any]) -> None:
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = payload["step"]
     # generator states are CPU byte tensors, wherever the load mapped them
+    if payload.get("generator") is not None:
+        state.rng.set_state(payload["generator"].cpu())
     torch.set_rng_state(payload["rng"]["cpu"].cpu())
     if "cuda" in payload["rng"]:
         torch.cuda.set_rng_state(payload["rng"]["cuda"].cpu(),

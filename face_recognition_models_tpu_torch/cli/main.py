@@ -1,14 +1,17 @@
-"""Command line of the port. Port of the `train`, `eval` and `pack`
+"""Command line of the port. Port of the `train`, `eval`, `pack` and `list`
 subcommands of face_recognition_models_tpu/cli/main.py; flag names and
 defaults follow it.
 
     python -m face_recognition_models_tpu_torch.cli train \
-        --dataset-path P | --synthetic \
+        --dataset-path P | --synthetic [--head NAME] \
+        [--head-path auto|fused|eager] [--lambda_g G] \
+        [--pretrained STATE_DICT.pth] [--bn-dtype bfloat16] \
         [--working-path W] [--continue_train latest] [--device cpu] ...
     python -m face_recognition_models_tpu_torch.cli pack \
         --dataset-path P --output DIR [--image-size 112] [--backend auto]
     python -m face_recognition_models_tpu_torch.cli eval \
         --checkpoint-dir W/checkpoints --eval-data-path E [--device cpu] ...
+    python -m face_recognition_models_tpu_torch.cli list
 
 `train --dataset-path` reads a pack (`pack`'s output, no decode), an
 insightface RecordIO set (`train.rec` / `train.idx`: either path, their
@@ -30,12 +33,18 @@ import time
 
 from face_recognition_models_tpu_torch import config as cfg_lib
 from face_recognition_models_tpu_torch.heads import available_heads
+from face_recognition_models_tpu_torch.heads.fused_adapter import (
+    HEAD_PATHS,
+    use_fused,
+)
 from face_recognition_models_tpu_torch.models import BACKBONES
 
 
 def _add_train_parser(sub):
     p = sub.add_parser("train", help="train a margin-head model")
-    p.add_argument("--head", default="arcface", choices=available_heads())
+    p.add_argument("--head", default="arcface",
+                   choices=available_heads() + ["mv_softmax_arc"],
+                   help="margin head (mv_softmax_arc = MV with arc margin)")
     p.add_argument("--head-arg", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="head hyperparameter override, repeatable "
@@ -49,16 +58,29 @@ def _add_train_parser(sub):
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--lr-steps", default="20,40,60",
                    help="customstep drop epochs")
+    p.add_argument("--lambda_g", type=float, default=0.0,
+                   help="Magnitude loss weight (MagFace)")
     p.add_argument("--print_freq", type=int, default=100)
     p.add_argument("--continue_train", choices=["min_loss", "latest"],
                    help="resume from best or latest checkpoint")
+    p.add_argument("--pretrained", default=None, metavar="STATE_DICT.pth",
+                   help="torchvision backbone state_dict to initialize from "
+                        "(the reference trains from ImageNet-pretrained "
+                        "torchvision weights; resnet18/resnet50)")
     p.add_argument("--working-path", default=os.environ.get("WORKING_PATH",
                                                             "./working"))
     p.add_argument("--model-save-path", default=None,
                    help="checkpoint dir (default <working>/checkpoints/<name>)")
-    p.add_argument("--head-path", choices=["fused", "eager"], default="fused",
-                   help="fused: the CUDA margin + CE kernels; eager: the "
-                        "[N, C] PyTorch head")
+    p.add_argument("--head-path", choices=HEAD_PATHS, default="auto",
+                   help="margin + CE implementation: 'fused' the CUDA "
+                        "kernels (12 heads; refuses subcenter_arcface and "
+                        "adacos), 'eager' the [N, C] PyTorch head, 'auto' "
+                        "(default) the kernels for every head that has "
+                        "them and the eager head for the other two")
+    p.add_argument("--bn-dtype", choices=["float32", "bfloat16"],
+                   default="float32",
+                   help="BatchNorm output dtype (its statistics and math "
+                        "stay fp32)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
@@ -150,25 +172,35 @@ def cmd_train(args) -> int:
         synthetic_identities)
     from face_recognition_models_tpu_torch.train.loop import fit
 
+    head, head_kw = args.head, {}
+    if head == "mv_softmax_arc":
+        head, head_kw = "mv_softmax", {"margin_type": "arc"}
     model_name = args.head
+    head_kw.update(cfg_lib.parse_head_overrides(head, args.head_arg))
+    try:
+        fused = use_fused(head, args.head_path)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     cfg = cfg_lib.TrainConfig(
-        backbone=args.backbone, head=args.head,
+        backbone=args.backbone, head=head,
         num_classes=(args.synthetic_classes if args.synthetic
                      else args.num_classes),
         batch_size=args.batch_size,
-        epochs=args.epochs, print_freq=args.print_freq,
+        epochs=args.epochs, lambda_g=args.lambda_g,
+        print_freq=args.print_freq,
         seed=args.seed, working_path=args.working_path,
         continue_train=args.continue_train,
-        use_fused_head=args.head_path == "fused",
+        pretrained_path=args.pretrained, bn_dtype=args.bn_dtype,
+        use_fused_head=fused,
         optimizer=cfg_lib.OptimizerConfig(
             learning_rate=args.learning_rate, momentum=args.momentum,
             weight_decay=args.weight_decay),
         schedule=cfg_lib.ScheduleConfig(
             steps=tuple(int(s) for s in args.lr_steps.split(",") if s)),
         data=cfg_lib.DataConfig(image_size=args.image_size))
-    head_cfg = cfg_lib.make_head_config(
-        args.head, num_classes=cfg.num_classes,
-        **cfg_lib.parse_head_overrides(args.head, args.head_arg))
+    head_cfg = cfg_lib.make_head_config(head, num_classes=cfg.num_classes,
+                                        **head_kw)
     if args.synthetic:
         images, labels = synthetic_identities(
             args.synthetic_classes, args.synthetic_per_class,
@@ -187,7 +219,8 @@ def cmd_train(args) -> int:
         args.working_path, "checkpoints", model_name)
     with open(os.path.join(log_dir, f"{model_name}.txt"), "a") as logfile, \
             contextlib.redirect_stdout(Tee(sys.stdout, logfile)):
-        print(f"Training {model_name} ({cfg.backbone}) - batch "
+        print(f"Training {model_name} ({cfg.backbone}, "
+              f"{'fused' if fused else 'eager'} head) - batch "
               f"{cfg.batch_size}, epochs {cfg.epochs}, "
               f"lr {args.learning_rate}")
         mgr = CheckpointManager(ckpt_dir, model_name,
@@ -330,6 +363,12 @@ def cmd_pack(args) -> int:
     return 0
 
 
+def cmd_list(args) -> int:
+    print("heads:     ", ", ".join(available_heads()))
+    print("backbones: ", ", ".join(sorted(BACKBONES)))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m face_recognition_models_tpu_torch.cli",
@@ -339,6 +378,7 @@ def main(argv=None) -> int:
     _add_train_parser(sub)
     _add_eval_parser(sub)
     _add_pack_parser(sub)
+    sub.add_parser("list", help="list the heads and backbones")
     args = parser.parse_args(argv)
     if args.command == "train":
         return cmd_train(args)
@@ -346,5 +386,7 @@ def main(argv=None) -> int:
         return cmd_eval(args)
     if args.command == "pack":
         return cmd_pack(args)
+    if args.command == "list":
+        return cmd_list(args)
     parser.error(f"unknown command {args.command}")
     return 2

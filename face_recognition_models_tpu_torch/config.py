@@ -1,8 +1,8 @@
 """Typed configuration of the port's training path.
 
 The port's own copy of the fields of face_recognition_models_tpu/config.py
-that the ResNet training path reads, with the ArcFace, VPL-ArcFace and
-QAFace heads; defaults are the same values (the reference's recipe:
+that the ResNet training path reads, with every margin head of the JAX
+package; defaults are the same values (the reference's recipe:
 resnet18, ArcFace m=0.5 s=64, CASIA's 10,575 classes, batch 512, 112 px, SGD
 lr 0.1 momentum 0.9 wd 5e-4, customstep), plus the checkpoint and resume
 fields and the benchmarks `eval` reads.
@@ -11,6 +11,7 @@ fields and the benchmarks `eval` reads.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 FEATURE_DIM = 512
@@ -30,6 +31,28 @@ class HeadConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SphereFaceConfig(HeadConfig):
+    """A-Softmax with annealing (reference criterion.py:12-107)."""
+
+    name: str = "sphereface"
+    m: int = 2              # config.py:17 (the reference head's default is 4)
+    base: float = 1000.0
+    gamma: float = 0.12
+    power: float = 1.0
+    lambda_min: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CosFaceConfig(HeadConfig):
+    """Additive cosine margin (reference criterion.py:137-197)."""
+
+    name: str = "cosface"
+    m: float = 0.35
+    s: float = 64.0
+    eps: float = 1e-4       # criterion.py:147
+
+
+@dataclasses.dataclass(frozen=True)
 class ArcFaceConfig(HeadConfig):
     """Additive angular margin (reference criterion.py:232-301)."""
 
@@ -37,6 +60,30 @@ class ArcFaceConfig(HeadConfig):
     m: float = 0.5
     s: float = 64.0
     easy_margin: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class MVSoftmaxConfig(HeadConfig):
+    """Mis-classified vector guided softmax (reference
+    criterion.py:327-461)."""
+
+    name: str = "mv_softmax"
+    m: float = 0.35
+    mv_weight: float = 1.12
+    s: float = 32.0
+    margin_type: str = "am"  # 'am' or 'arc'
+    eps: float = 1e-7       # criterion.py:413
+
+
+@dataclasses.dataclass(frozen=True)
+class CurricularFaceConfig(HeadConfig):
+    """Curriculum hard-negative scaling with an EMA difficulty `t`
+    (reference criterion.py:491-587)."""
+
+    name: str = "curricularface"
+    m: float = 0.5
+    s: float = 64.0
+    momentum: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +98,61 @@ class VPLArcFaceConfig(HeadConfig):
     lamda: float = 0.15
     delta: int = 100
     eps: float = 1e-7
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaFaceConfig(HeadConfig):
+    """Norm-adaptive margin with an EMA of the batch's norm statistics
+    (reference criterion.py:795-918). The reference weights the EMA toward
+    the current batch (batch * t_alpha + (1 - t_alpha) * ema, :881-882);
+    kept."""
+
+    name: str = "adaface"
+    m: float = 0.4
+    h: float = 0.333
+    s: float = 64.0
+    t_alpha: float = 0.99
+    eps: float = 1e-3       # criterion.py:828
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticArcFaceConfig(HeadConfig):
+    """Per-sample Gaussian angular margin (reference
+    criterion.py:1054-1154)."""
+
+    name: str = "elastic_arcface"
+    s: float = 64.0
+    m: float = 0.5
+    std: float = 0.0125
+    plus: bool = False
+    eps: float = 1e-7       # criterion.py:1104
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticCosFaceConfig(HeadConfig):
+    """Per-sample Gaussian cosine margin (reference criterion.py:951-1030)."""
+
+    name: str = "elastic_cosface"
+    s: float = 64.0
+    m: float = 0.35
+    std: float = 0.0125
+    plus: bool = False
+    eps: float = 1e-7       # criterion.py:994
+
+
+@dataclasses.dataclass(frozen=True)
+class MagFaceConfig(HeadConfig):
+    """Magnitude-adaptive margin plus the magnitude regulariser `loss_g`
+    (reference criterion.py:1178-1301); the step adds lambda_g * loss_g."""
+
+    name: str = "magface"
+    s: float = 64.0
+    easy_margin: bool = False
+    l_margin: float = 0.45
+    u_margin: float = 0.8
+    l_a: float = 10.0
+    u_a: float = 110.0
+    eps: float = 1e-7       # criterion.py:1260
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +172,58 @@ class QAFaceConfig(HeadConfig):
     eps: float = 1e-7
 
 
-HEAD_CONFIGS = {"arcface": ArcFaceConfig, "vpl_arcface": VPLArcFaceConfig,
-                "qaface": QAFaceConfig}
+@dataclasses.dataclass(frozen=True)
+class CombinedMarginConfig(HeadConfig):
+    """Unified target margin cos(m1 * theta + m2) - m3 (insightface's
+    combined-margin recipe): (1, 0.5, 0) is ArcFace, (1, 0, 0.35) CosFace."""
+
+    name: str = "combined_margin"
+    m1: float = 1.0
+    m2: float = 0.5
+    m3: float = 0.0
+    s: float = 64.0
+    eps: float = 1e-7
+
+
+@dataclasses.dataclass(frozen=True)
+class SubCenterArcFaceConfig(HeadConfig):
+    """Sub-center ArcFace (Deng et al., ECCV 2020): k prototype columns per
+    class, the cosine max-pooled over them before the ArcFace margin."""
+
+    name: str = "subcenter_arcface"
+    m: float = 0.5
+    s: float = 64.0
+    k: int = 3
+    easy_margin: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaCosConfig(HeadConfig):
+    """AdaCos (Zhang et al., CVPR 2019): no margin; the cosine scale is set
+    from the batch (dynamic) or fixed at sqrt(2) * ln(C - 1), and kept as
+    head state."""
+
+    name: str = "adacos"
+    dynamic: bool = True
+    theta_clip: float = math.pi / 4.0
+
+
+HEAD_CONFIGS = {
+    "sphereface": SphereFaceConfig,
+    "cosface": CosFaceConfig,
+    "arcface": ArcFaceConfig,
+    "mv_softmax": MVSoftmaxConfig,
+    "curricularface": CurricularFaceConfig,
+    "vpl_arcface": VPLArcFaceConfig,
+    "adaface": AdaFaceConfig,
+    "elastic_arcface": ElasticArcFaceConfig,
+    "elastic_cosface": ElasticCosFaceConfig,
+    "magface": MagFaceConfig,
+    "qaface": QAFaceConfig,
+    "combined_margin": CombinedMarginConfig,
+    "subcenter_arcface": SubCenterArcFaceConfig,
+    "adacos": AdaCosConfig,
+}
 
 
 def make_head_config(name: str, **overrides) -> HeadConfig:
@@ -143,6 +295,8 @@ class TrainConfig:
     num_classes: int = CASIA_NUM_CLASSES
     batch_size: int = 512
     epochs: int = 30
+    # weight of the head's auxiliary loss (MagFace's magnitude regulariser)
+    lambda_g: float = 0.0
     print_freq: int = 100
     # bf16 convolutions (autocast) with fp32 parameters, BatchNorm and head
     compute_dtype: str = "bfloat16"
@@ -153,6 +307,9 @@ class TrainConfig:
     seed: int = 0
     working_path: str = ""
     continue_train: Optional[str] = None  # None | 'latest' | 'min_loss'
+    # a torchvision-layout backbone state_dict (.pth) to start from: the
+    # reference trains from ImageNet-pretrained torchvision weights
+    pretrained_path: Optional[str] = None
     keep_checkpoints: int = 3      # rotation keep-3 (model_utils.py:72-78)
     # True: the fused margin + CE kernels; False: the eager [N, C] head
     use_fused_head: bool = True

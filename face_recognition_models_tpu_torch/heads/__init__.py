@@ -1,4 +1,4 @@
-"""Margin heads of the port (ArcFace, VPL-ArcFace, QAFace) and their
+"""Margin heads of the port (the 14 of the JAX package) and their
 fused-kernel path."""
 
 from face_recognition_models_tpu_torch.heads import margins  # noqa: F401  (registers)

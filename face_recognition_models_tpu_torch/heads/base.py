@@ -5,8 +5,10 @@ plain functions over tensors:
 
     kernel = init_kernel(cfg, generator, device)   # [D, C] class prototypes
     state  = init_state(cfg, device)               # head state (or None)
-    out    = apply(cfg, kernel, feats, labels, state, minput=None)
+    out    = apply(cfg, kernel, feats, labels, state, rng=None, minput=None)
 
+`rng` is a torch.Generator on the step's device; only heads with
+`requires_rng` (the elastic heads, which draw per-sample margins) read it.
 `minput` is the feature of a second, degraded view of the batch; only heads
 with `requires_minput` (QAFace) read it.
 
@@ -84,6 +86,7 @@ class Head(NamedTuple):
     init_kernel: Callable[..., torch.Tensor]
     init_state: Callable[..., Any]
     apply: Callable[..., HeadOutput]
+    requires_rng: bool = False     # the elastic heads sample per-step margins
     requires_minput: bool = False  # QAFace needs a second (degraded) view
 
 

@@ -86,8 +86,25 @@ def running_stats_frozen(model: nn.Module) -> Iterator[None]:
             mod.update_stats = True
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with one CPU repair. oneDNN's bf16 backward of a padded,
+    strided k x k conv over a 1 x 1 input reads memory it never wrote, so
+    its gradients turn NaN where that memory held NaN (a ResNet's last
+    stage at 16 px). Over a 1 x 1 input every tap but the centre one meets
+    the zero padding: the conv is the centre tap's 1 x 1 product, and runs
+    as that."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel_size[0]
+        if (x.device.type == "cpu" and k > 1 and self.stride[0] > 1
+                and x.shape[-2:] == (1, 1)):
+            c = k // 2
+            return F.conv2d(x, self.weight[:, :, c:c + 1, c:c + 1])
+        return super().forward(x)
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
 class BasicBlock(nn.Module):

@@ -153,7 +153,7 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     step_fn = make_train_step(head, head_cfg, lr_schedule=schedule,
                               mean=cfg.data.mean, std=cfg.data.std,
                               use_fused_head=cfg.use_fused_head,
-                              device=device)
+                              lambda_g=cfg.lambda_g, device=device)
 
     min_train_loss = float("inf")
     start_epoch = 1

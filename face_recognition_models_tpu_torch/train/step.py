@@ -5,9 +5,11 @@ train mode -> margin head + cross-entropy -> backward -> SGD update with the
 lr the schedule gives for the step count before the update. The fused path
 (default) runs the margin + CE through the CUDA kernels of
 ops/fused_head.py and never materialises the [N, C] logits; the eager path
-is the [N, C] head of heads/margins.py. QAFace's degraded view
-(`minput_images`) goes through the same backbone in train mode, with its
-BatchNorm statistics dropped as the JAX step drops them.
+is the [N, C] head of heads/margins.py. The loss is the CE plus lambda_g
+times the head's auxiliary loss (MagFace's magnitude regulariser); heads
+with `requires_rng` draw from the state's generator `state.rng`. QAFace's
+degraded view (`minput_images`) goes through the same backbone in train
+mode, with its BatchNorm statistics dropped as the JAX step drops them.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from face_recognition_models_tpu_torch.utils.device import resolve_device
 def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
                     mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
                     use_fused_head: bool = True,
-                    device=None) -> Callable:
+                    lambda_g: float = 0.0, device=None) -> Callable:
     """Build step(state, images, labels, minput_images=None)
     -> (state, metrics).
 
@@ -69,27 +71,31 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
             with running_stats_frozen(state.backbone):
                 minput_feats = state.backbone(prepare(minput_images)).to(
                     torch.float32)
+        rng = state.rng if head.requires_rng else None
         if use_fused_head:
             out = fused_apply(head_cfg, state.kernel_w, feats, labels,
-                              state.head_state, minput=minput_feats)
+                              state.head_state, rng=rng, minput=minput_feats)
             loss_id, acc1, acc5 = out.loss_id, out.acc1, out.acc5
         else:
             out = head.apply(head_cfg, state.kernel_w, feats, labels,
-                             state.head_state, minput=minput_feats)
+                             state.head_state, rng=rng, minput=minput_feats)
             loss_id = mean_cross_entropy(out.logits, labels)
             acc1, acc5 = topk_accuracy(out.pre_logits, labels)
+        loss_mag = lambda_g * out.loss_g
+        loss = loss_id + loss_mag
         lr = (lr_schedule(state.step) if lr_schedule is not None
               else state.optimizer.param_groups[0]["lr"])
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
-        loss_id.backward()
+        loss.backward()
         state.optimizer.step()
         # the new state is computed from tensors with grad history; kept
         # undetached it would chain every step's graph to the next
         state.head_state = _detached(out.state)
         state.step += 1
-        metrics = {"loss": loss_id.detach(), "acc1": acc1, "acc5": acc5,
+        metrics = {"loss": loss.detach(), "loss_id": loss_id.detach(),
+                   "loss_mag": loss_mag.detach(), "acc1": acc1, "acc5": acc5,
                    "lr": torch.tensor(lr),
                    "feat_norm": out.norms.detach().mean()}
         return state, metrics

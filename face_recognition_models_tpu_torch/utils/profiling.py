@@ -1,9 +1,11 @@
 """Where a train step's device time goes, from a torch.profiler trace.
 
     python -m face_recognition_models_tpu_torch.utils.profiling [--head NAME]
+        [--bn-dtype bfloat16]
 
-Runs the default recipe (resnet18 + fused ArcFace, or the head named,
-C=10,575, batch 512, 112 px, bf16) on the card: 3 warm-up steps, then 5
+Runs the default recipe (resnet18 + fused ArcFace, or the head named on the
+path `train --head-path auto` gives it, C=10,575, batch 512, 112 px, bf16
+convs, fp32 or bf16 BatchNorm) on the card: 3 warm-up steps, then 5
 profiled steps; QAFace's steps get the degraded view `fit` gives them, and
 each batch goes to the card through `fit`'s pinned staging. Prints one JSON
 line: host ms/step over the profiled steps, device kernel ms/step by
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from face_recognition_models_tpu_torch import config as cfg_lib
+from face_recognition_models_tpu_torch.heads.fused_adapter import use_fused
 from face_recognition_models_tpu_torch.train.loop import (
     HostStaging,
     degrade_images,
@@ -86,7 +89,8 @@ def profile_train_step(cfg: cfg_lib.TrainConfig, device=None,
             step(state, images, labels)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return {"head": cfg.head,
+    return {"head": cfg.head, "use_fused_head": cfg.use_fused_head,
+            "bn_dtype": cfg.bn_dtype,
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
             **summarize(prof, steps, wall_ms)}
@@ -120,5 +124,9 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--head", default="arcface",
                         choices=sorted(cfg_lib.HEAD_CONFIGS))
+    parser.add_argument("--bn-dtype", choices=["float32", "bfloat16"],
+                        default="float32")
     args = parser.parse_args()
-    print(json.dumps(profile_train_step(cfg_lib.TrainConfig(head=args.head))))
+    print(json.dumps(profile_train_step(cfg_lib.TrainConfig(
+        head=args.head, bn_dtype=args.bn_dtype,
+        use_fused_head=use_fused(args.head)))))

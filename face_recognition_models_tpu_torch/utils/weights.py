@@ -5,8 +5,7 @@ not import JAX. Conv kernels [H, W, I, O] become [O, I, H, W], Dense kernels
 [in, out] become [out, in], BatchNorm scale / bias / mean / var become
 weight / bias / running_mean / running_var, and the head's `kernel_w` [D, C]
 crosses as it is (the port keeps the JAX layout for it).
-`head_state_from_jax` carries a memory-blended head's state across the same
-way.
+`head_state_from_jax` carries a head's state across the same way.
 """
 
 from __future__ import annotations
@@ -68,21 +67,29 @@ def from_jax(params: Mapping, batch_stats: Mapping
 
 def head_state_from_jax(name: str, state: Any, device="cpu") -> Any:
     """The port's head state from a JAX head state whose leaves are numpy
-    arrays (or anything np.asarray takes): VPLArcFaceState (mem [C, D],
-    life [C], training_flag) or QAFaceState (mem, life, muy, std,
-    training_flag). Heads without state give None."""
+    arrays (or anything np.asarray takes), field for field:
+    SphereFaceState (int iter), CurricularFaceState (t), AdaFaceState (t,
+    batch_mean, batch_std), VPLArcFaceState (mem [C, D], life [C],
+    training_flag), QAFaceState (mem, life, muy, std, training_flag) or
+    AdaCosState (s). Booleans and integers keep their type, the rest
+    becomes float32. Heads without state give None."""
     from face_recognition_models_tpu_torch.heads import margins
 
     if state is None:
         return None
-    cls = {"vpl_arcface": margins.VPLArcFaceState,
-           "qaface": margins.QAFaceState}.get(name)
+    cls = {"sphereface": margins.SphereFaceState,
+           "curricularface": margins.CurricularFaceState,
+           "adaface": margins.AdaFaceState,
+           "vpl_arcface": margins.VPLArcFaceState,
+           "qaface": margins.QAFaceState,
+           "adacos": margins.AdaCosState}.get(name)
     if cls is None:
         raise ValueError(f"head '{name}' has no state to carry over")
 
     def leaf(field):
         x = np.asarray(getattr(state, field))
-        dtype = torch.bool if x.dtype == np.bool_ else torch.float32
-        return torch.as_tensor(x.copy()).to(device=device, dtype=dtype)
+        keep = x.dtype == np.bool_ or np.issubdtype(x.dtype, np.integer)
+        return torch.as_tensor(x.copy()).to(
+            device=device, dtype=None if keep else torch.float32)
 
     return cls(*(leaf(f) for f in cls._fields))
