@@ -56,6 +56,19 @@ and no result line:
              fc) saved and loaded (seconds), then 2 ArcFace steps of `fit`
              from it with bf16 BatchNorm: the trunk equals the file before
              step 1.
+5d. scan   - step batching (`train --scan-steps`): for each of ArcFace,
+             VPL-ArcFace, QAFace, sphereface, curricularface, adaface,
+             adacos (eager head) and elastic_arcface, 10 full-width `fit`
+             steps with scan_steps=4 (two replays of a CUDA graph of 4
+             steps, then two leftover eager steps) against the same 10
+             steps one at a time from the same seeded state and batches:
+             losses, every state tensor (parameters, BatchNorm and momentum
+             buffers, head state, step count, lr) and the step generator
+             bit for bit; each replay runs 4 launches of each of the head's
+             kernels. Then `scripts/bench_steps` (eager against K = 4 and
+             8, 3 alternating pairs of 64 steps: ms/step after the first
+             chunk, img/s, peak GB, capture seconds) and the profiler's
+             host and device ms/step and idle share of each path.
 6. head_bf16 - one forward and backward through the public
              `fused_margin_ce` and `fused_margin_ce_mem` with
              mm_dtype=torch.bfloat16 at the training shape: one launch of
@@ -99,14 +112,16 @@ and no result line:
              batch: the least row cosine >= 0.99.
 
 The line before the last is {"kernels": [...]} (each kernel's launches from
-the phase that runs its entry point: train, head_bf16, conv3x3_bench), the
-last {"ok": true, "device": {...}}. Imports nothing of JAX.
+the phase that runs its entry point: train, head_bf16, conv3x3_bench; the
+fp32 head kernels' and the _mem kernels' add the scan phase's graphed
+ArcFace and VPL-ArcFace runs, whose replays the host's counters do not see:
+the launches one replay captured times the replays, plus the real ones),
+the last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
-import copy
 import functools
 import json
 import math
@@ -149,6 +164,14 @@ NEW_HEADS = ("sphereface", "cosface", "mv_softmax", "curricularface",
              "adaface", "elastic_cosface", "elastic_arcface", "magface",
              "combined_margin", "subcenter_arcface", "adacos")
 HEAD_STEPS = 3
+# the scan phase: each head's SCAN_STEPS steps with scan_steps=SCAN_K (two
+# graphed chunks and two leftover eager steps) against the same steps one at
+# a time; then bench_steps' eager against graphed runs of the ArcFace recipe
+SCAN_HEADS = ("arcface", "vpl_arcface", "qaface", "sphereface",
+              "curricularface", "adaface", "adacos", "elastic_arcface")
+SCAN_K = 4
+SCAN_STEPS = 10
+SCAN_BENCH = {"pairs": 3, "scans": (4, 8), "steps": 64}
 HEAD_TIMED_CALLS = 5   # calls a head's device_ms reading averages
 SOURCE = "face_recognition_models_tpu_torch/csrc/fused_head.cu"
 CONV_SOURCE = "face_recognition_models_tpu_torch/csrc/conv3x3.cu"
@@ -1263,32 +1286,13 @@ def train_phase(head_name, kernels, steps=TRAIN_STEPS, phase="train",
     return res, (images[:bs], labels[:bs]), launches
 
 
-def snapshot(state):
-    return (copy.deepcopy(state.backbone.state_dict()),
-            state.kernel_w.detach().clone(),
-            copy.deepcopy(state.optimizer.state_dict()), state.step,
-            state.head_state,
-            None if state.rng is None else state.rng.get_state())
-
-
-def restore(state, saved):
-    import torch
-
-    state.backbone.load_state_dict(saved[0])
-    with torch.no_grad():
-        state.kernel_w.copy_(saved[1])
-    state.optimizer.load_state_dict(copy.deepcopy(saved[2]))
-    state.step = saved[3]
-    state.head_state = saved[4]
-    if saved[5] is not None:
-        state.rng.set_state(saved[5])
-
-
 def train_vs_eager(res, batch):
     """One step from the same state through the kernels and the eager head."""
     import torch
 
     from face_recognition_models_tpu_torch.heads import get_head
+    from face_recognition_models_tpu_torch.train.state import (
+        restore, snapshot)
     from face_recognition_models_tpu_torch.train.step import (
         make_eval_step, make_train_step)
 
@@ -1328,6 +1332,8 @@ def qaface_bn_check(res, batch):
 
     from face_recognition_models_tpu_torch.heads import get_head
     from face_recognition_models_tpu_torch.train.loop import degrade_images
+    from face_recognition_models_tpu_torch.train.state import (
+        restore, snapshot)
     from face_recognition_models_tpu_torch.train.step import make_train_step
 
     state, head_cfg = res.state, res.head_cfg
@@ -1520,6 +1526,144 @@ def phase_pretrained(root):
     emit({"phase": "pretrained", "file_bytes": os.path.getsize(path),
           "load_seconds": load_s, "keys_checked": checked[0],
           "losses": res.losses, "launches": launches, "ok": True})
+
+
+def scan_fit(name, k, images, labels):
+    """One epoch of full-width steps of head `name` over the arrays through
+    `fit` with scan_steps=k, on the path `train --head-path auto` gives the
+    head. Returns (result, {kernel: real launches})."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.heads.fused_adapter import (
+        use_fused)
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.train.loop import fit
+
+    bs = 512
+    cfg = cfg_lib.TrainConfig(head=name, num_classes=C_MAIN, batch_size=bs,
+                              epochs=1, print_freq=10 ** 9, seed=0,
+                              scan_steps=k, use_fused_head=use_fused(name))
+    fh.reset_launch_counts()
+    res = fit(cfg, ArrayLoader(images, labels, batch_size=bs, seed=0),
+              device="cuda")
+    torch.cuda.synchronize()
+    return res, dict(fh.launch_counts)
+
+
+def same_state(name, got, want):
+    """Raise unless two train states are equal bit for bit: every tensor a
+    step changes (train.state.state_tensors: parameters, BatchNorm buffers,
+    kernel_w, momentum buffers, head state, the step count and lr), the
+    host step and the step generator's state."""
+    import torch
+
+    from face_recognition_models_tpu_torch.train.state import state_tensors
+
+    a, b = state_tensors(got), state_tensors(want)
+    bad = [i for i, (x, y) in enumerate(zip(a, b, strict=True))
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} of {len(a)} state tensors "
+                             f"differ (first {bad[:5]})")
+    if got.step != want.step:
+        raise AssertionError(f"{name}: step {got.step} vs {want.step}")
+    if got.rng is not None and not torch.equal(got.rng.get_state(),
+                                               want.rng.get_state()):
+        raise AssertionError(f"{name}: the step generators' states differ")
+    return len(a)
+
+
+def phase_scan():
+    """Step batching (`train --scan-steps`): for each of SCAN_HEADS,
+    SCAN_STEPS full-width steps with scan_steps=SCAN_K against the same
+    steps one at a time, from the same seeded state and batches: losses and
+    the whole state bit for bit. The graph's kernel launches are counted by
+    its replays: a replay runs SCAN_K launches of each of the head's
+    kernels, which the host's counters never see. Then bench_steps' eager
+    against graphed runs of the ArcFace recipe and the profiler's host and
+    device ms/step and idle share of each path. Returns {kernel: launches}
+    of the ArcFace (fp32 kernels) and VPL-ArcFace (_mem kernels) graphed
+    runs, replays included."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.heads.fused_adapter import (
+        use_fused)
+    from face_recognition_models_tpu_torch.scripts import bench_steps
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+    from face_recognition_models_tpu_torch.utils.profiling import (
+        profile_train_step)
+
+    images, labels = train_batches(SCAN_STEPS, 512, 112)
+    chunks = SCAN_STEPS // SCAN_K
+    out = {}
+    for name in SCAN_HEADS:
+        eager, eager_launches = scan_fit(name, 1, images, labels)
+        graphed, real = scan_fit(name, SCAN_K, images, labels)
+        # the real launches: SCAN_K warm-up steps before the capture (then
+        # undone) and the leftover steps; the replays run the rest
+        launches = {k: v + graphed.replay_launches.get(k, 0)
+                    * graphed.replays for k, v in real.items()}
+        kernels = (() if not use_fused(name) else
+                   MEM_KERNELS if name in ("vpl_arcface", "qaface")
+                   else PLAIN_KERNELS)
+        want_replay = {k: SCAN_K for k in kernels}
+        if graphed.replays != chunks or graphed.replay_launches != \
+                want_replay:
+            raise AssertionError(
+                f"scan {name}: {graphed.replays} replays of "
+                f"{graphed.replay_launches}, not {chunks} of {want_replay}")
+        for k, v in launches.items():
+            want = SCAN_STEPS + SCAN_K if k in kernels else 0
+            if v != want or eager_launches[k] != (
+                    SCAN_STEPS if k in kernels else 0):
+                raise AssertionError(f"scan {name}: {k} launched {v} times "
+                                     f"(eager {eager_launches[k]})")
+        if graphed.losses != eager.losses:
+            raise AssertionError(f"scan {name}: losses {graphed.losses} vs "
+                                 f"eager {eager.losses}")
+        tensors = same_state(f"scan {name}", graphed.state, eager.state)
+        emit({"phase": "scan", "head": name, "steps": SCAN_STEPS,
+              "scan_steps": SCAN_K, "replays": graphed.replays,
+              "capture_seconds": graphed.capture_seconds,
+              "replay_launches": graphed.replay_launches,
+              "launches": launches, "losses": graphed.losses,
+              "bitwise_losses": True, "bitwise_state_tensors": tensors,
+              "bitwise_generator": graphed.state.rng is not None,
+              "ok": True})
+        if name == "arcface":
+            out.update({k: launches[k] for k in PLAIN_KERNELS})
+        if name == "vpl_arcface":
+            out.update({k: launches[k] for k in MEM_KERNELS})
+        del eager, graphed
+        torch.cuda.empty_cache()
+
+    smi = nvidia_smi()
+    res = bench_steps.bench(device="cuda", **SCAN_BENCH)
+    for k, summary in res["summary"].items():
+        emit({"phase": "scan_bench", "scan_steps": int(k),
+              "ms_per_step_after_first_chunk":
+                  summary["ms_per_step_after_first_chunk"],
+              "img_per_s_after_first_chunk":
+                  summary["img_per_s_after_first_chunk"],
+              "img_per_s": summary["img_per_s"],
+              "peak_gb": summary["peak_gb"],
+              "capture_seconds": summary["capture_seconds"],
+              "runs": res["runs"][k], "nvidia_smi": smi, "ok": True})
+    for k in (1, *SCAN_BENCH["scans"]):
+        prof = profile_train_step(cfg_lib.TrainConfig(
+            num_classes=C_MAIN, scan_steps=k), device="cuda")
+        emit({"phase": "scan_profile", "scan_steps": k,
+              "host_ms_per_step": prof["ms_per_step"],
+              "device_ms_per_step": prof["device_ms_per_step"],
+              "idle_share": prof["idle_share"],
+              "by_category_ms": prof["by_category_ms"],
+              "capture_seconds": prof.get("capture_seconds"),
+              "nvidia_smi": smi, "ok": True})
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_head_bf16():
@@ -2131,6 +2275,8 @@ def main() -> int:
     phase_heads()
     with tempfile.TemporaryDirectory() as root:
         phase_pretrained(root)
+    for name, count in phase_scan().items():
+        launches[name] += count
     launches.update(phase_head_bf16())
     launches.update(phase_conv_bench())
     f32_plain_ms = phase_conv_f32()

@@ -73,14 +73,17 @@ def _payload(state) -> Dict[str, Any]:
 
 
 def _load_into(state, payload: Dict[str, Any]) -> None:
-    """Load `payload` (_payload's) into the live `state` in place."""
+    """Load `payload` (_payload's) into the live `state` in place: the head
+    state's tensors and the step count keep their addresses."""
     state.backbone.load_state_dict(payload["backbone"])
     with torch.no_grad():
         state.kernel_w.copy_(payload["kernel_w"])
-    if payload["head_state"] is not None:
-        state.head_state = type(state.head_state)(*payload["head_state"])
+        if payload["head_state"] is not None:
+            for x, y in zip(state.head_state, payload["head_state"],
+                            strict=True):
+                x.copy_(y)
     state.optimizer.load_state_dict(payload["optimizer"])
-    state.step = payload["step"]
+    state.set_step(payload["step"])
     # generator states are CPU byte tensors, wherever the load mapped them
     if payload.get("generator") is not None:
         state.rng.set_state(payload["generator"].cpu())

@@ -6,6 +6,7 @@ defaults follow it.
         --dataset-path P | --synthetic [--head NAME] \
         [--head-path auto|fused|eager] [--lambda_g G] \
         [--pretrained STATE_DICT.pth] [--bn-dtype bfloat16] \
+        [--scan-steps K] [--scheduler NAME] [--warmup-epochs E] \
         [--working-path W] [--continue_train latest] [--device cpu] ...
     python -m face_recognition_models_tpu_torch.cli pack \
         --dataset-path P --output DIR [--image-size 112] [--backend auto]
@@ -56,8 +57,14 @@ def _add_train_parser(sub):
     p.add_argument("--learning_rate", "-lr", type=float, default=0.1)
     p.add_argument("--weight-decay", type=float, default=5e-4)
     p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--scheduler", default="customstep",
+                   help="LR schedule (train/schedules.py: customstep, step, "
+                        "multistep, cosine, exponential, warmup_cosine, "
+                        "none)")
     p.add_argument("--lr-steps", default="20,40,60",
-                   help="customstep drop epochs")
+                   help="customstep drop epochs (reference schedulers.py:22)")
+    p.add_argument("--warmup-epochs", type=int, default=5,
+                   help="warmup length for --scheduler warmup_cosine")
     p.add_argument("--lambda_g", type=float, default=0.0,
                    help="Magnitude loss weight (MagFace)")
     p.add_argument("--print_freq", type=int, default=100)
@@ -81,6 +88,10 @@ def _add_train_parser(sub):
                    default="float32",
                    help="BatchNorm output dtype (its statistics and math "
                         "stay fp32)")
+    p.add_argument("--scan-steps", type=int, default=1,
+                   help="run K train steps per replay of one CUDA graph "
+                        "(a plain loop of K steps on the CPU; amortizes "
+                        "the host's per-step cost; 1 = off)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
@@ -192,12 +203,14 @@ def cmd_train(args) -> int:
         seed=args.seed, working_path=args.working_path,
         continue_train=args.continue_train,
         pretrained_path=args.pretrained, bn_dtype=args.bn_dtype,
-        use_fused_head=fused,
+        use_fused_head=fused, scan_steps=args.scan_steps,
         optimizer=cfg_lib.OptimizerConfig(
             learning_rate=args.learning_rate, momentum=args.momentum,
             weight_decay=args.weight_decay),
         schedule=cfg_lib.ScheduleConfig(
-            steps=tuple(int(s) for s in args.lr_steps.split(",") if s)),
+            name=args.scheduler,
+            steps=tuple(int(s) for s in args.lr_steps.split(",") if s),
+            warmup_epochs=args.warmup_epochs),
         data=cfg_lib.DataConfig(image_size=args.image_size))
     head_cfg = cfg_lib.make_head_config(head, num_classes=cfg.num_classes,
                                         **head_kw)

@@ -4,15 +4,16 @@ The port's own copy of the fields of face_recognition_models_tpu/config.py
 that the ResNet training path reads, with every margin head of the JAX
 package; defaults are the same values (the reference's recipe:
 resnet18, ArcFace m=0.5 s=64, CASIA's 10,575 classes, batch 512, 112 px, SGD
-lr 0.1 momentum 0.9 wd 5e-4, customstep), plus the checkpoint and resume
-fields and the benchmarks `eval` reads.
+lr 0.1 momentum 0.9 wd 5e-4, customstep, every lr schedule's fields), plus
+the checkpoint and resume fields, step batching (`scan_steps`) and the
+benchmarks `eval` reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 FEATURE_DIM = 512
 CASIA_NUM_CLASSES = 10575
@@ -275,10 +276,17 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ScheduleConfig:
+    # a name of train/schedules.SCHEDULES or a numeric id of SCHEDULER_DICT
+    name: Union[str, int] = "customstep"
     # CustomStepLR: multiply the lr by `ratio` at each epoch in `steps`.
-    name: str = "customstep"
     steps: Tuple[int, ...] = (20, 40, 60)
     ratio: float = 0.1
+    # step / multistep / cosine / exponential / warmup_cosine knobs
+    step_size: int = 30
+    gamma: float = 0.1
+    milestones: Tuple[int, ...] = (40, 80, 100, 150)
+    eta_min: float = 0.0
+    warmup_epochs: int = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,6 +321,9 @@ class TrainConfig:
     keep_checkpoints: int = 3      # rotation keep-3 (model_utils.py:72-78)
     # True: the fused margin + CE kernels; False: the eager [N, C] head
     use_fused_head: bool = True
+    # step batching: K train steps per replay of one CUDA graph (a plain
+    # loop of the same K steps on the CPU); 1 = one step at a time
+    scan_steps: int = 1
     optimizer: OptimizerConfig = OptimizerConfig()
     schedule: ScheduleConfig = ScheduleConfig()
     data: DataConfig = DataConfig()

@@ -68,9 +68,13 @@ def sorted_column_sums(grad: torch.Tensor, idx: torch.Tensor,
                        columns: int) -> torch.Tensor:
     """[D, columns]: column c the sum of the grad [D, N] columns n with
     idx[n] == c, through index_put_'s sorted accumulate (take_columns'
-    backward on the card)."""
+    backward on the card). Without the range check of index_put_, which
+    reads the indices' min and max back to the host: the forward's
+    index_select already checked them, and a step that waits for the host
+    cannot be captured in a CUDA graph."""
     rows = grad.new_zeros((columns, grad.shape[0]))   # [C, D]
-    rows.index_put_((idx,), grad.T.contiguous(), accumulate=True)
+    torch.ops.aten._index_put_impl_(rows, (idx,), grad.T.contiguous(),
+                                    accumulate=True, unsafe=True)
     return rows.T
 
 

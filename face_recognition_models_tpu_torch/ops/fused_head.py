@@ -71,11 +71,14 @@ MODE_MV = 1
 MODE_CURRICULAR = 2
 
 # Launches per kernel since the last reset_launch_counts(); bumped only where
-# a wrapper launches its kernel.
+# a wrapper launches its kernel. A launch recorded into a CUDA graph being
+# captured runs nothing: it goes to captured_counts instead, and the graph's
+# owner counts its replays (train/graphed.py).
 _KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dx", "fused_ce_bwd_dw",
             "fused_ce_fwd_mem", "fused_ce_bwd_dx_mem", "fused_ce_bwd_dw_mem")
 launch_counts = {name + suffix: 0 for suffix in ("", "_bf16")
                  for name in _KERNELS}
+captured_counts = dict.fromkeys(launch_counts, 0)
 # Per-block shared memory of an H100 (bytes); bounds the embedding width.
 _MAX_SMEM = 232_448
 # Widest embedding of the bwd_dx and bwd_dw kernels, fp32 and bf16: 8 warps
@@ -483,7 +486,10 @@ def _launch(name, which, d, *args):
     err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    launch_counts[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_counts[name] += 1
+    else:
+        launch_counts[name] += 1
 
 
 def _ptr(x):

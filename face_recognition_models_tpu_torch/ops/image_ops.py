@@ -2,7 +2,10 @@
 
 Port of `normalize_images` from face_recognition_models_tpu/ops/image_ops.py:
 batches cross to the card as uint8 NHWC and are normalised there with one
-multiply-add.
+multiply-add, x * scale + bias, whose constants the train and eval steps
+make once (`normalization_constants`). And `degrade_images` of
+face_recognition_models_tpu/train/loop.py, QAFace's degraded view of a
+batch, made on its device.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def normalization_constants(mean: Sequence[float] = (0.5, 0.5, 0.5),
@@ -26,10 +30,22 @@ def normalization_constants(mean: Sequence[float] = (0.5, 0.5, 0.5),
     return scale, bias
 
 
-def normalize_images(images: torch.Tensor,
-                     mean: Sequence[float] = (0.5, 0.5, 0.5),
-                     std: Sequence[float] = (0.5, 0.5, 0.5),
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """uint8 [N, H, W, 3] -> ((x / 255) - mean) / std as x * scale + bias."""
-    scale, bias = normalization_constants(mean, std, dtype, images.device)
-    return images.to(dtype) * scale + bias
+def degrade_images(images: torch.Tensor) -> torch.Tensor:
+    """Quality-degraded view for QAFace's `minput`: a 2x down / up bilinear
+    resample of NHWC images on their device, antialiased as
+    jax.image.resize is.
+
+    Keeps the input dtype: a uint8 batch comes back uint8 (rounded, in
+    [0, 255]) so the step normalises both views alike; a float batch stays
+    float.
+    """
+    _, h, w, _ = images.shape
+    x = images.permute(0, 3, 1, 2).to(torch.float32)
+    small = F.interpolate(x, size=(h // 2, w // 2), mode="bilinear",
+                          align_corners=False, antialias=True)
+    out = F.interpolate(small, size=(h, w), mode="bilinear",
+                        align_corners=False, antialias=True)
+    out = out.permute(0, 2, 3, 1)
+    if images.dtype == torch.uint8:
+        out = out.round().clamp(0, 255).to(torch.uint8)
+    return out

@@ -10,6 +10,13 @@ times the head's auxiliary loss (MagFace's magnitude regulariser); heads
 with `requires_rng` draw from the state's generator `state.rng`. QAFace's
 degraded view (`minput_images`) goes through the same backbone in train
 mode, with its BatchNorm statistics dropped as the JAX step drops them.
+
+The step reads nothing back to the host and keeps every tensor of the state
+where it is: it normalises with constants made once, takes the lr from the
+schedule of the device count `state.count`, writes it into `state.lr` for
+the update, and copies the head's new state into the head-state tensors.
+So the same function runs eagerly and inside a CUDA graph of K steps
+(train/graphed.py).
 """
 
 from __future__ import annotations
@@ -27,7 +34,6 @@ from face_recognition_models_tpu_torch.models.resnet import (
 )
 from face_recognition_models_tpu_torch.ops.image_ops import (
     normalization_constants,
-    normalize_images,
 )
 from face_recognition_models_tpu_torch.train.losses import mean_cross_entropy
 from face_recognition_models_tpu_torch.train.metrics import topk_accuracy
@@ -43,8 +49,9 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
     -> (state, metrics).
 
     The step updates `state` in place (module parameters, BatchNorm buffers,
-    optimizer slots, step count) and returns it. Metrics are 0-d tensors on
-    the device, left unsynchronised. Without `lr_schedule` the optimizer's
+    optimizer slots, head state, step count, lr) and returns it. Metrics are
+    0-d tensors on the device, left unsynchronised. `lr_schedule` maps the
+    step count (a 0-d device tensor) to the lr; without it the optimizer's
     own lr stays. Runs on the card unless device='cpu' is passed.
     """
     device = resolve_device(device)
@@ -53,11 +60,13 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
     if device.type == "cuda":
         # the head's fp32 products must stay IEEE fp32 (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
+    # made once: a copy from the host per step could not be captured
+    scale, bias = normalization_constants(mean, std, device=device)
 
     def prepare(images):
         images = torch.as_tensor(images).to(device, non_blocking=True)
         if images.dtype == torch.uint8:
-            images = normalize_images(images, mean, std)
+            images = images.to(torch.float32) * scale + bias
         return images
 
     def train_step(state: TrainState, images, labels, minput_images=None):
@@ -83,30 +92,34 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
             acc1, acc5 = topk_accuracy(out.pre_logits, labels)
         loss_mag = lambda_g * out.loss_g
         loss = loss_id + loss_mag
-        lr = (lr_schedule(state.step) if lr_schedule is not None
-              else state.optimizer.param_groups[0]["lr"])
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        # the lr of the count before this update, as optax's schedule reads
+        lr = (lr_schedule(state.count) if lr_schedule is not None
+              else torch.full((), state.optimizer.param_groups[0]["lr"],
+                              dtype=torch.float32, device=device))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        state.optimizer.step()
-        # the new state is computed from tensors with grad history; kept
-        # undetached it would chain every step's graph to the next
-        state.head_state = _detached(out.state)
+        with torch.no_grad():
+            state.lr.copy_(lr)
+            state.optimizer.step(state.lr)
+            # after the backward, which may still read the old state
+            _copy_state(state.head_state, out.state)
+            state.count.add_(1)
         state.step += 1
         metrics = {"loss": loss.detach(), "loss_id": loss_id.detach(),
                    "loss_mag": loss_mag.detach(), "acc1": acc1, "acc5": acc5,
-                   "lr": torch.tensor(lr),
-                   "feat_norm": out.norms.detach().mean()}
+                   "lr": lr, "feat_norm": out.norms.detach().mean()}
         return state, metrics
 
     return train_step
 
 
-def _detached(head_state):
+def _copy_state(head_state, new_state) -> None:
+    """Write a head's new state into its state tensors (same shapes and
+    dtypes), so their addresses never change."""
     if head_state is None:
-        return None
-    return type(head_state)(*(x.detach() for x in head_state))
+        return
+    for x, y in zip(head_state, new_state, strict=True):
+        x.copy_(y)
 
 
 def make_eval_step(backbone, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),

@@ -167,7 +167,7 @@ def test_customstep_lr_sequence_matches_jax():
     jsched = jget_schedule(sched_cfg, 0.1, steps_per_epoch=3)
     tsched = get_schedule(tcfg.ScheduleConfig(steps=(1, 2, 4), ratio=0.1),
                           0.1, steps_per_epoch=3)
-    got = [tsched(i) for i in range(20)]
+    got = [tsched(torch.tensor(i)) for i in range(20)]
     want = [float(jsched(i)) for i in range(20)]
     # JAX evaluates the power in fp32
     np.testing.assert_allclose(got, want, rtol=1e-6)
