@@ -69,6 +69,21 @@ and no result line:
              8, 3 alternating pairs of 64 steps: ms/step after the first
              chunk, img/s, peak GB, capture seconds) and the profiler's
              host and device ms/step and idle share of each path.
+5e. recipe - the rest of the train recipe at full width: ResNet-50 +
+             ArcFace (C=10,575, b512, 112 px) with AdamW, clipping at 5,
+             grad_accum 2, model EMA 0.999, flip, crop_pad 8, color
+             jitter 0.2 and random erasing 0.25, 8 eager steps against 2
+             replays of a CUDA graph of 4 steps from the same state and
+             batches, bit for bit (losses, every state tensor, the
+             generator), ms/step and peak memory of both; each of the
+             eight update rules with clipping on the resnet18 recipe, 4
+             graphed steps against 4 eager ones, bit for bit, and its
+             update's device ms on the ResNet-50 + head parameters beside
+             its HBM bound; the frozen trunk unchanged over 4 steps, and
+             the profiler's device ms/step frozen against unfrozen and of
+             the ResNet-50 recipe eager and graphed; a resnet18 student
+             distilled from the ResNet-50 run's `final` through
+             `fit(distill.checkpoint_dir)`, its loss_kd at steps 1 and 8.
 6. head_bf16 - one forward and backward through the public
              `fused_margin_ce` and `fused_margin_ce_mem` with
              mm_dtype=torch.bfloat16 at the training shape: one launch of
@@ -122,6 +137,7 @@ the last {"ok": true, "device": {...}}. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -172,6 +188,18 @@ SCAN_HEADS = ("arcface", "vpl_arcface", "qaface", "sphereface",
 SCAN_K = 4
 SCAN_STEPS = 10
 SCAN_BENCH = {"pairs": 3, "scans": (4, 8), "steps": 64}
+# the recipe phase: ResNet-50's RECIPE_STEPS steps eager and graphed
+# (RECIPE_K steps a replay), each rule's RULE_STEPS steps, the profiler's
+# RECIPE_PROFILED steps a path
+RECIPE_STEPS = 8
+RECIPE_K = 4
+RULE_STEPS = 4
+RECIPE_PROFILED = 8
+RECIPE_KEYS = ("ms_per_step_after_first_chunk", "img_per_s_after_first_chunk",
+               "first_chunk_s", "capture_seconds", "peak_gb",
+               "peak_reserved_gb")
+# ResNet-50 (embed 512) and the [512, 10,575] head: 24,557,120 + 5,414,400
+RN50_HEAD_PARAMS = 29_971_520
 HEAD_TIMED_CALLS = 5   # calls a head's device_ms reading averages
 SOURCE = "face_recognition_models_tpu_torch/csrc/fused_head.cu"
 CONV_SOURCE = "face_recognition_models_tpu_torch/csrc/conv3x3.cu"
@@ -1666,6 +1694,304 @@ def phase_scan():
     return out
 
 
+@contextlib.contextmanager
+def recorded_metrics(out):
+    """Append the metrics of every train step that `fit` takes to `out`
+    (by wrapping the loop's `make_train_step`), as device tensors."""
+    from face_recognition_models_tpu_torch.train import loop
+
+    build = loop.make_train_step
+
+    def make(*args, **kwargs):
+        step = build(*args, **kwargs)
+
+        def recorded(state, *batch):
+            state, metrics = step(state, *batch)
+            out.append(metrics)
+            return state, metrics
+        return recorded
+
+    loop.make_train_step = make
+    try:
+        yield
+    finally:
+        loop.make_train_step = build
+
+
+def recipe_cfg(backbone="resnet50", **kw):
+    """The full-width train recipe of the recipe phase: ArcFace, C=10,575,
+    b512, 112 px, bf16 convs, fp32 BatchNorm and head, AdamW lr 1e-3 with
+    clipping at 5.0, grad_accum 2, model EMA 0.999 and the four
+    augmentations; TrainConfig fields in `kw` replace these."""
+    from face_recognition_models_tpu_torch import config as cfg_lib
+
+    fields = dict(
+        backbone=backbone, head="arcface", num_classes=C_MAIN,
+        batch_size=512, epochs=1, print_freq=10 ** 9, seed=0,
+        grad_accum=2, model_ema=0.999,
+        optimizer=cfg_lib.OptimizerConfig(name="adamw", learning_rate=1e-3,
+                                          clip_grad_norm=5.0),
+        data=cfg_lib.DataConfig(horizontal_flip=True, crop_pad=8,
+                                color_jitter=0.2, random_erasing=0.25))
+    fields.update(kw)
+    return cfg_lib.TrainConfig(**fields)
+
+
+def counted_fit(label, cfg, images, labels, kernels):
+    """`bench_steps.timed_fit` of cfg with the launch counters set to 0
+    just before and read just after: (summary, result, {kernel:
+    launches}), a graph's replays counted by its replay launches. Each of
+    `kernels` must run once a step (once more for each warm-up step before
+    a capture), every other kernel never; the losses must be finite."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.scripts import bench_steps
+
+    fh.reset_launch_counts()
+    summary, res = bench_steps.timed_fit(cfg, images, labels,
+                                         torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = {k: v + res.replay_launches.get(k, 0) * res.replays
+                for k, v in fh.launch_counts.items()}
+    steps = len(res.losses)
+    k = cfg.scan_steps
+    warm = k if k > 1 and steps >= k else 0
+    for name, count in launches.items():
+        want = steps + warm if name in kernels else 0
+        if count != want:
+            raise AssertionError(f"{label}: {name} launched {count} times "
+                                 f"in {steps} steps, not {want}")
+    if k > 1 and res.replay_launches != {n: k for n in kernels}:
+        raise AssertionError(f"{label}: a replay launches "
+                             f"{res.replay_launches}")
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"{label}: non-finite loss {res.losses}")
+    return summary, res, launches
+
+
+def rule_update_ms(name):
+    """One update (clip 5.0, then the rule) of `name` over the ResNet-50 +
+    head parameter set (fp32): its kernels' device ms a call from a
+    torch.profiler trace of 10 calls, and CUDA events around 20
+    back-to-back calls (`cuda_ms`, the host's launch gaps included), beside
+    the HBM bound of the bytes it must move: each parameter, gradient and
+    slot read once, each parameter and slot written once."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.train.optim import get_optimizer
+    from face_recognition_models_tpu_torch.utils.profiling import summarize
+
+    shapes = [p.shape for p in get_backbone("resnet50").parameters()]
+    shapes.append((D_MAIN, C_MAIN))
+    count = sum(math.prod(s) for s in shapes)
+    if count != RN50_HEAD_PARAMS:
+        raise AssertionError(f"resnet50 + head: {count} parameters, not "
+                             f"{RN50_HEAD_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = [torch.nn.Parameter(0.05 * torch.randn(
+        s, generator=gen, device="cuda")) for s in shapes]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+    opt = get_optimizer(name, params, 1e-3, momentum=0.9, weight_decay=5e-4,
+                        nesterov=False, clip_grad_norm=5.0)
+    lr = torch.tensor(1e-3, device="cuda")
+    words = 2 + 2 * len(opt.slot_names) + 1   # p, slots in and out; g in
+    bound = words * 4 * count / PEAK_BYTES * 1e3
+    ms = cuda_ms(lambda: opt.step(lr))
+    calls = 10
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            opt.step(lr)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device = summarize(prof, calls, wall_ms)["device_ms_per_step"]
+    return {"params": count, "update_device_ms": device, "update_ms": ms,
+            "bound_ms": bound, "bytes": words * 4 * count,
+            "bound_by": "bytes"}
+
+
+def phase_recipe(root):
+    """The rest of the train recipe at full width (train/optim.py,
+    train/accum.py, the EMA, the augmentations, the frozen trunk,
+    distillation). ResNet-50 + ArcFace with recipe_cfg(): RECIPE_STEPS
+    steps eager and the same steps graphed (scan_steps RECIPE_K), from the
+    same state and batches, bit for bit (losses, every state tensor, the
+    generator); its `final` goes to `root` for the distillation run. Then
+    each of the eight rules with clipping on the resnet18 recipe:
+    RULE_STEPS graphed steps against as many eager ones, bit for bit, and
+    each rule's update device ms on the ResNet-50 + head parameters beside
+    its bound. Then the frozen trunk (RULE_STEPS steps leave the trunk,
+    its BatchNorm buffers and its optimizer slots as they were; the
+    profiler's device ms/step against the unfrozen step), the profiler's
+    breakdown of the ResNet-50 recipe eager and graphed, and a resnet18
+    student distilled from the ResNet-50 `final` through
+    `fit(distill.checkpoint_dir)`. Returns {kernel: launches} of the
+    ResNet-50 runs."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from face_recognition_models_tpu_torch.train.optim import (
+        OPTIMIZER_CONFIGS)
+    from face_recognition_models_tpu_torch.train.state import (
+        create_train_state)
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+    from face_recognition_models_tpu_torch.utils.profiling import (
+        profile_train_step)
+
+    smi = nvidia_smi()
+    images, labels = train_batches(RECIPE_STEPS, 512, 112)
+    runs, launches = {}, {k: 0 for k in PLAIN_KERNELS}
+    for k in (1, RECIPE_K):
+        summary, res, counts = counted_fit(
+            f"recipe resnet50 scan_steps={k}", recipe_cfg(scan_steps=k),
+            images, labels, PLAIN_KERNELS)
+        for name in PLAIN_KERNELS:
+            launches[name] += counts[name]
+        runs[k] = (summary, res, counts)
+    eager, graphed = runs[1][1], runs[RECIPE_K][1]
+    if graphed.replays != RECIPE_STEPS // RECIPE_K:
+        raise AssertionError(f"recipe: {graphed.replays} replays")
+    if graphed.losses != eager.losses:
+        raise AssertionError(f"recipe: losses {graphed.losses} vs eager "
+                             f"{eager.losses}")
+    tensors = same_state("recipe resnet50", graphed.state, eager.state)
+    teacher_dir = os.path.join(root, "resnet50")
+    CheckpointManager(teacher_dir, "resnet50").save_final(
+        eager.state.backbone.state_dict())
+    emit({"phase": "recipe", "backbone": "resnet50", "head": "arcface",
+          "num_classes": C_MAIN, "batch": 512, "image_size": 112,
+          "optimizer": "adamw", "clip_grad_norm": 5.0, "grad_accum": 2,
+          "model_ema": 0.999, "flip": True, "crop_pad": 8,
+          "color_jitter": 0.2, "random_erasing": 0.25,
+          "steps": RECIPE_STEPS, "scan_steps": RECIPE_K,
+          "replays": graphed.replays, "losses": eager.losses,
+          "bitwise_losses": True, "bitwise_state_tensors": tensors,
+          "bitwise_generator": True,
+          "eager": {key: runs[1][0][key] for key in RECIPE_KEYS},
+          "graphed": {key: runs[RECIPE_K][0][key] for key in RECIPE_KEYS},
+          "launches": {k: runs[1][2][k] for k in PLAIN_KERNELS},
+          "graphed_launches": {k: runs[RECIPE_K][2][k]
+                               for k in PLAIN_KERNELS},
+          "nvidia_smi": smi, "ok": True})
+    del eager, graphed, runs
+    torch.cuda.empty_cache()
+
+    rule_images = images[:RULE_STEPS * 512], labels[:RULE_STEPS * 512]
+    for name in OPTIMIZER_CONFIGS:
+        out = []
+        for k in (1, RULE_STEPS):
+            cfg = recipe_cfg(
+                "resnet18", scan_steps=k, grad_accum=1, model_ema=0.0,
+                data=cfg_lib.DataConfig(),
+                optimizer=cfg_lib.OptimizerConfig(
+                    name=name, learning_rate=0.1 if name == "sgd" else 1e-3,
+                    clip_grad_norm=5.0))
+            out.append(counted_fit(f"rule {name} scan_steps={k}", cfg,
+                                   *rule_images, PLAIN_KERNELS)[1])
+        if out[1].losses != out[0].losses:
+            raise AssertionError(f"rule {name}: losses {out[1].losses} vs "
+                                 f"eager {out[0].losses}")
+        tensors = same_state(f"rule {name}", out[1].state, out[0].state)
+        emit({"phase": "recipe_rule", "optimizer": name,
+              "clip_grad_norm": 5.0, "backbone": "resnet18",
+              "steps": RULE_STEPS, "scan_steps": RULE_STEPS,
+              "losses": out[0].losses, "bitwise_losses": True,
+              "bitwise_state_tensors": tensors,
+              "resnet50_head_update": rule_update_ms(name),
+              "nvidia_smi": smi, "ok": True})
+        del out
+        torch.cuda.empty_cache()
+
+    frozen_cfg = recipe_cfg(freeze_backbone=True, grad_accum=1,
+                            model_ema=0.0, data=cfg_lib.DataConfig())
+    _, res, _ = counted_fit("recipe frozen", frozen_cfg, *rule_images,
+                            PLAIN_KERNELS)
+    head_cfg = cfg_lib.make_head_config("arcface", num_classes=C_MAIN)
+    _, _, start = create_train_state(frozen_cfg, head_cfg,
+                                     torch.device("cuda"))
+    trunk = same_tensors_of("frozen trunk", res.state, start)
+    del res, start
+    torch.cuda.empty_cache()
+    profiles = {}
+    for label, cfg in (
+            ("unfrozen", dataclasses.replace(frozen_cfg,
+                                             freeze_backbone=False)),
+            ("frozen", frozen_cfg), ("recipe_eager", recipe_cfg()),
+            ("recipe_graphed", recipe_cfg(scan_steps=RECIPE_K))):
+        prof = profile_train_step(cfg, device="cuda", steps=RECIPE_PROFILED)
+        profiles[label] = {
+            "host_ms_per_step": prof["ms_per_step"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "idle_share": prof["idle_share"],
+            "by_category_ms": prof["by_category_ms"]}
+        torch.cuda.empty_cache()
+    emit({"phase": "recipe_freeze", "backbone": "resnet50",
+          "optimizer": "adamw", "steps": RULE_STEPS,
+          "bitwise_unchanged_trunk_tensors": trunk,
+          "device_ms_per_step_unfrozen":
+              profiles["unfrozen"]["device_ms_per_step"],
+          "device_ms_per_step_frozen":
+              profiles["frozen"]["device_ms_per_step"],
+          "profiles": profiles, "nvidia_smi": smi, "ok": True})
+    if not (profiles["frozen"]["device_ms_per_step"]
+            < profiles["unfrozen"]["device_ms_per_step"]):
+        raise AssertionError(f"frozen trunk: device ms/step "
+                             f"{profiles['frozen']} not below the unfrozen "
+                             f"{profiles['unfrozen']}")
+
+    student = recipe_cfg(
+        "resnet18", grad_accum=1, model_ema=0.0, data=cfg_lib.DataConfig(),
+        optimizer=cfg_lib.OptimizerConfig(learning_rate=0.1),
+        distill=cfg_lib.DistillConfig(backbone="resnet50",
+                                      checkpoint_dir=teacher_dir,
+                                      which="final", weight=1.0,
+                                      mode="cosine"))
+    metrics = []
+    with recorded_metrics(metrics):
+        summary, res, _ = counted_fit("distill", student, images, labels,
+                                      PLAIN_KERNELS)
+    loss_kd = [float(m["loss_kd"]) for m in metrics]
+    if len(loss_kd) != RECIPE_STEPS or not all(
+            math.isfinite(v) for v in loss_kd):
+        raise AssertionError(f"distill: loss_kd {loss_kd}")
+    emit({"phase": "recipe_distill", "student": "resnet18",
+          "teacher": "resnet50", "teacher_which": "final",
+          "mode": "cosine", "weight": 1.0, "steps": RECIPE_STEPS,
+          "loss_kd_step_1": loss_kd[0], "loss_kd_step_8": loss_kd[-1],
+          "loss_kd": loss_kd, "losses": res.losses,
+          **{key: summary[key] for key in RECIPE_KEYS},
+          "nvidia_smi": smi, "ok": True})
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def same_tensors_of(name, got, want):
+    """Raise unless the backbone's parameters and buffers and its
+    parameters' optimizer slots are equal bit for bit in two train
+    states; returns how many tensors were compared."""
+    import torch
+
+    a = [*got.backbone.state_dict().values()]
+    b = [*want.backbone.state_dict().values()]
+    for p, q in zip(got.backbone.parameters(), want.backbone.parameters(),
+                    strict=True):
+        a += list(got.optimizer.state[p].values())
+        b += list(want.optimizer.state[q].values())
+    bad = [i for i, (x, y) in enumerate(zip(a, b, strict=True))
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} of {len(a)} tensors "
+                             f"moved (first {bad[:5]})")
+    return len(a)
+
+
 def phase_head_bf16():
     """One forward and backward through the public fused_margin_ce and
     fused_margin_ce_mem with mm_dtype=torch.bfloat16 at the training shape
@@ -2277,6 +2603,9 @@ def main() -> int:
         phase_pretrained(root)
     for name, count in phase_scan().items():
         launches[name] += count
+    with tempfile.TemporaryDirectory() as root:
+        for name, count in phase_recipe(root).items():
+            launches[name] += count
     launches.update(phase_head_bf16())
     launches.update(phase_conv_bench())
     f32_plain_ms = phase_conv_f32()

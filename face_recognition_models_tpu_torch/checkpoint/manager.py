@@ -23,14 +23,16 @@ one bit for bit: the backbone's state_dict (parameters and BatchNorm
 buffers, num_batches_tracked included), `kernel_w`, every head-state
 tensor in its own dtype (the VPL / QAFace memory and counters, SphereFace's
 int iter, CurricularFace's t, AdaFace's statistics, AdaCos's scale), the
-optimizer's state_dict (momentum), the step, the state's step generator
+optimizer's state_dict (its slots and step count; under grad_accum also
+the accumulated gradients and mini_step), the model EMA, the step, the
+state's step generator
 (`TrainState.rng`, the elastic heads' draws) and the default generators
 (CPU and the card's) that dropout or sampling would draw from; plus the
 epoch and its train loss (a Python float; the JAX package rounds it to
 float32). Restoring
 loads into a live TrainState in place: the parameters keep their objects
 and layout (channels-last on the card), so the optimizer's slots stay bound
-to them.
+to them, and the slots, the EMA and the head state keep their addresses.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ def _payload(state) -> Dict[str, Any]:
             "head_state": (None if state.head_state is None
                            else list(state.head_state)),
             "optimizer": state.optimizer.state_dict(),
+            "ema": None if state.ema is None else list(state.ema),
             "step": state.step,
             "rng": rng,
             "generator": (None if state.rng is None
@@ -82,6 +85,12 @@ def _load_into(state, payload: Dict[str, Any]) -> None:
             for x, y in zip(state.head_state, payload["head_state"],
                             strict=True):
                 x.copy_(y)
+        if (payload.get("ema") is None) != (state.ema is None):
+            raise ValueError("the checkpoint and the run differ in "
+                             "model_ema: one has an EMA, the other none")
+        for x, y in zip(state.ema or (), payload.get("ema") or (),
+                        strict=True):
+            x.copy_(y)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.set_step(payload["step"])
     # generator states are CPU byte tensors, wherever the load mapped them
@@ -191,8 +200,9 @@ def restore_backbone(checkpoint_dir: str, which: str = "final",
     - 'min_loss'  — the backbone inside the best-by-train-loss full train
       state (the artifact the reference evaluates, evaluate_models.py:61).
 
-    The port's training writes 'final' and 'min_loss'; the other two are
-    read where another run wrote them. The tensors come back on the CPU.
+    The port's training writes 'final', 'min_loss' and, with model_ema,
+    'final_ema'; 'best_acc' is read where another run wrote it. The
+    tensors come back on the CPU.
     model_name defaults to the dir's basename."""
     name = model_name or os.path.basename(checkpoint_dir.rstrip("/"))
     if which == "min_loss":

@@ -7,7 +7,11 @@ defaults follow it.
         [--head-path auto|fused|eager] [--lambda_g G] \
         [--pretrained STATE_DICT.pth] [--bn-dtype bfloat16] \
         [--scan-steps K] [--scheduler NAME] [--warmup-epochs E] \
-        [--working-path W] [--continue_train latest] [--device cpu] ...
+        [--optimizer NAME|ID] [--clip-grad-norm X] [--grad-accum K] \
+        [--model-ema D] [--freeze-backbone] [--flip] [--crop-pad P] \
+        [--color-jitter S] [--random-erasing P] [--distill-dir DIR \
+        --distill-weight W] [--working-path W] [--continue_train latest] \
+        [--device cpu] ...
     python -m face_recognition_models_tpu_torch.cli pack \
         --dataset-path P --output DIR [--image-size 112] [--backend auto]
     python -m face_recognition_models_tpu_torch.cli eval \
@@ -18,7 +22,8 @@ defaults follow it.
 insightface RecordIO set (`train.rec` / `train.idx`: either path, their
 prefix, or a dir holding `train.rec`) or an identity tree
 (`P/CASIA-WebFace[/{train,valid}]/<id>/*.jpg`, or `P/<id>/*.jpg`). `train`
-writes its checkpoints under <working>/checkpoints/<model> and tees its
+writes its checkpoints under <working>/checkpoints/<model> (with
+--model-ema also <model>_final_ema, the averaged backbone) and tees its
 output to <working>/log/<model>.txt; `eval` reads them. Both run on the card
 unless `--device cpu` is given, and fail without one.
 """
@@ -41,6 +46,82 @@ from face_recognition_models_tpu_torch.heads.fused_adapter import (
 from face_recognition_models_tpu_torch.models import BACKBONES
 
 
+def add_recipe_arguments(p) -> None:
+    """The optimizer, accumulation, EMA, frozen-trunk, augmentation and
+    distillation flags of `train` (the JAX CLI's names and defaults), which
+    the benchmark and profiling scripts take too."""
+    p.add_argument("--optimizer", default="sgd",
+                   help="update rule, by name or 1-based id "
+                        "(train/optim.py: sgd, adam, adamw, rmsprop, "
+                        "adagrad, nadam, adamax, lion)")
+    p.add_argument("--weight-decay", type=float, default=5e-4)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--nesterov", action="store_true")
+    p.add_argument("--clip-grad-norm", type=float, default=0.0,
+                   help="clip the gradients to this global norm before the "
+                        "update (optax.clip_by_global_norm; 0 = off)")
+    p.add_argument("--grad-accum", type=int, default=1, metavar="K",
+                   help="average the gradients of K micro-batches per "
+                        "update (1 = off)")
+    p.add_argument("--model-ema", type=float, default=0.0, metavar="DECAY",
+                   help="exponential moving average of the weights (0 = "
+                        "off; typical 0.999-0.9999), saved as "
+                        "<model>_final_ema")
+    p.add_argument("--freeze-backbone", action="store_true",
+                   help="train the margin head only: the backbone runs in "
+                        "eval mode with no backward and keeps its weights")
+    p.add_argument("--flip", action="store_true",
+                   help="random horizontal flip on the card")
+    p.add_argument("--crop-pad", type=int, default=0,
+                   help="random shift-crop on the card: reflect-pad by N "
+                        "pixels, crop back at a random offset")
+    p.add_argument("--color-jitter", type=float, default=0.0,
+                   help="brightness / contrast jitter strength on the card")
+    p.add_argument("--random-erasing", type=float, default=0.0,
+                   help="Random Erasing probability per image on the card")
+    p.add_argument("--distill-dir", default="", metavar="CKPT_DIR",
+                   help="distillation: the checkpoint dir of a trained "
+                        "teacher (a previous `train` run's "
+                        "<working>/checkpoints/<model>); needs "
+                        "--distill-weight")
+    p.add_argument("--distill-backbone", default="resnet50",
+                   choices=sorted(BACKBONES), help="the teacher's trunk")
+    p.add_argument("--distill-weight", type=float, default=0.0,
+                   metavar="W", help="weight of the embedding-matching "
+                                     "loss (0 = off)")
+    p.add_argument("--distill-mode", choices=["cosine", "mse"],
+                   default="cosine",
+                   help="cosine: 1 - cos of the L2-normalised embeddings; "
+                        "mse: squared L2 of the raw embeddings")
+    p.add_argument("--distill-which",
+                   choices=["final", "final_ema", "min_loss", "best_acc"],
+                   default="final", help="which teacher artifact to load")
+
+
+def recipe_config(cfg: cfg_lib.TrainConfig, args) -> cfg_lib.TrainConfig:
+    """`cfg` with the flags of add_recipe_arguments and args.learning_rate.
+    An unknown optimizer raises ValueError (the factory's message)."""
+    from face_recognition_models_tpu_torch.train.optim import optimizer_name
+
+    choice = args.optimizer
+    name = optimizer_name(int(choice) if choice.isdigit() else choice)
+    return dataclasses.replace(
+        cfg, grad_accum=args.grad_accum, model_ema=args.model_ema,
+        freeze_backbone=args.freeze_backbone,
+        optimizer=cfg_lib.OptimizerConfig(
+            name=name, learning_rate=args.learning_rate,
+            momentum=args.momentum, weight_decay=args.weight_decay,
+            nesterov=args.nesterov, clip_grad_norm=args.clip_grad_norm),
+        data=dataclasses.replace(
+            cfg.data, horizontal_flip=args.flip, crop_pad=args.crop_pad,
+            color_jitter=args.color_jitter,
+            random_erasing=args.random_erasing),
+        distill=cfg_lib.DistillConfig(
+            backbone=args.distill_backbone, checkpoint_dir=args.distill_dir,
+            which=args.distill_which, weight=args.distill_weight,
+            mode=args.distill_mode))
+
+
 def _add_train_parser(sub):
     p = sub.add_parser("train", help="train a margin-head model")
     p.add_argument("--head", default="arcface",
@@ -55,8 +136,7 @@ def _add_train_parser(sub):
     p.add_argument("--batch_size", "-bs", type=int, default=512)
     p.add_argument("--epochs", "-e", type=int, default=30)
     p.add_argument("--learning_rate", "-lr", type=float, default=0.1)
-    p.add_argument("--weight-decay", type=float, default=5e-4)
-    p.add_argument("--momentum", type=float, default=0.9)
+    add_recipe_arguments(p)
     p.add_argument("--scheduler", default="customstep",
                    help="LR schedule (train/schedules.py: customstep, step, "
                         "multistep, cosine, exponential, warmup_cosine, "
@@ -182,6 +262,7 @@ def cmd_train(args) -> int:
     from face_recognition_models_tpu_torch.data.synthetic import (
         synthetic_identities)
     from face_recognition_models_tpu_torch.train.loop import fit
+    from face_recognition_models_tpu_torch.train.state import ema_state_dict
 
     head, head_kw = args.head, {}
     if head == "mv_softmax_arc":
@@ -204,14 +285,16 @@ def cmd_train(args) -> int:
         continue_train=args.continue_train,
         pretrained_path=args.pretrained, bn_dtype=args.bn_dtype,
         use_fused_head=fused, scan_steps=args.scan_steps,
-        optimizer=cfg_lib.OptimizerConfig(
-            learning_rate=args.learning_rate, momentum=args.momentum,
-            weight_decay=args.weight_decay),
         schedule=cfg_lib.ScheduleConfig(
             name=args.scheduler,
             steps=tuple(int(s) for s in args.lr_steps.split(",") if s),
             warmup_epochs=args.warmup_epochs),
         data=cfg_lib.DataConfig(image_size=args.image_size))
+    try:
+        cfg = recipe_config(cfg, args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     head_cfg = cfg_lib.make_head_config(head, num_classes=cfg.num_classes,
                                         **head_kw)
     if args.synthetic:
@@ -235,7 +318,7 @@ def cmd_train(args) -> int:
         print(f"Training {model_name} ({cfg.backbone}, "
               f"{'fused' if fused else 'eager'} head) - batch "
               f"{cfg.batch_size}, epochs {cfg.epochs}, "
-              f"lr {args.learning_rate}")
+              f"{cfg.optimizer.name} lr {args.learning_rate}")
         mgr = CheckpointManager(ckpt_dir, model_name,
                                 keep=cfg.keep_checkpoints)
         t0 = time.time()
@@ -247,6 +330,9 @@ def cmd_train(args) -> int:
         # (head kernel and state, optimizer) lives in the epoch and
         # min_loss checkpoints
         mgr.save_final(result.state.backbone.state_dict())
+        if result.state.ema is not None:
+            mgr.save_final(ema_state_dict(result.state),
+                           filename=f"{model_name}_final_ema")
         print(f"Done in {time.time() - t0:.0f}s - min train loss "
               f"{result.min_train_loss:.6f}, "
               f"{result.images_per_sec:.0f} img/s")

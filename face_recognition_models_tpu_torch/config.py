@@ -272,6 +272,14 @@ class OptimizerConfig:
     momentum: float = 0.9
     weight_decay: float = 5e-4
     nesterov: bool = False
+    # adam-family knobs (fit passes only momentum, weight_decay, nesterov
+    # and clip_grad_norm to the factory, as the JAX package's fit does)
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    # global-norm clipping of the raw gradients before the update rule
+    # (optax.clip_by_global_norm); 0 = off
+    clip_grad_norm: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,10 +298,31 @@ class ScheduleConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DistillConfig:
+    """Embedding-space distillation from a frozen trained teacher: the
+    teacher runs in eval mode on the same normalised, augmented batch as
+    the student, and `weight * distill_loss(student, teacher, mode)` joins
+    the loss (mode "cosine": mean(1 - cos) of the L2-normalised embeddings;
+    "mse": the mean squared L2 distance of the raw ones)."""
+
+    backbone: str = "resnet50"   # the teacher's trunk
+    checkpoint_dir: str = ""     # a previous `train` run's checkpoint dir
+    which: str = "final"         # final | final_ema | min_loss | best_acc
+    weight: float = 0.0          # 0 = off
+    mode: str = "cosine"         # cosine | mse
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
     image_size: int = IMAGE_SIZE
     mean: Tuple[float, float, float] = (0.5, 0.5, 0.5)
     std: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+    # on-card augmentations of the normalised batch (ops/image_ops.py
+    # apply_augmentations), each a no-op at its default
+    horizontal_flip: bool = False
+    crop_pad: int = 0            # random shift-crop, reflect padding px
+    color_jitter: float = 0.0    # brightness / contrast jitter strength
+    random_erasing: float = 0.0  # per-sample erasing probability
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,6 +353,18 @@ class TrainConfig:
     # step batching: K train steps per replay of one CUDA graph (a plain
     # loop of the same K steps on the CPU); 1 = one step at a time
     scan_steps: int = 1
+    # exponential moving average of the backbone parameters and kernel_w,
+    # ema = ema * d + p * (1 - d) after every optimizer update; saved as
+    # <model>_final_ema. 0 = off
+    model_ema: float = 0.0
+    # average the gradients of K micro-batches and update once every K
+    # steps (optax.MultiSteps); BatchNorm statistics and the head state move
+    # on every micro-batch. 1 = off
+    grad_accum: int = 1
+    # train the head alone: the backbone runs in eval mode without a
+    # backward, and its parameters and optimizer slots stay as they are
+    freeze_backbone: bool = False
     optimizer: OptimizerConfig = OptimizerConfig()
     schedule: ScheduleConfig = ScheduleConfig()
     data: DataConfig = DataConfig()
+    distill: DistillConfig = DistillConfig()

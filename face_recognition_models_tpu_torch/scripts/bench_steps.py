@@ -3,11 +3,13 @@ with `scan_steps` 1 (one step at a time) and K (one CUDA graph of K steps
 per replay, train/graphed.py), in turns in one process.
 
     python -m face_recognition_models_tpu_torch.scripts.bench_steps \
-        [--pairs 3] [--scan 4,8] [--steps 64] [--batch 512]
+        [--pairs 3] [--scan 4,8] [--steps 64] [--batch 512] \
+        [--backbone resnet50] [--optimizer adamw] [--clip-grad-norm 5] \
+        [--grad-accum 2] [--model-ema 0.999] [--flip] [--crop-pad 8] ...
 
-Every run is one epoch of `steps` seeded uint8 batches (resnet18,
-C=10,575, 112 px, bf16 convs, fp32 BatchNorm and head, SGD lr 0.1) from the
-same seeded state. The runs go in turns, eager then each K, then the
+Every run is one epoch of `steps` seeded uint8 batches (resnet18 or
+`--backbone`, C=10,575, 112 px, bf16 convs, fp32 BatchNorm and head, SGD lr
+0.1, or the recipe the `train` flags name) from the same seeded state. The runs go in turns, eager then each K, then the
 reverse, `pairs` times: host ms/step moves by 10-30 ms between calls on the
 card, so only runs of one process can rank the paths. `fit` reads the loss
 once after the first chunk (its print) and at the epoch's end, so the host
@@ -31,12 +33,17 @@ path here (the K steps as a plain loop, no graph).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
 import torch
 
 from face_recognition_models_tpu_torch import config as cfg_lib
+from face_recognition_models_tpu_torch.cli.main import (
+    add_recipe_arguments,
+    recipe_config,
+)
 from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
 from face_recognition_models_tpu_torch.train.loop import fit
 from face_recognition_models_tpu_torch.utils.device import (
@@ -52,6 +59,12 @@ def _quartiles(values):
 
 def run_once(cfg: cfg_lib.TrainConfig, images, labels, device) -> dict:
     """One `fit` of cfg over the arrays; its timings, memory and losses."""
+    return timed_fit(cfg, images, labels, device)[0]
+
+
+def timed_fit(cfg: cfg_lib.TrainConfig, images, labels, device):
+    """(run_once's summary, the FitResult) of one `fit` of cfg over the
+    arrays."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
@@ -62,11 +75,13 @@ def run_once(cfg: cfg_lib.TrainConfig, images, labels, device) -> dict:
     k = cfg.scan_steps
     wall = steps * cfg.batch_size / res.images_per_sec
     after = wall - sum(res.step_seconds[:k])
+    rest = steps - k   # steps after the first chunk; none in one chunk
     out = {"scan_steps": k, "steps": steps,
-           "ms_per_step_after_first_chunk": 1e3 * after / (steps - k),
+           "ms_per_step_after_first_chunk":
+               1e3 * after / rest if rest else None,
            "img_per_s": res.images_per_sec,
            "img_per_s_after_first_chunk":
-               (steps - k) * cfg.batch_size / after,
+               rest * cfg.batch_size / after if rest else None,
            "first_chunk_s": sum(res.step_seconds[:k]),
            "capture_seconds": res.capture_seconds,
            "replays": res.replays,
@@ -76,13 +91,16 @@ def run_once(cfg: cfg_lib.TrainConfig, images, labels, device) -> dict:
            "peak_reserved_gb": (torch.cuda.max_memory_reserved(device) / 1e9
                                 if cuda else None),
            "losses": res.losses}
-    return out
+    return out, res
 
 
 def bench(pairs: int = 3, scans=(4, 8), steps: int = 64, batch: int = 512,
           image_size: int = 112,
           num_classes: int = cfg_lib.CASIA_NUM_CLASSES, seed: int = 0,
-          device=None) -> dict:
+          device=None, recipe: cfg_lib.TrainConfig = cfg_lib.TrainConfig()
+          ) -> dict:
+    """`recipe` gives the backbone, head, optimizer and the rest of the
+    recipe; the arguments its size, seed and scan_steps."""
     device = resolve_device(device)
     if any(steps <= k for k in scans):
         raise ValueError(f"--steps {steps} must exceed every K in {scans}")
@@ -97,11 +115,10 @@ def bench(pairs: int = 3, scans=(4, 8), steps: int = 64, batch: int = 512,
     runs = {k: [] for k in paths}
     for k in order:
         # print_freq: only the first chunk prints (and waits for the card)
-        cfg = cfg_lib.TrainConfig(num_classes=num_classes, batch_size=batch,
-                                  epochs=1, print_freq=10 ** 9, seed=seed,
-                                  scan_steps=k,
-                                  data=cfg_lib.DataConfig(
-                                      image_size=image_size))
+        cfg = dataclasses.replace(
+            recipe, num_classes=num_classes, batch_size=batch, epochs=1,
+            print_freq=10 ** 9, seed=seed, scan_steps=k,
+            data=dataclasses.replace(recipe.data, image_size=image_size))
         runs[k].append(run_once(cfg, images, labels, device))
     for k, rs_ in runs.items():
         if any(r["losses"] != rs_[0]["losses"] for r in rs_):
@@ -116,6 +133,10 @@ def bench(pairs: int = 3, scans=(4, 8), steps: int = 64, batch: int = 512,
     return {"device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
             "nvidia_smi": nvidia_smi() if device.type == "cuda" else None,
+            "backbone": recipe.backbone,
+            "optimizer": dataclasses.asdict(recipe.optimizer),
+            "grad_accum": recipe.grad_accum, "model_ema": recipe.model_ema,
+            "freeze_backbone": recipe.freeze_backbone,
             "pairs": pairs, "steps": steps, "batch": batch,
             "image_size": image_size, "num_classes": num_classes,
             "order": order,
@@ -139,10 +160,15 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
+    p.add_argument("--backbone", default="resnet18",
+                   choices=("resnet18", "resnet50"))
+    p.add_argument("--learning_rate", "-lr", type=float, default=0.1)
+    add_recipe_arguments(p)
     a = p.parse_args(argv)
     scans = tuple(int(k) for k in a.scan.split(",") if k)
+    recipe = recipe_config(cfg_lib.TrainConfig(backbone=a.backbone), a)
     print(json.dumps(bench(a.pairs, scans, a.steps, a.batch, a.image_size,
-                           a.num_classes, a.seed, a.device)))
+                           a.num_classes, a.seed, a.device, recipe)))
     return 0
 
 

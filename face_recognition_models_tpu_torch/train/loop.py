@@ -1,6 +1,7 @@
 """The epoch loop. Port of `fit` from face_recognition_models_tpu/train/
-loop.py, with checkpoints and resume, without mesh, partial-FC, EMA or
-distillation yet.
+loop.py, with checkpoints and resume, the optimizer factory, clipping,
+gradient accumulation, the model EMA, the frozen trunk, the augmentations
+and distillation; without mesh or partial-FC yet.
 
 Metrics stay on the device and are read (which waits for the card) only at
 `print_freq` steps and at the end of each epoch. Heads that need a second
@@ -31,6 +32,8 @@ import numpy as np
 import torch
 
 from face_recognition_models_tpu_torch import config as cfg_lib
+from face_recognition_models_tpu_torch.models import get_backbone
+from face_recognition_models_tpu_torch.models.backbones import to_device
 from face_recognition_models_tpu_torch.ops.image_ops import degrade_images
 from face_recognition_models_tpu_torch.train.graphed import (
     ChunkRunner,
@@ -160,15 +163,87 @@ def _install_preemption_handlers(flag: dict) -> dict:
     return previous
 
 
+def load_teacher(distill: cfg_lib.DistillConfig, feature_dim: int,
+                 device: torch.device) -> torch.nn.Module:
+    """The frozen teacher a previous `train` run saved in
+    distill.checkpoint_dir (checkpoint/manager.restore_backbone, artifact
+    distill.which), as `get_backbone(distill.backbone)` builds it: bf16
+    convolutions, fp32 BatchNorm. A checkpoint that does not load raises."""
+    from face_recognition_models_tpu_torch.checkpoint import (
+        restore_backbone)
+
+    module = get_backbone(distill.backbone, embed_dim=feature_dim)
+    module.load_state_dict(restore_backbone(distill.checkpoint_dir,
+                                            distill.which))
+    return module
+
+
+def _prepare_teacher(cfg: cfg_lib.TrainConfig, head_cfg, teacher,
+                     device: torch.device):
+    """The teacher of the run on `device` in eval mode with no gradient,
+    or None; the JAX package's checks (train/loop.py:172-219)."""
+    distill = cfg.distill
+    if teacher is not None and distill.weight <= 0.0:
+        raise ValueError(
+            "teacher provided but cfg.distill.weight == 0; set a positive "
+            "--distill-weight to enable distillation")
+    if distill.weight <= 0.0:
+        return None
+    if teacher is None:
+        if not distill.checkpoint_dir:
+            raise ValueError(
+                "distill.weight > 0 needs a teacher: pass teacher=<backbone "
+                "module> or set --distill-dir <checkpoint dir>")
+        teacher = load_teacher(distill, head_cfg.feature_dim, device)
+    teacher = to_device(teacher, device).eval().requires_grad_(False)
+    size = cfg.data.image_size
+    with torch.no_grad():
+        d_t = teacher(torch.zeros((1, size, size, 3),
+                                  device=device)).shape[-1]
+    if d_t != head_cfg.feature_dim:
+        raise ValueError(
+            f"teacher embedding dim {d_t} != student feature dim "
+            f"{head_cfg.feature_dim}; distill_loss needs matching "
+            "embedding spaces")
+    if cfg.freeze_backbone:
+        raise ValueError(
+            "freeze_backbone with distillation is contradictory: the KD "
+            "loss only reaches the (frozen) trunk")
+    return teacher
+
+
+def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
+                schedule=None, teacher=None):
+    """(head, state, step) of cfg's recipe on `device`: the train state
+    (optimizer, accumulation, EMA) and the train step with the schedule,
+    augmentations, teacher (given, or loaded from cfg.distill) and frozen
+    trunk cfg names."""
+    teacher = _prepare_teacher(cfg, head_cfg, teacher, device)
+    _, head, state = create_train_state(cfg, head_cfg, device)
+    data = cfg.data
+    step_fn = make_train_step(
+        head, head_cfg, lr_schedule=schedule, mean=data.mean, std=data.std,
+        use_fused_head=cfg.use_fused_head, lambda_g=cfg.lambda_g,
+        device=device, horizontal_flip=data.horizontal_flip,
+        crop_pad=data.crop_pad, color_jitter=data.color_jitter,
+        random_erasing=data.random_erasing, teacher=teacher,
+        distill_weight=cfg.distill.weight, distill_mode=cfg.distill.mode,
+        freeze_backbone=cfg.freeze_backbone,
+        grad_accum=cfg.grad_accum, model_ema=cfg.model_ema)
+    return head, state, step_fn
+
+
 def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
-        head_cfg=None, checkpoint_manager: Optional[Any] = None
-        ) -> FitResult:
+        head_cfg=None, checkpoint_manager: Optional[Any] = None,
+        teacher: Optional[torch.nn.Module] = None) -> FitResult:
     """Train for cfg.epochs over `loader` (any object with steps_per_epoch()
     and epoch(i) -> iterator of (uint8 NHWC images, int labels)).
 
     With `checkpoint_manager` (checkpoint/manager.CheckpointManager) the
     run saves and resumes as the module docstring says; a resumed run
     takes cfg.epochs more epochs from the one after the checkpoint's.
+    `teacher` (a backbone module; needs cfg.distill.weight > 0) is the
+    in-memory alternative to cfg.distill.checkpoint_dir.
     Runs on the card unless device='cpu' is passed; raises without one.
     """
     device = resolve_device(device)
@@ -181,11 +256,8 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     scan_k = max(1, int(cfg.scan_steps))
     schedule = get_schedule(cfg.schedule, cfg.optimizer.learning_rate,
                             steps_per_epoch, cfg.epochs, device=device)
-    _, head, state = create_train_state(cfg, head_cfg, device)
-    step_fn = make_train_step(head, head_cfg, lr_schedule=schedule,
-                              mean=cfg.data.mean, std=cfg.data.std,
-                              use_fused_head=cfg.use_fused_head,
-                              lambda_g=cfg.lambda_g, device=device)
+    head, state, step_fn = make_recipe(cfg, head_cfg, device, schedule,
+                                       teacher)
     runner = (ChunkRunner(make_chunk_fn(step_fn, head.requires_minput),
                           scan_k, device) if scan_k > 1 else None)
 

@@ -1,8 +1,13 @@
 """Train and eval steps. Port of face_recognition_models_tpu/train/step.py.
 
-One train step: uint8 NHWC batch -> normalise on the device -> backbone in
-train mode -> margin head + cross-entropy -> backward -> SGD update with the
-lr the schedule gives for the step count before the update. The fused path
+One train step: uint8 NHWC batch -> normalise on the device -> the
+augmentations (ops/image_ops.apply_augmentations) -> the teacher's
+embeddings, when distilling (eval mode, no gradient, on the augmented
+batch) -> backbone in train mode (with `freeze_backbone` in eval mode with
+no backward) -> margin head + cross-entropy (+ the distillation loss) ->
+backward -> the optimizer's update (clipping, rule, accumulation: train/
+optim.py, train/accum.py) with the lr the schedule gives for the step count
+before the update -> the model EMA -> the head state. The fused path
 (default) runs the margin + CE through the CUDA kernels of
 ops/fused_head.py and never materialises the [N, C] logits; the eager path
 is the [N, C] head of heads/margins.py. The loss is the CE plus lambda_g
@@ -16,7 +21,9 @@ where it is: it normalises with constants made once, takes the lr from the
 schedule of the device count `state.count`, writes it into `state.lr` for
 the update, and copies the head's new state into the head-state tensors.
 So the same function runs eagerly and inside a CUDA graph of K steps
-(train/graphed.py).
+(train/graphed.py). Under grad_accum = K the update's lr is the schedule's
+at the start of the micro-step's K-cycle, schedule((count // K) * K), and
+the metric `lr` the schedule's at the count, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from face_recognition_models_tpu_torch.models.resnet import (
     running_stats_frozen,
 )
 from face_recognition_models_tpu_torch.ops.image_ops import (
+    apply_augmentations,
     normalization_constants,
 )
 from face_recognition_models_tpu_torch.train.losses import mean_cross_entropy
@@ -41,22 +49,52 @@ from face_recognition_models_tpu_torch.train.state import TrainState
 from face_recognition_models_tpu_torch.utils.device import resolve_device
 
 
+def distill_loss(student_feats: torch.Tensor, teacher_feats: torch.Tensor,
+                 mode: str) -> torch.Tensor:
+    """Embedding-space distillation penalty. cosine: mean(1 - cos(s, t)) on
+    L2-normalised embeddings (+1e-12 on the norms); mse: the mean squared
+    L2 distance of the raw embeddings."""
+    if mode == "cosine":
+        s = student_feats / (torch.linalg.vector_norm(
+            student_feats, dim=1, keepdim=True) + 1e-12)
+        t = teacher_feats / (torch.linalg.vector_norm(
+            teacher_feats, dim=1, keepdim=True) + 1e-12)
+        return torch.mean(1.0 - torch.sum(s * t, dim=1))
+    if mode == "mse":
+        return torch.mean(torch.sum((student_feats - teacher_feats) ** 2,
+                                    dim=1))
+    raise ValueError(f"unknown distill mode '{mode}' (cosine | mse)")
+
+
 def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
                     mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
                     use_fused_head: bool = True,
-                    lambda_g: float = 0.0, device=None) -> Callable:
+                    lambda_g: float = 0.0, device=None,
+                    horizontal_flip: bool = False, crop_pad: int = 0,
+                    color_jitter: float = 0.0, random_erasing: float = 0.0,
+                    teacher: Optional[torch.nn.Module] = None,
+                    distill_weight: float = 0.0,
+                    distill_mode: str = "cosine",
+                    freeze_backbone: bool = False, grad_accum: int = 1,
+                    model_ema: float = 0.0) -> Callable:
     """Build step(state, images, labels, minput_images=None)
     -> (state, metrics).
 
     The step updates `state` in place (module parameters, BatchNorm buffers,
-    optimizer slots, head state, step count, lr) and returns it. Metrics are
-    0-d tensors on the device, left unsynchronised. `lr_schedule` maps the
-    step count (a 0-d device tensor) to the lr; without it the optimizer's
-    own lr stays. Runs on the card unless device='cpu' is passed.
+    optimizer state, head state, step count, lr, EMA) and returns it.
+    Metrics are 0-d tensors on the device, left unsynchronised.
+    `lr_schedule` maps the step count (a 0-d device tensor) to the lr;
+    without it the optimizer's own lr stays. The augmentations draw from
+    `state.rng`. `teacher` (a frozen backbone on the device) adds
+    `distill_weight * distill_loss(...)` and the metric `loss_kd`;
+    `freeze_backbone` trains the head alone; `grad_accum` must be the
+    MultiSteps K of the state's optimizer; `model_ema` > 0 needs
+    `state.ema`. Runs on the card unless device='cpu' is passed.
     """
     device = resolve_device(device)
     if use_fused_head and not fused_supported(head_cfg.name):
         raise ValueError(f"head '{head_cfg.name}' has no fused-kernel path")
+    k = max(1, int(grad_accum))
     if device.type == "cuda":
         # the head's fp32 products must stay IEEE fp32 (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -69,17 +107,34 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
             images = images.to(torch.float32) * scale + bias
         return images
 
-    def train_step(state: TrainState, images, labels, minput_images=None):
-        images = prepare(images)
-        labels = torch.as_tensor(labels).to(device, non_blocking=True)
+    def backbone(state, images, view=False):
+        """The trunk's fp32 embeddings: in train mode (a second view moves
+        no BatchNorm statistics; gradients flow through both, as in the JAX
+        step), or frozen in eval mode with no backward."""
+        if freeze_backbone:
+            state.backbone.eval()
+            with torch.no_grad():
+                return state.backbone(images).to(torch.float32)
         state.backbone.train()
-        feats = state.backbone(images).to(torch.float32)
+        if view:
+            with running_stats_frozen(state.backbone):
+                return state.backbone(images).to(torch.float32)
+        return state.backbone(images).to(torch.float32)
+
+    def train_step(state: TrainState, images, labels, minput_images=None):
+        images = apply_augmentations(state.rng, prepare(images),
+                                     horizontal_flip, crop_pad, color_jitter,
+                                     random_erasing)
+        labels = torch.as_tensor(labels).to(device, non_blocking=True)
+        t_feats = None
+        if teacher is not None:
+            teacher.eval()
+            with torch.no_grad():
+                t_feats = teacher(images).to(torch.float32)
+        feats = backbone(state, images)
         minput_feats = None
         if minput_images is not None:
-            # gradients flow through this view too, as in the JAX step
-            with running_stats_frozen(state.backbone):
-                minput_feats = state.backbone(prepare(minput_images)).to(
-                    torch.float32)
+            minput_feats = backbone(state, prepare(minput_images), view=True)
         rng = state.rng if head.requires_rng else None
         if use_fused_head:
             out = fused_apply(head_cfg, state.kernel_w, feats, labels,
@@ -92,15 +147,28 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
             acc1, acc5 = topk_accuracy(out.pre_logits, labels)
         loss_mag = lambda_g * out.loss_g
         loss = loss_id + loss_mag
+        if t_feats is not None:
+            loss_kd = distill_weight * distill_loss(feats, t_feats,
+                                                    distill_mode)
+            loss = loss + loss_kd
         # the lr of the count before this update, as optax's schedule reads
-        lr = (lr_schedule(state.count) if lr_schedule is not None
-              else torch.full((), state.optimizer.param_groups[0]["lr"],
-                              dtype=torch.float32, device=device))
+        if lr_schedule is None:
+            lr = torch.full((), state.optimizer.param_groups[0]["lr"],
+                            dtype=torch.float32, device=device)
+            lr_update = lr
+        else:
+            lr = lr_schedule(state.count)
+            # MultiSteps' inner schedule counts updates: lr_inner(c * K)
+            lr_update = (lr if k == 1 else
+                         lr_schedule(torch.div(state.count, k,
+                                               rounding_mode="floor") * k))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         with torch.no_grad():
-            state.lr.copy_(lr)
+            state.lr.copy_(lr_update)
             state.optimizer.step(state.lr)
+            if model_ema > 0.0:
+                _ema_update(state, model_ema, k)
             # after the backward, which may still read the old state
             _copy_state(state.head_state, out.state)
             state.count.add_(1)
@@ -108,9 +176,26 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
         metrics = {"loss": loss.detach(), "loss_id": loss_id.detach(),
                    "loss_mag": loss_mag.detach(), "acc1": acc1, "acc5": acc5,
                    "lr": lr, "feat_norm": out.norms.detach().mean()}
+        if t_feats is not None:
+            metrics["loss_kd"] = loss_kd.detach()
         return state, metrics
 
     return train_step
+
+
+def _ema_update(state: TrainState, decay: float, k: int) -> None:
+    """ema = ema * d + p * (1 - d), written as the JAX package writes it.
+    Under grad_accum K, d is 1 (the EMA stays) except after the K-th
+    micro-step, where the parameters moved; `state.count` is the count
+    before this step."""
+    params = state.params()
+    if k == 1:
+        d, one_minus = decay, 1.0 - decay
+    else:
+        d = torch.where((state.count + 1) % k == 0, decay, 1.0)
+        one_minus = 1.0 - d
+    torch._foreach_mul_(state.ema, d)
+    torch._foreach_add_(state.ema, torch._foreach_mul(params, one_minus))
 
 
 def _copy_state(head_state, new_state) -> None:

@@ -2,10 +2,12 @@
 
     python -m face_recognition_models_tpu_torch.utils.profiling [--head NAME]
         [--bn-dtype bfloat16] [--scan-steps K] [--bn-casts]
+        [--backbone resnet50] [--optimizer adamw] [--grad-accum 2] ...
 
 Runs the default recipe (resnet18 + fused ArcFace, or the head named on the
 path `train --head-path auto` gives it, C=10,575, batch 512, 112 px, bf16
-convs, fp32 or bf16 BatchNorm) on the card: 3 warm-up steps, then 24
+convs, fp32 or bf16 BatchNorm; or `--backbone` and the recipe the `train`
+flags name) on the card: 3 warm-up steps, then 24
 profiled steps; QAFace's steps get the degraded view `fit` gives them, and
 each batch goes to the card through `fit`'s pinned staging. With
 `--scan-steps K` the steps run as `fit` runs them under `scan_steps`: K
@@ -34,6 +36,10 @@ import numpy as np
 import torch
 
 from face_recognition_models_tpu_torch import config as cfg_lib
+from face_recognition_models_tpu_torch.cli.main import (
+    add_recipe_arguments,
+    recipe_config,
+)
 from face_recognition_models_tpu_torch.heads.fused_adapter import use_fused
 from face_recognition_models_tpu_torch.models.resnet import BatchNorm
 from face_recognition_models_tpu_torch.train.graphed import (
@@ -43,9 +49,8 @@ from face_recognition_models_tpu_torch.train.graphed import (
 from face_recognition_models_tpu_torch.train.loop import (
     HostStaging,
     degrade_images,
+    make_recipe,
 )
-from face_recognition_models_tpu_torch.train.state import create_train_state
-from face_recognition_models_tpu_torch.train.step import make_train_step
 from face_recognition_models_tpu_torch.utils.device import resolve_device
 
 # kernel-name fragments -> category, first match wins
@@ -70,12 +75,10 @@ def _category(name: str) -> str:
 
 
 def _recipe(cfg: cfg_lib.TrainConfig, device):
-    """(head, state, train step, one seeded uint8 batch) of `cfg`."""
+    """(head, state, train step, one seeded uint8 batch) of `cfg`, as
+    `fit` builds them (train/loop.make_recipe, without a schedule)."""
     head_cfg = cfg_lib.make_head_config(cfg.head, num_classes=cfg.num_classes)
-    _, head, state = create_train_state(cfg, head_cfg, device)
-    train_step = make_train_step(head, head_cfg,
-                                 use_fused_head=cfg.use_fused_head,
-                                 device=device)
+    head, state, train_step = make_recipe(cfg, head_cfg, device)
     rs = np.random.RandomState(cfg.seed)
     size = cfg.data.image_size
     images = rs.randint(0, 256, (cfg.batch_size, size, size, 3), np.uint8)
@@ -122,8 +125,12 @@ def profile_train_step(cfg: cfg_lib.TrainConfig, device=None,
             run()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = {"head": cfg.head, "use_fused_head": cfg.use_fused_head,
+    out = {"backbone": cfg.backbone, "head": cfg.head,
+           "use_fused_head": cfg.use_fused_head,
            "bn_dtype": cfg.bn_dtype, "scan_steps": k,
+           "optimizer": cfg.optimizer.name, "grad_accum": cfg.grad_accum,
+           "model_ema": cfg.model_ema,
+           "freeze_backbone": cfg.freeze_backbone,
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu"),
            **summarize(prof, calls * k, wall_ms)}
@@ -211,9 +218,14 @@ if __name__ == "__main__":
                         default="float32")
     parser.add_argument("--scan-steps", type=int, default=1)
     parser.add_argument("--bn-casts", action="store_true")
+    parser.add_argument("--backbone", default="resnet18",
+                        choices=("resnet18", "resnet50"))
+    parser.add_argument("--learning_rate", "-lr", type=float, default=0.1)
+    add_recipe_arguments(parser)
     args = parser.parse_args()
-    cfg = cfg_lib.TrainConfig(head=args.head, bn_dtype=args.bn_dtype,
-                              use_fused_head=use_fused(args.head),
-                              scan_steps=args.scan_steps)
+    cfg = recipe_config(cfg_lib.TrainConfig(
+        backbone=args.backbone, head=args.head, bn_dtype=args.bn_dtype,
+        use_fused_head=use_fused(args.head), scan_steps=args.scan_steps),
+        args)
     fn = bn_cast_host_us if args.bn_casts else profile_train_step
     print(json.dumps(fn(cfg)))

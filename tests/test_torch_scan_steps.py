@@ -3,8 +3,11 @@ port's chunk function (train/graphed.py) against its own single steps bit
 for bit and against the JAX package's `lax.scan` chunk; the train state's
 tensors keeping their addresses across a step; `fit` with chunks and
 leftover batches, and resumed, bitwise equal to `fit` one step at a time;
-the CLI flag; and, on a card (marked `cuda`), CUDA-graph replays equal to
-eager steps and a step that waits for the host refused.
+the CLI flag; the rest of the train recipe (an optimizer of the factory
+with clipping, gradient accumulation, the model EMA, the frozen trunk, the
+augmentations, distillation) under the chunk function and `fit`; and, on a
+card (marked `cuda`), CUDA-graph replays equal to eager steps, for the
+default recipe and these, and a step that waits for the host refused.
 
 resnet18 at 16 px, batch 8, C = 8, D = 32. Against JAX the backbones run
 in fp32, the JAX step its jnp head (`use_pallas_head=False`), the port its
@@ -15,6 +18,8 @@ run it: the card's machine has none. On a card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_scan_steps.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,10 +34,12 @@ from face_recognition_models_tpu_torch.data.synthetic import (
 from face_recognition_models_tpu_torch.heads import get_head
 from face_recognition_models_tpu_torch.heads.fused_adapter import use_fused
 from face_recognition_models_tpu_torch.models import get_backbone
+from face_recognition_models_tpu_torch.models.resnet import init_weights
 from face_recognition_models_tpu_torch.ops.image_ops import degrade_images
 from face_recognition_models_tpu_torch.train import loop
 from face_recognition_models_tpu_torch.train.graphed import make_chunk_fn
 from face_recognition_models_tpu_torch.train.optim import get_optimizer
+from face_recognition_models_tpu_torch.train.schedules import get_schedule
 from face_recognition_models_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -68,9 +75,50 @@ def _batches(k, seed=3):
 
 
 def _train_cfg(name, num_classes=C, **kw):
+    kw = {"data": tcfg.DataConfig(image_size=IMAGE), **kw}
     return tcfg.TrainConfig(head=name, num_classes=num_classes, batch_size=N,
-                            seed=0, use_fused_head=use_fused(name),
-                            data=tcfg.DataConfig(image_size=IMAGE), **kw)
+                            seed=0, use_fused_head=use_fused(name), **kw)
+
+
+# (TrainConfig overrides) of the rest of the recipe: every new state tensor
+# (the rules' slots and counts, the accumulated gradients and mini_step, the
+# EMA) and the augmentations' draws from the step generator
+RECIPES = {
+    "adamw_clip_accum_ema_augment": dict(
+        grad_accum=2, model_ema=0.9,
+        optimizer=tcfg.OptimizerConfig(name="adamw", learning_rate=0.002,
+                                       clip_grad_norm=1.0),
+        data=tcfg.DataConfig(image_size=IMAGE, horizontal_flip=True,
+                             crop_pad=3, color_jitter=0.2,
+                             random_erasing=0.5)),
+    "lion_accum3_freeze": dict(
+        grad_accum=3, freeze_backbone=True,
+        optimizer=tcfg.OptimizerConfig(name="lion", learning_rate=0.001)),
+    "rmsprop_ema": dict(
+        model_ema=0.99,
+        optimizer=tcfg.OptimizerConfig(name="rmsprop", learning_rate=0.001,
+                                       clip_grad_norm=0.5)),
+}
+
+
+def _recipe(recipe, teacher=False):
+    """(state, step) of resnet18 + ArcFace with RECIPES[recipe] (and a
+    seeded resnet18 teacher at distill weight 0.5) through loop.make_recipe,
+    with the schedule `fit` gives it."""
+    kw = dict(RECIPES[recipe])
+    if teacher:
+        kw["distill"] = tcfg.DistillConfig(weight=0.5, mode="cosine")
+    cfg = _train_cfg("arcface", **kw)
+    head_cfg = tcfg.make_head_config("arcface", feature_dim=D, num_classes=C)
+    module = None
+    if teacher:
+        module = get_backbone("resnet18", embed_dim=D)
+        init_weights(module, torch.Generator().manual_seed(1))
+    schedule = get_schedule(cfg.schedule, cfg.optimizer.learning_rate, 3,
+                            cfg.epochs, device="cpu")
+    _, state, step = loop.make_recipe(cfg, head_cfg, torch.device("cpu"),
+                                      schedule, module)
+    return state, step
 
 
 def _port(name, **kw):
@@ -118,6 +166,45 @@ def test_chunk_equals_single_steps(name, k):
     assert metrics["loss"].tolist() == want
     _assert_same_state(chunked, singles)
     assert int(chunked.count) == chunked.step == k
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("recipe", [*RECIPES, "distill"])
+def test_recipe_chunk_equals_single_steps(recipe, k):
+    """The chunk function over the recipe's steps equals its single steps
+    bit for bit: losses, every state tensor (slots, counts, accumulated
+    gradients, mini_step, EMA) and the generator the augmentations draw
+    from; the chunk starts at K - 1 micro-steps of a 2-cycle too."""
+    name = "adamw_clip_accum_ema_augment" if recipe == "distill" else recipe
+    images, labels = _batches(k + 1)
+    runs = []
+    for chunked in (True, False):
+        state, step = _recipe(name, teacher=recipe == "distill")
+        # one step first: the chunk starts off the accumulation cycle
+        state, _ = step(state, torch.from_numpy(images[0]),
+                        torch.from_numpy(labels[0]))
+        if chunked:
+            _, m = make_chunk_fn(step, False)(
+                state, torch.from_numpy(images[1:]),
+                torch.from_numpy(labels[1:]))
+            losses = m["loss"].tolist()
+            if recipe == "distill":
+                assert m["loss_kd"].shape == (k,)
+        else:
+            losses = _single_steps(state, step, "arcface", images[1:],
+                                   labels[1:])
+        runs.append((losses, state))
+    assert runs[0][0] == runs[1][0]
+    _assert_same_state(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_recipe_step_keeps_state_addresses(recipe):
+    state, step = _recipe(recipe)
+    before = [x.data_ptr() for x in state_tensors(state)]
+    images, labels = _batches(3)
+    _single_steps(state, step, "arcface", images, labels)
+    assert [x.data_ptr() for x in state_tensors(state)] == before
 
 
 def _jax_chunk(name, images, labels):
@@ -284,14 +371,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cuda_fit(name, k, size=32, steps=7):
+def _cuda_fit(name, k, size=32, steps=7, **kw):
     rs = np.random.RandomState(0)
     images = rs.randint(0, 256, (steps * 16, size, size, 3), np.uint8)
     labels = rs.randint(0, 100, steps * 16).astype(np.int32)
+    kw = {"data": tcfg.DataConfig(image_size=size), **kw}
     cfg = tcfg.TrainConfig(head=name, num_classes=100, batch_size=16,
                            epochs=1, print_freq=100, seed=0, scan_steps=k,
-                           use_fused_head=use_fused(name),
-                           data=tcfg.DataConfig(image_size=size))
+                           use_fused_head=use_fused(name), **kw)
     return loop.fit(cfg, ArrayLoader(images, labels, batch_size=16, seed=0),
                     device="cuda")
 
@@ -304,6 +391,21 @@ def test_graphed_steps_equal_eager_steps(cuda, name):
     tensor, the step generator."""
     graphed = _cuda_fit(name, 3)
     eager = _cuda_fit(name, 1)
+    assert graphed.replays == 2
+    assert graphed.losses == eager.losses
+    _assert_same_state(graphed.state, eager.state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_graphed_recipe_equals_eager_steps(cuda, recipe):
+    """The rest of the recipe (RECIPES, 32 px) graphed as the default one:
+    7 steps with scan_steps=3 against 7 eager steps, bit for bit."""
+    kw = dict(RECIPES[recipe])
+    if "data" in kw:
+        kw["data"] = dataclasses.replace(kw["data"], image_size=32)
+    graphed = _cuda_fit("arcface", 3, **kw)
+    eager = _cuda_fit("arcface", 1, **kw)
     assert graphed.replays == 2
     assert graphed.losses == eager.losses
     _assert_same_state(graphed.state, eager.state)
