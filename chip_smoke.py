@@ -125,6 +125,41 @@ and no result line:
              device time by category (torch.profiler), and the bf16-BN
              embeddings against the fp32-BN ones of the same weights and
              batch: the least row cosine >= 0.99.
+13. serve  - serving at full width, one JSON line a part. export: a
+             seeded ResNet-50 (512-d, 112 px, bf16 convs) with moved
+             BatchNorm statistics (move_bn_statistics: a fold of the
+             initial ones is the identity) saved with save_final and
+             written by the `export` CLI unfolded and with --fold-bn (fp32
+             BatchNorm, as the CLI builds it), and by export_embedder with
+             bf16 BatchNorm (the serving default); each artifact loaded,
+             held against the live eval step at b512 (rtol = atol 1e-2;
+             folded row by row: error <= 2e-2 of the row's norm, least
+             cosine >= 0.9998), at batches 1, 3 and 8, and timed (img/s of
+             its fn, host arrays in and out, beside bench_embed's); export
+             and load seconds, bytes; four folds with a wrong term (mean
+             dropped or negated, scale or variance left out) each refused
+             by the fold check. http: an EmbedService on the bf16 artifact
+             with a gallery of 1,000 synthetic identities x 2 images,
+             served on 127.0.0.1 in a thread; 32 client threads x 16 PNG
+             requests to /embed (each within 2e-3 of the direct embedding)
+             and to /identify?top_k=5 (top-1 the probe's identity for >=
+             99%), at micro-batch 8 and 1 (wait 5 ms), on a new connection
+             per request and on kept-alive connections: p50 / p99 ms, the
+             connects' p50 / p99, requests/s, the rise of the kernel's
+             listen-overflow counters, batches, max_coalesced; /healthz,
+             404, 411 and the 409 of /detect; `embed` over a PNG tree; no
+             kernel of the port launched. PIL decodes, as in the JAX
+             package: the phase fails without it. identify:
+             pooled_scores_device on a 1,000,000 x 512 gallery of 100,000
+             identities and 10,000 probes, timed, its first 256 probes
+             within 1e-6 of the host path, a chunk's product and scatter
+             by CUDA events, and closed-set CMC on the card equal to the
+             CPU's on a 100,000-image subset. periodic:
+             `train --eval-every 1` (resnet18 ArcFace, b512, 2 epochs)
+             against the eval phase's synthetic .bin writes
+             <model>_best_acc, which `eval --which best_acc` reads; `fit`
+             with scan_steps=4 and the hook equals the same run without
+             it bit for bit.
 
 The line before the last is {"kernels": [...]} (each kernel's launches from
 the phase that runs its entry point: train, head_bf16, conv3x3_bench; the
@@ -2569,6 +2604,779 @@ def phase_bench_embed():
           "device_ms_by_category": split,
           "min_cosine_bf16_vs_fp32_bn": min_cos,
           "mean_cosine_bf16_vs_fp32_bn": float(cos.mean()), "ok": True})
+    return res["value"]
+
+
+# the serve phase: ResNet-50 (512-d, 112 px, bf16 convs) exported and
+# served; a gallery of SERVE_IDENTITIES synthetic identities x 2 images,
+# each client thread's requests a probe image (a third image) of one
+SERVE_IDENTITIES = 1000
+SERVE_CLIENTS, SERVE_REQUESTS = 32, 16
+SERVE_MICRO_BATCHES = (8, 1)
+SERVE_WAIT_MS = 5.0
+SERVE_RETRIES = 3   # a request the server's connection reset, sent again
+# an artifact against the live eval step (tests/test_serving.py of the JAX
+# package: rtol = atol 1e-2), an HTTP embedding against the direct one
+# (tests/test_server.py: atol 2e-3), the card's pooled scores against the
+# host's (tests/test_openset.py: atol 1e-6). The folded artifact (moved
+# BatchNorm statistics, bf16 convs, full width) row by row: the JAX
+# folded bound's 2e-2 relative to the embedding's norm, and a least
+# cosine of 0.9998 (the cosine such an error leaves: 1 - 0.02^2 / 2)
+TOL_ARTIFACT, TOL_FOLDED, TOL_HTTP, TOL_POOLED = 1e-2, 2e-2, 2e-3, 1e-6
+MIN_FOLDED_COSINE = 0.9998
+MIN_TOP1 = 0.99
+# identification at scale: a million-image gallery over 100,000 identities
+ID_GALLERY, ID_IDENTITIES, ID_PROBES = 1_000_000, 100_000, 10_000
+ID_SUBSET_IDENTITIES = 10_000   # 100,000 gallery images for the CMC check
+ID_SUBSET_PROBES = 2560
+ID_DIM = 512
+# the periodic-eval runs: resnet18 ArcFace, b512, 2 epochs of 4 steps
+PERIODIC_CLASSES, PERIODIC_PER_CLASS = 256, 8
+
+
+def timed_fn_img_per_s(fn, images, calls=10):
+    """img/s of an artifact's fn (host uint8 in, host fp32 out) over
+    `calls` calls after 2 warm-up calls, host clock."""
+    for _ in range(2):
+        fn(images)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(images)
+    return calls * len(images) / (time.perf_counter() - t0)
+
+
+def move_bn_statistics(model, seed=4):
+    """Seeded BatchNorm statistics away from their initial ones (scale
+    0.8-1.2, shift and mean -0.1-0.1, variance 0.5-1.5), as a trained
+    model's are, in place: with the initial ones (scale 1, shift 0, mean 0,
+    variance 1) a fold is the identity and a wrong fold goes unseen. The
+    same seed gives the same statistics in any model of one backbone."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models.resnet import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                n = mod.running_mean.numel()
+                for t, lo, width in ((mod.weight, 0.8, 0.4),
+                                     (mod.bias, -0.1, 0.2),
+                                     (mod.running_mean, -0.1, 0.2),
+                                     (mod.running_var, 0.5, 1.0)):
+                    t.copy_(torch.rand(n, generator=gen) * width + lo)
+    return model
+
+
+def fold_agreement(got, want):
+    """The folded embeddings against the unfolded ones, row by row: the
+    least cosine and the largest error relative to the row's norm
+    (folding moves where the bf16 rounding happens, so the check is on
+    each embedding, not on each of its 512 values), and, as readings, the
+    elementwise error and its excess over rtol = atol TOL_FOLDED."""
+    diff = got - want
+    norm = np.linalg.norm(want, axis=1)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * norm)
+    rel = np.linalg.norm(diff, axis=1) / norm
+    out = {"min_cosine": float(cos.min()), "max_rel_err": float(rel.max()),
+           "max_abs_err": float(np.abs(diff).max()),
+           "max_abs_of_unfolded": float(np.abs(want).max()),
+           "max_excess_over_elementwise_2e-2": float(
+               (np.abs(diff) - TOL_FOLDED * (1 + np.abs(want))).max())}
+    out["within"] = bool(out["min_cosine"] >= MIN_FOLDED_COSINE
+                         and out["max_rel_err"] <= TOL_FOLDED)
+    return out
+
+
+def wrong_folds(model, images, want):
+    """The fold check's negative controls: folds of `model` (eager, bf16
+    convs) with one term wrong, each of which fold_agreement must refuse
+    against the unfolded embeddings `want`: the running mean dropped, the
+    running mean negated, the BatchNorm scale left out, the variance left
+    out."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models.folding import (
+        fold_resnet_bn)
+    from face_recognition_models_tpu_torch.train.step import make_eval_step
+
+    def mean_dropped(k, v):
+        return torch.zeros_like(v) if k.endswith("running_mean") else v
+
+    def mean_negated(k, v):
+        return -v if k.endswith("running_mean") else v
+
+    def var_dropped(k, v):
+        return torch.ones_like(v) if k.endswith("running_var") else v
+
+    bn = {k.rsplit(".", 1)[0] for k in model.state_dict()
+          if k.endswith("running_mean")}
+
+    def scale_dropped(k, v):
+        return (torch.ones_like(v) if k.rsplit(".", 1)[0] in bn
+                and k.endswith(".weight") else v)
+
+    out = {}
+    for name, change in (("mean_dropped", mean_dropped),
+                         ("mean_negated", mean_negated),
+                         ("scale_dropped", scale_dropped),
+                         ("variance_dropped", var_dropped)):
+        state = {k: change(k, v) for k, v in model.state_dict().items()}
+        folded = model.clone(folded=True)
+        folded.load_state_dict(fold_resnet_bn(state))
+        folded = folded.to(images.device, memory_format=torch.channels_last)
+        got = make_eval_step(folded, device=images.device)(
+            images).cpu().numpy()
+        out[name] = fold_agreement(got, want)
+        if out[name]["within"]:
+            raise AssertionError(f"serve: a fold with the {name} passes "
+                                 f"the fold check: {out[name]}")
+        del folded
+    return out
+
+
+def serve_export(root, bench_embed_img_per_s):
+    """A seeded ResNet-50 with moved BatchNorm statistics saved with
+    save_final, exported by the `export` CLI unfolded and with --fold-bn
+    (fp32 BatchNorm: the CLI builds the backbone as the JAX package's
+    does), and by export_embedder with bf16 BatchNorm (the serving
+    default); each artifact against the live eval step of the same module
+    at b512, timed; wrong folds refused by the fold check. Returns the bf16
+    artifact's path and the checkpoint dir."""
+    import torch
+
+    from face_recognition_models_tpu_torch.checkpoint import CheckpointManager
+    from face_recognition_models_tpu_torch.cli.main import main as cli_main
+    from face_recognition_models_tpu_torch.scripts import bench_embed
+    from face_recognition_models_tpu_torch.serving.export import (
+        export_embedder, load_embedder)
+    from face_recognition_models_tpu_torch.train.step import make_eval_step
+
+    cuda = torch.device("cuda")
+    models = {bn: move_bn_statistics(
+        bench_embed.build_model("resnet50", bn, 0, cuda))
+        for bn in ("float32", "bfloat16")}
+    ckpt = os.path.join(root, "serve", "arcface")
+    CheckpointManager(ckpt, "arcface").save_final(
+        models["float32"].state_dict())
+    images = bench_embed.make_batches(1, N_MAIN, 112, 1, cuda)[0]
+    host = images.cpu().numpy()
+    want = {bn: make_eval_step(m, device=cuda)(images).cpu().numpy()
+            for bn, m in models.items()}
+    out, paths = {}, {}
+    for name in ("unfolded", "folded", "unfolded_bf16_bn"):
+        path = paths[name] = os.path.join(root, name + ".frte")
+        t0 = time.perf_counter()
+        if name == "unfolded_bf16_bn":
+            export_embedder(models["bfloat16"],
+                            models["bfloat16"].state_dict(), path,
+                            meta={"backbone": "resnet50"})
+        else:
+            rc = cli_main(["export", "--checkpoint-dir", ckpt, "--backbone",
+                           "resnet50", "--output", path]
+                          + (["--fold-bn"] if name == "folded" else []))
+            if rc != 0:
+                raise AssertionError(f"serve: export {name} rc {rc}")
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = load_embedder(path)
+        load_s = time.perf_counter() - t0
+        got = art.fn(host)
+        ref = want["bfloat16" if name.endswith("bf16_bn") else "float32"]
+        if name == "folded":
+            check = fold_agreement(got, ref)
+            ok = check["within"]
+            limit = {"min_cosine": MIN_FOLDED_COSINE,
+                     "max_rel_err": TOL_FOLDED}
+        else:
+            err = float(np.abs(got - ref).max())
+            check = {"max_abs_err_vs_live": err,
+                     "bitwise_vs_live": bool(np.array_equal(got, ref))}
+            ok = np.allclose(got, ref, rtol=TOL_ARTIFACT, atol=TOL_ARTIFACT)
+            limit = {"rtol": TOL_ARTIFACT, "atol": TOL_ARTIFACT}
+        if (art.meta["bn_folded"] != (name == "folded") or not ok
+                or not all(art.fn(host[:b]).shape == (b, 512)
+                           for b in (1, 3, 8))):
+            raise AssertionError(f"serve: artifact {name} vs the live eval "
+                                 f"step: {check} (limit {limit})")
+        out[name] = {"export_s": export_s, "load_s": load_s,
+                     "bytes": os.path.getsize(path), **check,
+                     "limit": limit,
+                     "b512_img_per_s": timed_fn_img_per_s(art.fn, host)}
+        del art
+    emit({"phase": "serve", "part": "export", "backbone": "resnet50",
+          "embed_dim": 512, "batch": N_MAIN,
+          "bn_statistics": "moved (move_bn_statistics)", "artifacts": out,
+          "bench_embed_img_per_s": bench_embed_img_per_s,
+          "wrong_folds_refused": wrong_folds(models["float32"], images,
+                                             want["float32"]),
+          "timer": "host clock around fn (numpy uint8 in, numpy fp32 out)",
+          "ok": True})
+    return paths["unfolded_bf16_bn"], ckpt
+
+
+def _png(arr):
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _listen_counters():
+    """The kernel's TcpExt counters of connections a listening socket
+    refused or dropped (its accept queue full), from /proc/net/netstat
+    (read only); a string saying why where they cannot be read."""
+    keys = ("ListenOverflows", "ListenDrops", "TCPReqQFullDrop",
+            "SyncookiesSent")
+    try:
+        with open("/proc/net/netstat") as f:
+            lines = f.read().splitlines()
+    except OSError as e:
+        return f"not readable: {type(e).__name__}: {e}"
+    for names, values in zip(lines[::2], lines[1::2]):
+        if names.startswith("TcpExt:"):
+            got = dict(zip(names.split()[1:], map(int, values.split()[1:])))
+            return {k: got.get(k) for k in keys}
+    return f"no TcpExt line among {len(lines)} lines"
+
+
+def _http_status(method, url, data=None, headers=()):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data, method=method)
+    for k, v in headers:
+        req.add_header(k, v)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+
+def _chunked_status(url):
+    import socket
+    host, port = url.replace("http://", "").split(":")
+    with socket.create_connection((host, int(port)), timeout=30) as s:
+        s.sendall(b"POST /embed HTTP/1.1\r\nHost: smoke\r\n"
+                  b"Transfer-Encoding: chunked\r\n\r\n4\r\nabcd\r\n0\r\n\r\n")
+        head = s.recv(4096).decode("utf-8", "replace")
+    return int(head.split()[1])
+
+
+def _clients(url, bodies, route, keep_alive):
+    """SERVE_CLIENTS threads, each sending its SERVE_REQUESTS bodies to
+    `route` one after another: on a new connection per request
+    (`Connection: close`, as urllib sends) or on one kept-alive connection
+    per thread. A request whose connection the server resets is sent again
+    on a new connection, at most SERVE_RETRIES times, and counted. Returns
+    (responses, latencies s, connect s, resets, wall s); a request's
+    latency runs from its first connect (timed apart) to its response."""
+    import http.client
+    import threading
+
+    host, port = url.replace("http://", "").split(":")
+    n = len(bodies)
+    responses, latency, connect = [None] * n, [0.0] * n, [0.0] * n
+    resets = {}
+    errors = []
+    headers = {"Content-Type": "application/octet-stream"}
+    if not keep_alive:
+        headers["Connection"] = "close"
+
+    def client(t):
+        conn = None
+        try:
+            for i in range(t * SERVE_REQUESTS, (t + 1) * SERVE_REQUESTS):
+                t0 = time.perf_counter()
+                for attempt in range(SERVE_RETRIES + 1):
+                    stage = "connect"
+                    try:
+                        if conn is None:
+                            conn = http.client.HTTPConnection(
+                                host, int(port), timeout=60)
+                            conn.connect()
+                        if attempt == 0:
+                            connect[i] = time.perf_counter() - t0
+                        stage = "request"
+                        conn.request("POST", route, body=bodies[i],
+                                     headers=headers)
+                        stage = "response"
+                        resp = conn.getresponse()
+                        data = resp.read()
+                        break
+                    except (ConnectionResetError, BrokenPipeError,
+                            http.client.RemoteDisconnected) as e:
+                        conn.close()
+                        conn = None
+                        key = f"{stage}: {type(e).__name__}"
+                        resets[key] = resets.get(key, 0) + 1
+                        if attempt == SERVE_RETRIES:
+                            raise
+                latency[i] = time.perf_counter() - t0
+                if resp.status != 200:
+                    raise AssertionError(f"{route}: HTTP {resp.status}")
+                responses[i] = json.loads(data)
+                if not keep_alive or resp.will_close:
+                    conn.close()
+                    conn = None
+        except Exception as e:  # reported below, after every join
+            errors.append(e)
+        finally:
+            if conn is not None:
+                conn.close()
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve: clients of {route} failed: {errors} "
+                             f"(resets {resets})")
+    return responses, latency, connect, resets, wall
+
+
+def _client_main(url, route, keep_alive, bodies_path, out_path):
+    """The clients' process: _clients over the pickled bodies (written by
+    this script), the result as JSON at out_path."""
+    with open(bodies_path, "rb") as f:
+        bodies = pickle.load(f)
+    responses, latency, connect, resets, wall = _clients(
+        url, bodies, route, keep_alive)
+    with open(out_path, "w") as f:
+        json.dump({"responses": responses, "latency": latency,
+                   "connect": connect, "resets_resent": resets,
+                   "wall": wall}, f)
+
+
+def _remote_clients(url, route, keep_alive, bodies_path, root):
+    """_clients in a process of its own (spawned), as traffic arrives at a
+    server: the clients' threads do not share the server's interpreter
+    lock. Returns (responses, the window's latency summary), the summary
+    with the listen counters' rise over the window."""
+    import multiprocessing
+
+    out = os.path.join(root, "clients.json")
+    before = _listen_counters()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_client_main,
+        args=(url, route, keep_alive, bodies_path, out))
+    proc.start()
+    proc.join(timeout=900)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        raise AssertionError(f"serve: the clients of {route} timed out")
+    if proc.exitcode != 0:
+        raise AssertionError(f"serve: the clients of {route} exited "
+                             f"{proc.exitcode}")
+    after = _listen_counters()
+    with open(out) as f:
+        got = json.load(f)
+    summary = _latency(got["latency"], got["wall"])
+    connect_ms = np.asarray(got["connect"]) * 1e3
+    summary.update({
+        "connect_p50_ms": float(np.percentile(connect_ms, 50)),
+        "connect_p99_ms": float(np.percentile(connect_ms, 99)),
+        "connect_max_ms": float(connect_ms.max()),
+        "connects_over_500_ms": int((connect_ms > 500).sum()),
+        "resets_resent": got["resets_resent"],
+        **{f"request_after_connect_p{q}_ms": float(np.percentile(
+            (np.asarray(got["latency"]) - np.asarray(got["connect"]))
+            * 1e3, q)) for q in (50, 99)},
+        "connects_by_whole_seconds": {
+            str(k): int(v) for k, v in zip(*np.unique(
+                np.rint(connect_ms[connect_ms > 500] / 1e3).astype(int),
+                return_counts=True))},
+        "slowest_client_s": max(
+            sum(got["latency"][t * SERVE_REQUESTS:(t + 1) * SERVE_REQUESTS])
+            for t in range(SERVE_CLIENTS)),
+        "listen_counters_rise": after if not isinstance(after, dict)
+        or not isinstance(before, dict)
+        else {k: (None if after[k] is None or before[k] is None
+                  else after[k] - before[k]) for k in after}})
+    return got["responses"], summary
+
+
+class _TimedFn:
+    """An embed_fn that records each call's host seconds (the batch's
+    time inside the service: the copy in, the program, the copy out)."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, []
+
+    def __call__(self, images):
+        t0 = time.perf_counter()
+        out = self.fn(images)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _fn_ms(fn, images, calls=20):
+    """Median host ms of fn(images) alone, after 2 warm-up calls."""
+    seconds = []
+    for i in range(calls + 2):
+        t0 = time.perf_counter()
+        fn(images)
+        seconds.append(time.perf_counter() - t0)
+    return float(np.median(seconds[2:])) * 1e3
+
+
+def _latency(lat, wall):
+    ms = np.asarray(lat) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms.max()),
+            "requests_per_s": len(lat) / wall}
+
+
+def serve_http(root, artifact):
+    """EmbedService on the bf16-BatchNorm artifact with a gallery of the
+    artifact's embeddings, on 127.0.0.1 in a thread; SERVE_CLIENTS x
+    SERVE_REQUESTS PNG requests to /embed and to /identify?top_k=5 at each
+    micro-batch size, on a new connection per request and on kept-alive
+    connections; the error routes; `embed` over a PNG tree. PIL decodes
+    both (as in the JAX package), so the phase fails without it."""
+    import threading
+
+    import torch
+
+    from face_recognition_models_tpu_torch.cli.main import main as cli_main
+    from face_recognition_models_tpu_torch.data.synthetic import (
+        synthetic_identities)
+    from face_recognition_models_tpu_torch.ops import conv3x3
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.serving.export import load_embedder
+    from face_recognition_models_tpu_torch.serving.server import (
+        EmbedService, make_server)
+
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise AssertionError("serve: `embed` and the service's decode need "
+                             "PIL, which does not import here") from e
+    art = load_embedder(artifact)
+    images, _ = synthetic_identities(SERVE_IDENTITIES, 3, image_size=112,
+                                     seed=3)
+    images = images.reshape(SERVE_IDENTITIES, 3, 112, 112, 3)
+    gallery = images[:, :2].reshape(-1, 112, 112, 3)
+    emb = np.concatenate([art.fn(gallery[i:i + N_MAIN])
+                          for i in range(0, len(gallery), N_MAIN)])
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    gallery_npz = os.path.join(root, "gallery.npz")
+    np.savez(gallery_npz, embeddings=emb,
+             paths=np.asarray([f"id{i // 2:04d}/{i % 2}.png"
+                               for i in range(len(gallery))]))
+    n = SERVE_CLIENTS * SERVE_REQUESTS
+    ids = np.random.RandomState(5).choice(SERVE_IDENTITIES, n,
+                                          replace=False)
+    probes = images[ids, 2]
+    bodies = [_png(im) for im in probes]
+    bodies_path = os.path.join(root, "bodies.pkl")
+    with open(bodies_path, "wb") as f:
+        pickle.dump(bodies, f)
+    direct = art.fn(probes)
+    direct /= np.linalg.norm(direct, axis=1, keepdims=True)
+    fh.reset_launch_counts()
+    conv3x3.reset_launch_counts()
+    results = {}
+    for mb in SERVE_MICRO_BATCHES:
+        alone_ms = _fn_ms(art.fn, probes[:mb])
+        timed = _TimedFn(art.fn)
+        service = EmbedService(timed, 112, batch_size=mb,
+                               max_wait_ms=SERVE_WAIT_MS,
+                               gallery_path=gallery_npz)
+        server = make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        windows = {}
+        try:
+            code, health = _http_status("GET", url + "/healthz")
+            statuses = {
+                "healthz": code,
+                "get_404": _http_status("GET", url + "/nope")[0],
+                "post_404": _http_status("POST", url + "/nope", b"x")[0],
+                "detect_409": _http_status("POST", url + "/detect",
+                                           bodies[0])[0],
+                "chunked_411": _chunked_status(url)}
+            if (statuses != {"healthz": 200, "get_404": 404,
+                             "post_404": 404, "detect_409": 409,
+                             "chunked_411": 411}
+                    or health["embed_dim"] != 512
+                    or health["gallery_size"] != len(gallery)):
+                raise AssertionError(f"serve: {statuses}, {health}")
+            for conn in ("new_connection", "keep_alive"):
+                keep = conn == "keep_alive"
+                got, lat_e = _remote_clients(url, "/embed", keep,
+                                             bodies_path, root)
+                http = np.asarray([r["embedding"] for r in got], np.float32)
+                err = float(np.abs(http - direct).max())
+                if not err <= TOL_HTTP:
+                    raise AssertionError(f"serve: HTTP embeddings vs direct "
+                                         f"{err} (tol {TOL_HTTP})")
+                found, lat_i = _remote_clients(url, "/identify?top_k=5",
+                                               keep, bodies_path, root)
+                top1 = float(np.mean([r["matches"][0]["path"].split("/")[0]
+                                      == f"id{i:04d}"
+                                      for r, i in zip(found, ids)]))
+                if not (top1 >= MIN_TOP1
+                        and all(len(r["matches"]) == 5 for r in found)):
+                    raise AssertionError(f"serve: top-1 {top1} < {MIN_TOP1}")
+                windows[conn] = {"embed": lat_e, "identify": lat_i,
+                                 "max_abs_err_vs_direct": err, "top1": top1}
+            stats = service.batcher.stats()
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+        results[f"micro_batch_{mb}"] = {
+            **windows,
+            "batches": stats["batches"], "images": stats["images"],
+            "max_coalesced": stats["max_coalesced"],
+            "fn_ms_alone": alone_ms,
+            "fn_ms_in_service": {
+                "p50": float(np.percentile(timed.seconds[1:], 50)) * 1e3,
+                "p99": float(np.percentile(timed.seconds[1:], 99)) * 1e3},
+            "statuses": statuses}
+    launched = {k: v for k, v in {**fh.launch_counts,
+                                  **conv3x3.launch_counts}.items() if v}
+    if launched:
+        raise AssertionError(f"serve: the serving path launched {launched}")
+    tree = os.path.join(root, "tree")
+    for i in range(64):
+        os.makedirs(os.path.join(tree, f"id{i // 2:04d}"), exist_ok=True)
+        Image.fromarray(gallery[i]).save(
+            os.path.join(tree, f"id{i // 2:04d}", f"{i % 2}.png"))
+    out_npz = os.path.join(root, "embedded.npz")
+    if cli_main(["embed", "--input", tree, "--output", out_npz,
+                 "--model", artifact, "--batch-size", "16"]) != 0:
+        raise AssertionError("serve: embed CLI failed")
+    e_err = float(np.abs(np.load(out_npz)["embeddings"] - emb[:64]).max())
+    if not e_err <= TOL_HTTP:
+        raise AssertionError(f"serve: embed CLI vs direct {e_err}")
+    emit({"phase": "serve", "part": "http", "clients": SERVE_CLIENTS,
+          "requests_per_client": SERVE_REQUESTS,
+          "gallery_images": len(gallery), "wait_ms": SERVE_WAIT_MS,
+          "decoder": "PIL (PNG bodies)", "tolerance": TOL_HTTP,
+          "listen_counters": "TcpExt rise over each client window, "
+                             "/proc/net/netstat of the host's network",
+          "kernel_launches": launched, **results,
+          "embed_cli": {"images": 64, "max_abs_err_vs_direct": e_err},
+          "ok": True})
+    del art
+    torch.cuda.empty_cache()
+
+
+def identify_chunk_ms(gallery, ids, probes, calls=5):
+    """CUDA-event ms of one chunk's two device steps, each over `calls`
+    back-to-back calls: the [256, D] x [D, G] fp32 product (TF32 off) and
+    the per-identity scatter_reduce amax of its scores; and the product's
+    max abs error against a float64 product of the first 8 rows."""
+    import torch
+
+    from face_recognition_models_tpu_torch.evaluation.openset import (
+        _true_fp32_matmul)
+
+    uniq = np.unique(ids)
+    index = torch.from_numpy(np.searchsorted(uniq, ids)).cuda().expand(
+        256, -1)
+    gal = torch.from_numpy(gallery).cuda()
+    block = torch.from_numpy(probes[:256]).cuda()
+    pooled = torch.empty((256, len(uniq)), device="cuda")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with _true_fp32_matmul():
+        out = block @ gal.T
+        pooled.fill_(float("-inf")).scatter_reduce_(1, index, out, "amax")
+        events[0].record()
+        for _ in range(calls):
+            out = block @ gal.T
+        events[1].record()
+        for _ in range(calls):
+            pooled.fill_(float("-inf")).scatter_reduce_(1, index, out,
+                                                        "amax")
+        events[2].record()
+        events[2].synchronize()
+    want = block[:8].double() @ gal.T.double()
+    err = float((out[:8].double() - want).abs().max())
+    del gal, out, pooled, index
+    torch.cuda.empty_cache()
+    return {"product_ms": events[0].elapsed_time(events[1]) / calls,
+            "fill_and_scatter_amax_ms":
+                events[1].elapsed_time(events[2]) / calls,
+            "product_max_abs_err_vs_float64": err,
+            "tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def serve_identify():
+    """pooled_scores_device on a seeded ID_GALLERY x ID_DIM unit-norm
+    gallery over ID_IDENTITIES identities and ID_PROBES probes, timed;
+    its first 256 probes against the host path; closed-set CMC scored on
+    the card and on the CPU over a 100,000-image subset."""
+    import torch
+
+    from face_recognition_models_tpu_torch.evaluation import openset
+
+    cuda = torch.device("cuda")
+    g = torch.Generator(device=cuda).manual_seed(6)
+
+    def unit(x):
+        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+    protos = torch.randn(ID_IDENTITIES, ID_DIM, generator=g, device=cuda)
+    ids = (torch.arange(ID_GALLERY, device=cuda) % ID_IDENTITIES)[
+        torch.randperm(ID_GALLERY, generator=g, device=cuda)]
+    gallery = unit(protos[ids] + 0.5 * torch.randn(
+        ID_GALLERY, ID_DIM, generator=g, device=cuda)).cpu().numpy()
+    probe_ids = torch.randint(0, ID_IDENTITIES, (ID_PROBES,), generator=g,
+                              device=cuda)
+    probes = unit(protos[probe_ids] + 0.5 * torch.randn(
+        ID_PROBES, ID_DIM, generator=g, device=cuda)).cpu().numpy()
+    ids, probe_ids = ids.cpu().numpy(), probe_ids.cpu().numpy()
+    del protos
+    torch.cuda.empty_cache()
+    seconds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pooled, uniq = openset.pooled_scores_device(gallery, ids, probes)
+        seconds.append(time.perf_counter() - t0)
+    chunk_ms = identify_chunk_ms(gallery, ids, probes)
+    host, host_uniq = openset._best_per_identity(probes[:256] @ gallery.T,
+                                                 ids)
+    err = float(np.abs(pooled[:256] - host).max())
+    if not (np.array_equal(uniq, host_uniq) and err <= TOL_POOLED
+            and pooled.shape == (ID_PROBES, ID_IDENTITIES)):
+        raise AssertionError(f"serve: pooled scores vs host {err}")
+    keep = ids < ID_SUBSET_IDENTITIES
+    sub = probe_ids < ID_SUBSET_IDENTITIES
+    sub_probes = probes[sub][:ID_SUBSET_PROBES]
+    sub_ids = probe_ids[sub][:ID_SUBSET_PROBES]
+    cmc = {dev: openset.closed_set_identification(
+        gallery[keep], ids[keep], sub_probes, sub_ids, ranks=(1, 5),
+        device=dev).cmc for dev in ("cuda", "cpu")}
+    if cmc["cuda"] != cmc["cpu"]:
+        raise AssertionError(f"serve: CMC card {cmc['cuda']} vs CPU "
+                             f"{cmc['cpu']}")
+    flops = 2.0 * ID_PROBES * ID_GALLERY * ID_DIM
+    emit({"phase": "serve", "part": "identify", "gallery": ID_GALLERY,
+          "identities": ID_IDENTITIES, "probes": ID_PROBES, "dim": ID_DIM,
+          "chunk": 256, "seconds": seconds,
+          "probes_per_s": ID_PROBES / min(seconds),
+          "bound_ms": flops / PEAK_FP32_FLOPS * 1e3, "bound_by": "operations",
+          "chunk_device_ms_by_events": chunk_ms,
+          "max_abs_err_first_256_vs_host": err, "tolerance": TOL_POOLED,
+          "subset_images": int(keep.sum()), "subset_probes": len(sub_ids),
+          "cmc_card": cmc["cuda"], "cmc_cpu": cmc["cpu"],
+          "timer": "host clock around pooled_scores_device (host arrays "
+                   "in and out)", "ok": True})
+
+
+def serve_periodic(root):
+    """`train --eval-every 1` (resnet18 ArcFace, b512, 2 epochs) against a
+    synthetic LFW-size .bin, then `eval --which best_acc`; and fit with
+    scan_steps=4 and the hook against the same run without it, bit for
+    bit."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.cli.main import main as cli_main
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.data.synthetic import (
+        synthetic_identities)
+    from face_recognition_models_tpu_torch.evaluation import batch_eval
+    from face_recognition_models_tpu_torch.evaluation.periodic import (
+        PeriodicEvalHook)
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.train.loop import fit
+    from face_recognition_models_tpu_torch.train.state import (
+        state_tensors as all_state_tensors)
+
+    bench_dir = os.path.join(root, "benchmarks")
+    os.makedirs(bench_dir)
+    synthetic_benchmark(os.path.join(bench_dir, "synth_lfw.bin"))
+    work = os.path.join(root, "periodic")
+    t0 = time.perf_counter()
+    rc = cli_main(["train", "--synthetic", "--synthetic-classes",
+                   str(PERIODIC_CLASSES), "--synthetic-per-class",
+                   str(PERIODIC_PER_CLASS), "--batch_size", str(N_MAIN),
+                   "--epochs", "2", "--print_freq", "100",
+                   "--working-path", work, "--eval-every", "1",
+                   "--eval-data-path", bench_dir, "--benchmarks",
+                   "synth_lfw"])
+    train_s = time.perf_counter() - t0
+    ckpt = os.path.join(work, "checkpoints")
+    best = os.path.join(ckpt, "arcface", "arcface_best_acc")
+    if rc != 0 or not os.path.isfile(best):
+        raise AssertionError(f"serve: train --eval-every rc {rc}, "
+                             f"best_acc written {os.path.isfile(best)}")
+    with recorded(batch_eval, "evaluate_model_on_benchmark") as calls:
+        rc = cli_main(["eval", "--checkpoint-dir", ckpt, "--eval-data-path",
+                       bench_dir, "--benchmarks", "synth_lfw", "--which",
+                       "best_acc", "--output-dir",
+                       os.path.join(root, "eval_best_acc")])
+    if rc != 0 or len(calls) != 1:
+        raise AssertionError(f"serve: eval --which best_acc rc {rc}")
+
+    images, labels = synthetic_identities(PERIODIC_CLASSES,
+                                          PERIODIC_PER_CLASS, seed=0)
+    cfg = cfg_lib.TrainConfig(head="arcface", num_classes=PERIODIC_CLASSES,
+                              batch_size=N_MAIN, epochs=2, print_freq=100,
+                              seed=0, scan_steps=4)
+    runs = {}
+    for name in ("plain", "hooked"):
+        hook = None
+        if name == "hooked":
+            hook = PeriodicEvalHook(get_backbone("resnet18"), bench_dir,
+                                    ["synth_lfw"], every=1,
+                                    total_epochs=cfg.epochs, verbose=False,
+                                    device="cuda")
+        res = fit(cfg, ArrayLoader(images, labels, batch_size=N_MAIN,
+                                   seed=0), device="cuda", hooks=hook)
+        torch.cuda.synchronize()
+        runs[name] = (res, hook)
+    (plain, _), (hooked, hook) = runs["plain"], runs["hooked"]
+    same = (hooked.losses == plain.losses and all(
+        torch.equal(x, y) for x, y in zip(all_state_tensors(hooked.state),
+                                          all_state_tensors(plain.state),
+                                          strict=True)))
+    chunks = cfg.epochs * (len(images) // N_MAIN // cfg.scan_steps)
+    if not (hooked.replays == plain.replays == chunks
+            and [e for e, _ in hook.history] == [1, 2]):
+        raise AssertionError(f"serve: replays {hooked.replays} and "
+                             f"{plain.replays} (want {chunks}), hook "
+                             f"epochs {[e for e, _ in hook.history]}")
+    if not same:
+        raise AssertionError("serve: graphed fit with the hook differs "
+                             "from fit without it")
+    emit({"phase": "serve", "part": "periodic", "backbone": "resnet18",
+          "head": "arcface", "batch": N_MAIN, "epochs": 2,
+          "benchmark": "synth_lfw.bin (as the eval phase's)",
+          "train_eval_every_s": train_s,
+          "best_acc": calls[0].mean_accuracy,
+          "hook_accuracy_by_epoch": [r["synth_lfw"].mean_accuracy
+                                     for _, r in hook.history],
+          "scan_steps": 4, "replays": hooked.replays,
+          "graphed_with_hook_bitwise": True, "losses": hooked.losses,
+          "ok": True})
+
+
+def phase_serve(root, bench_embed_img_per_s):
+    """Serving at full width: export, the HTTP service, identification at a
+    million images, and periodic evaluation (see the module docstring)."""
+    import torch
+
+    artifact, _ = serve_export(root, bench_embed_img_per_s)
+    torch.cuda.empty_cache()
+    serve_http(root, artifact)
+    serve_identify()
+    torch.cuda.empty_cache()
+    serve_periodic(root)
 
 
 def main() -> int:
@@ -2619,7 +3427,10 @@ def main() -> int:
     phase_train_packed()
     phase_decode()
     torch.cuda.empty_cache()
-    phase_bench_embed()
+    embed_img_per_s = phase_bench_embed()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        phase_serve(root, embed_img_per_s)
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] == "conv3x3_same_f32":

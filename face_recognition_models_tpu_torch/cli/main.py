@@ -1,6 +1,6 @@
-"""Command line of the port. Port of the `train`, `eval`, `pack` and `list`
-subcommands of face_recognition_models_tpu/cli/main.py; flag names and
-defaults follow it.
+"""Command line of the port. Port of the `train`, `eval`, `pack`,
+`export`, `embed`, `serve`, `identify` and `list` subcommands of
+face_recognition_models_tpu/cli/main.py; flag names and defaults follow it.
 
     python -m face_recognition_models_tpu_torch.cli train \
         --dataset-path P | --synthetic [--head NAME] \
@@ -11,11 +11,21 @@ defaults follow it.
         [--model-ema D] [--freeze-backbone] [--flip] [--crop-pad P] \
         [--color-jitter S] [--random-erasing P] [--distill-dir DIR \
         --distill-weight W] [--working-path W] [--continue_train latest] \
-        [--device cpu] ...
+        [--eval-every N | --eval-after] [--eval-data-path E] \
+        [--benchmarks lfw,...] [--eval-flip] [--device cpu] ...
     python -m face_recognition_models_tpu_torch.cli pack \
         --dataset-path P --output DIR [--image-size 112] [--backend auto]
     python -m face_recognition_models_tpu_torch.cli eval \
         --checkpoint-dir W/checkpoints --eval-data-path E [--device cpu] ...
+    python -m face_recognition_models_tpu_torch.cli export \
+        --checkpoint-dir W/checkpoints/<model> --output F.frte \
+        [--fold-bn] [--platforms cuda,cpu] [--format stablehlo|torch]
+    python -m face_recognition_models_tpu_torch.cli embed --input TREE \
+        --output F.npz --model F.frte | --checkpoint-dir DIR
+    python -m face_recognition_models_tpu_torch.cli serve \
+        --model F.frte | --checkpoint-dir DIR [--gallery G.npz] [--port P]
+    python -m face_recognition_models_tpu_torch.cli identify \
+        --gallery G.npz --probes P.npz [--device cpu]
     python -m face_recognition_models_tpu_torch.cli list
 
 `train --dataset-path` reads a pack (`pack`'s output, no decode), an
@@ -23,9 +33,12 @@ insightface RecordIO set (`train.rec` / `train.idx`: either path, their
 prefix, or a dir holding `train.rec`) or an identity tree
 (`P/CASIA-WebFace[/{train,valid}]/<id>/*.jpg`, or `P/<id>/*.jpg`). `train`
 writes its checkpoints under <working>/checkpoints/<model> (with
---model-ema also <model>_final_ema, the averaged backbone) and tees its
-output to <working>/log/<model>.txt; `eval` reads them. Both run on the card
-unless `--device cpu` is given, and fail without one.
+--model-ema also <model>_final_ema, the averaged backbone; with
+--eval-every also <model>_best_acc) and tees its output to
+<working>/log/<model>.txt; `eval`, `export` and `embed` read them. `embed`
+and `serve` decode images with PIL. Every subcommand that runs a model,
+and `identify`'s scoring, runs on the card unless `--device cpu` is given,
+and fails without one.
 """
 
 from __future__ import annotations
@@ -190,6 +203,19 @@ def _add_train_parser(sub):
     p.add_argument("--synthetic-classes", type=int, default=64)
     p.add_argument("--synthetic-per-class", type=int, default=32)
     p.add_argument("--image-size", type=int, default=cfg_lib.IMAGE_SIZE)
+    p.add_argument("--eval-after", action="store_true",
+                   help="run benchmark verification after training")
+    p.add_argument("--eval-every", type=int, default=0, metavar="N",
+                   help="run benchmark verification every N epochs DURING "
+                        "training (0 = off; needs --eval-data-path) and "
+                        "save the best-by-verification backbone as "
+                        "<model>_best_acc")
+    p.add_argument("--eval-data-path", default="",
+                   help="benchmark root for --eval-after / --eval-every")
+    p.add_argument("--eval-flip", action="store_true",
+                   help="flip-sum TTA for --eval-after / --eval-every "
+                        "embeddings (the insightface convention)")
+    p.add_argument("--benchmarks", default=",".join(cfg_lib.EVAL_BENCHMARKS))
     return p
 
 
@@ -261,8 +287,11 @@ def cmd_train(args) -> int:
     from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
     from face_recognition_models_tpu_torch.data.synthetic import (
         synthetic_identities)
+    from face_recognition_models_tpu_torch.evaluation.periodic import (
+        PeriodicEvalHook)
     from face_recognition_models_tpu_torch.train.loop import fit
-    from face_recognition_models_tpu_torch.train.state import ema_state_dict
+    from face_recognition_models_tpu_torch.train.state import (
+        build_backbone, ema_state_dict)
 
     head, head_kw = args.head, {}
     if head == "mv_softmax_arc":
@@ -321,22 +350,67 @@ def cmd_train(args) -> int:
               f"{cfg.optimizer.name} lr {args.learning_rate}")
         mgr = CheckpointManager(ckpt_dir, model_name,
                                 keep=cfg.keep_checkpoints)
+        eval_hook = None
+        if args.eval_every > 0:
+            if not args.eval_data_path:
+                print("--eval-every: no --eval-data-path given, skipping")
+            else:
+                eval_hook = PeriodicEvalHook(
+                    build_backbone(cfg, head_cfg), args.eval_data_path,
+                    args.benchmarks.split(","), every=args.eval_every,
+                    image_size=cfg.data.image_size, total_epochs=cfg.epochs,
+                    checkpoint_manager=mgr, model_name=model_name,
+                    use_ema=cfg.model_ema > 0.0, flip=args.eval_flip,
+                    device=args.device)
         t0 = time.time()
         result = fit(cfg, loader, device=args.device, head_cfg=head_cfg,
-                     checkpoint_manager=mgr)
+                     checkpoint_manager=mgr, hooks=eval_hook)
         if result.preempted:
             return 143
+        if eval_hook is not None and eval_hook.best_epoch > 0:
+            print(f"Best verification {eval_hook.best_acc:.3f}% at epoch "
+                  f"{eval_hook.best_epoch} (saved {model_name}_best_acc)")
         # the final artifact is the embedding model; the full train state
         # (head kernel and state, optimizer) lives in the epoch and
         # min_loss checkpoints
-        mgr.save_final(result.state.backbone.state_dict())
+        eval_weights = result.state.backbone.state_dict()
+        mgr.save_final(eval_weights)
         if result.state.ema is not None:
-            mgr.save_final(ema_state_dict(result.state),
-                           filename=f"{model_name}_final_ema")
+            # the averaged weights are what a run with an EMA deploys
+            eval_weights = ema_state_dict(result.state)
+            mgr.save_final(eval_weights, filename=f"{model_name}_final_ema")
         print(f"Done in {time.time() - t0:.0f}s - min train loss "
               f"{result.min_train_loss:.6f}, "
               f"{result.images_per_sec:.0f} img/s")
+        if args.eval_after:
+            if not args.eval_data_path:
+                print("--eval-after: no --eval-data-path given, skipping")
+            else:
+                _eval_after(args, cfg, head_cfg, model_name, eval_weights)
     return 0
+
+
+def _eval_after(args, cfg, head_cfg, model_name, weights) -> None:
+    """`train --eval-after`: each benchmark's verification of the trained
+    backbone (its EMA with --model-ema); a missing benchmark is skipped."""
+    from face_recognition_models_tpu_torch.evaluation.batch_eval import (
+        evaluate_model_on_benchmark, make_embed_fn)
+    from face_recognition_models_tpu_torch.models.backbones import to_device
+    from face_recognition_models_tpu_torch.train.state import build_backbone
+    from face_recognition_models_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    module = build_backbone(cfg, head_cfg)
+    module.load_state_dict(weights)
+    embed = make_embed_fn(to_device(module, device), device=device)
+    for bench in args.benchmarks.split(","):
+        try:
+            res = evaluate_model_on_benchmark(
+                embed, args.eval_data_path, bench, cfg.data.image_size,
+                verbose=False, flip=args.eval_flip)
+            print(f"[eval-after] {model_name} on {bench}: {res}")
+        except FileNotFoundError as e:
+            print(f"[eval-after] skip {bench}: {e}")
 
 
 def _add_eval_parser(sub):
@@ -462,6 +536,198 @@ def cmd_pack(args) -> int:
     return 0
 
 
+_WHICH = ["final", "final_ema", "min_loss", "best_acc"]
+
+
+def _add_export_parser(sub):
+    p = sub.add_parser("export", help="export a trained backbone as a "
+                                      "self-contained serving artifact "
+                                      "(a torch.export program; symbolic "
+                                      "batch dim)")
+    p.add_argument("--checkpoint-dir", required=True,
+                   help="model checkpoint dir (the train run's "
+                        "<working>/checkpoints/<name>)")
+    p.add_argument("--backbone", default="resnet50",
+                   choices=sorted(BACKBONES))
+    p.add_argument("--embed-dim", type=int, default=512,
+                   help="backbone embedding width")
+    p.add_argument("--output", required=True, metavar="FILE.frte")
+    p.add_argument("--image-size", type=int, default=cfg_lib.IMAGE_SIZE)
+    p.add_argument("--platforms", default=None,
+                   help="comma list of devices to export a program for "
+                        "(cuda, cpu); default: --device's")
+    p.add_argument("--which", default="final", choices=_WHICH,
+                   help="which checkpoint artifact to export "
+                        "(same semantics as `eval --which`)")
+    p.add_argument("--fold-bn", action="store_true",
+                   help="fold BatchNorm into the conv weights (ResNet; "
+                        "exact in eval mode)")
+    p.add_argument("--format", default="stablehlo",
+                   choices=["stablehlo", "torch"],
+                   help="stablehlo (the JAX package's name for it): the "
+                        "self-contained .frte serving artifact, which the "
+                        "port writes as a torch.export program; torch: the "
+                        "backbone's torchvision-layout state_dict .pth")
+    p.add_argument("--device", default=None,
+                   help="torch device to export on (default: cuda)")
+    return p
+
+
+def cmd_export(args) -> int:
+    import torch
+
+    from face_recognition_models_tpu_torch.checkpoint import restore_backbone
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.serving.export import (
+        export_embedder)
+    from face_recognition_models_tpu_torch.utils.device import resolve_device
+
+    finals = sorted(d for d in os.listdir(args.checkpoint_dir)
+                    if d.endswith("_final"))
+    if not finals and args.which != "min_loss":
+        print(f"error: no *_final checkpoint under {args.checkpoint_dir} "
+              "(train to completion first)", file=sys.stderr)
+        return 1
+    name = finals[0][:-len("_final")] if finals else None
+    state_dict = restore_backbone(args.checkpoint_dir, args.which,
+                                  model_name=name)
+    if args.format == "torch":
+        torch.save({k: v.contiguous() for k, v in state_dict.items()},
+                   args.output)
+        print(f"exported {args.backbone} ({args.which}) -> {args.output} "
+              f"(torch state_dict, {len(state_dict)} tensors)")
+        return 0
+    platforms = (args.platforms.split(",") if args.platforms
+                 else [resolve_device(args.device).type])
+    header = export_embedder(get_backbone(args.backbone,
+                                          embed_dim=args.embed_dim),
+                             state_dict, args.output,
+                             image_size=args.image_size,
+                             platforms=platforms,
+                             fold_bn="always" if args.fold_bn else "never",
+                             meta={"backbone": args.backbone,
+                                   "which": args.which})
+    print(f"exported {args.backbone} ({args.which}) -> {args.output} "
+          f"(platforms {header['platforms']}, {header['embed_dim']}-d"
+          f"{', BN folded' if header['bn_folded'] else ''})")
+    return 0
+
+
+def _add_model_arguments(p) -> None:
+    """The model source flags `embed` and `serve` share."""
+    p.add_argument("--model", default=None,
+                   help="serving artifact from `export`")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="alternatively: a training checkpoint dir")
+    p.add_argument("--which", default="final", choices=_WHICH,
+                   help="which checkpoint artifact to use "
+                        "(same semantics as `eval --which`)")
+    p.add_argument("--backbone", default="resnet50",
+                   choices=sorted(BACKBONES))
+    p.add_argument("--embed-dim", type=int, default=512,
+                   help="backbone embedding width")
+    p.add_argument("--image-size", type=int, default=cfg_lib.IMAGE_SIZE)
+    p.add_argument("--bn-dtype", choices=["float32", "bfloat16"],
+                   default="bfloat16",
+                   help="BatchNorm output dtype of a checkpointed backbone; "
+                        "float32 matches the training numerics")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda)")
+
+
+def _add_embed_parser(sub):
+    p = sub.add_parser("embed", help="batch-embed an image tree to .npz")
+    p.add_argument("--input", required=True, help="image tree root")
+    p.add_argument("--output", required=True, metavar="FILE.npz")
+    _add_model_arguments(p)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--num-workers", type=int, default=8)
+    return p
+
+
+def cmd_embed(args) -> int:
+    from face_recognition_models_tpu_torch.serving.embed import run_embed_cli
+    return run_embed_cli(
+        input_dir=args.input, output=args.output, model_path=args.model,
+        checkpoint_dir=args.checkpoint_dir, backbone=args.backbone,
+        which=args.which, image_size=args.image_size,
+        batch_size=args.batch_size, num_workers=args.num_workers,
+        bn_dtype=args.bn_dtype, embed_dim=args.embed_dim,
+        device=args.device)
+
+
+def _add_serve_parser(sub):
+    p = sub.add_parser(
+        "serve",
+        help="online embedding / identification HTTP service: concurrent "
+             "requests coalesce into one fixed-size micro-batch")
+    _add_model_arguments(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--micro-batch", type=int, default=8,
+                   help="fixed batch requests coalesce into")
+    p.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="max time to wait for co-arriving requests")
+    p.add_argument("--gallery", default=None, metavar="GALLERY.npz",
+                   help="`embed` output enabling POST /identify")
+    return p
+
+
+def cmd_serve(args) -> int:
+    from face_recognition_models_tpu_torch.serving.server import (
+        run_serve_cli)
+    return run_serve_cli(
+        model_path=args.model, checkpoint_dir=args.checkpoint_dir,
+        backbone=args.backbone, which=args.which,
+        image_size=args.image_size, host=args.host, port=args.port,
+        micro_batch=args.micro_batch, max_wait_ms=args.max_wait_ms,
+        gallery=args.gallery, bn_dtype=args.bn_dtype,
+        embed_dim=args.embed_dim, device=args.device)
+
+
+def _add_identify_parser(sub):
+    p = sub.add_parser(
+        "identify",
+        help="1:N identification between two `embed` outputs (CMC rank-k; "
+             "TPIR@FPIR when probe identities are missing from the "
+             "gallery). Identity = parent directory of each image path.")
+    p.add_argument("--gallery", required=True, metavar="GALLERY.npz")
+    p.add_argument("--probes", required=True, metavar="PROBES.npz")
+    p.add_argument("--ranks", default="1,5")
+    p.add_argument("--fpir", default="1e-1,1e-2",
+                   help="open-set FPIR operating points")
+    p.add_argument("--device", default=None,
+                   help="torch device that scores the probe-gallery "
+                        "cosines (default: cuda)")
+    p.add_argument("--min-quality", type=float, default=0.0,
+                   help="drop gallery / probe images whose quality score "
+                        "(stored by `embed`) is below this [0, 1] "
+                        "threshold")
+    p.add_argument("--pool", default="none",
+                   choices=["none", "probes", "gallery", "both"],
+                   help="IJB-style template pooling: collapse each "
+                        "identity's images to one renormalized mean "
+                        "embedding before scoring")
+    p.add_argument("--pool-weight", default="none",
+                   choices=["none", "quality"],
+                   help="weight the pooled mean by the stored per-image "
+                        "quality scores")
+    return p
+
+
+def cmd_identify(args) -> int:
+    from face_recognition_models_tpu_torch.evaluation.openset import (
+        identify_from_npz)
+    res = identify_from_npz(
+        args.gallery, args.probes,
+        ranks=tuple(int(r) for r in args.ranks.split(",") if r),
+        fpirs=tuple(float(f) for f in args.fpir.split(",") if f),
+        device=args.device, min_quality=args.min_quality,
+        pool=args.pool, pool_weight=args.pool_weight)
+    print(res)
+    return 0
+
+
 def cmd_list(args) -> int:
     print("heads:     ", ", ".join(available_heads()))
     print("backbones: ", ", ".join(sorted(BACKBONES)))
@@ -472,20 +738,19 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m face_recognition_models_tpu_torch.cli",
         description="PyTorch/CUDA face-recognition training, "
-                    "evaluation and dataset packing")
+                    "evaluation, dataset packing and serving")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train_parser(sub)
     _add_eval_parser(sub)
     _add_pack_parser(sub)
+    _add_export_parser(sub)
+    _add_embed_parser(sub)
+    _add_identify_parser(sub)
+    _add_serve_parser(sub)
     sub.add_parser("list", help="list the heads and backbones")
     args = parser.parse_args(argv)
-    if args.command == "train":
-        return cmd_train(args)
-    if args.command == "eval":
-        return cmd_eval(args)
-    if args.command == "pack":
-        return cmd_pack(args)
-    if args.command == "list":
-        return cmd_list(args)
-    parser.error(f"unknown command {args.command}")
-    return 2
+    commands = {"train": cmd_train, "eval": cmd_eval, "pack": cmd_pack,
+                "export": cmd_export, "embed": cmd_embed,
+                "identify": cmd_identify, "serve": cmd_serve,
+                "list": cmd_list}
+    return commands[args.command](args)

@@ -17,6 +17,11 @@ to `bn_dtype` (bf16: the residual adds then run in bf16 too). The stem is
 the plain 7x7/2 conv: the JAX package's default space-to-depth stem is
 numerically the same conv.
 
+`folded=True` is the BatchNorm-folded inference model of the JAX package's
+`ResNet(folded=True)`: every conv carries a bias, every BatchNorm (the
+downsample's included) is the identity, and a train-mode forward raises.
+Its weights come from `models/folding.fold_resnet_bn`.
+
 `running_stats_frozen(model)` runs train-mode forwards (batch statistics)
 that leave the running buffers as they are: the JAX train step runs QAFace's
 degraded view in train mode and drops the statistics it mutates.
@@ -99,12 +104,18 @@ class Conv2d(nn.Conv2d):
         if (x.device.type == "cpu" and k > 1 and self.stride[0] > 1
                 and x.shape[-2:] == (1, 1)):
             c = k // 2
-            return F.conv2d(x, self.weight[:, :, c:c + 1, c:c + 1])
+            return F.conv2d(x, self.weight[:, :, c:c + 1, c:c + 1],
+                            self.bias)
         return super().forward(x)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int = 1,
+          folded: bool = False) -> nn.Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=folded)
+
+
+def _norm(num_features: int, dtype: torch.dtype, folded: bool) -> nn.Module:
+    return nn.Identity() if folded else BatchNorm(num_features, dtype=dtype)
 
 
 class BasicBlock(nn.Module):
@@ -114,17 +125,19 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32,
-                 bn_dtype: torch.dtype = torch.float32):
+                 bn_dtype: torch.dtype = torch.float32,
+                 folded: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = _conv(cin, filters, 3, stride)
-        self.bn1 = BatchNorm(filters, dtype=bn_dtype)
-        self.conv2 = _conv(filters, filters, 3)
-        self.bn2 = BatchNorm(filters, dtype=bn_dtype)
+        self.conv1 = _conv(cin, filters, 3, stride, folded)
+        self.bn1 = _norm(filters, bn_dtype, folded)
+        self.conv2 = _conv(filters, filters, 3, folded=folded)
+        self.bn2 = _norm(filters, bn_dtype, folded)
         self.downsample = None
         if stride != 1 or cin != filters:
-            self.downsample = nn.Sequential(_conv(cin, filters, 1, stride),
-                                            BatchNorm(filters, dtype=bn_dtype))
+            self.downsample = nn.Sequential(
+                _conv(cin, filters, 1, stride, folded),
+                _norm(filters, bn_dtype, folded))
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -140,20 +153,22 @@ class Bottleneck(nn.Module):
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32,
-                 bn_dtype: torch.dtype = torch.float32):
+                 bn_dtype: torch.dtype = torch.float32,
+                 folded: bool = False):
         super().__init__()
         self.dtype = dtype
         cout = filters * self.expansion
-        self.conv1 = _conv(cin, filters, 1)
-        self.bn1 = BatchNorm(filters, dtype=bn_dtype)
-        self.conv2 = _conv(filters, filters, 3, stride)
-        self.bn2 = BatchNorm(filters, dtype=bn_dtype)
-        self.conv3 = _conv(filters, cout, 1)
-        self.bn3 = BatchNorm(cout, dtype=bn_dtype)
+        self.conv1 = _conv(cin, filters, 1, folded=folded)
+        self.bn1 = _norm(filters, bn_dtype, folded)
+        self.conv2 = _conv(filters, filters, 3, stride, folded)
+        self.bn2 = _norm(filters, bn_dtype, folded)
+        self.conv3 = _conv(filters, cout, 1, folded=folded)
+        self.bn3 = _norm(cout, bn_dtype, folded)
         self.downsample = None
         if stride != 1 or cin != cout:
-            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
-                                            BatchNorm(cout, dtype=bn_dtype))
+            self.downsample = nn.Sequential(
+                _conv(cin, cout, 1, stride, folded),
+                _norm(cout, bn_dtype, folded))
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -167,24 +182,30 @@ class ResNet(nn.Module):
     """ResNet trunk -> global average pool -> Dense(embed_dim).
 
     forward takes NHWC images [N, H, W, 3] and returns [N, embed_dim]
-    embeddings in `dtype`. `bn_dtype` is every BatchNorm's output dtype."""
+    embeddings in `dtype`. `bn_dtype` is every BatchNorm's output dtype;
+    `folded` builds the BatchNorm-folded inference model (module
+    docstring). `clone(**changes)` builds the same ResNet with some
+    arguments changed."""
 
     def __init__(self, stage_sizes: Sequence[int],
                  block: Type[nn.Module], embed_dim: int = 512,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 bn_dtype: torch.dtype = torch.float32):
+                 bn_dtype: torch.dtype = torch.float32, folded: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self._args = dict(stage_sizes=stage_sizes, block=block,
+                          embed_dim=embed_dim, num_filters=num_filters,
+                          dtype=dtype, bn_dtype=bn_dtype, folded=folded)
+        self.dtype, self.folded = dtype, folded
         self.conv1 = nn.Conv2d(3, num_filters, 7, stride=2, padding=3,
-                               bias=False)
-        self.bn1 = BatchNorm(num_filters, dtype=bn_dtype)
+                               bias=folded)
+        self.bn1 = _norm(num_filters, bn_dtype, folded)
         cin = num_filters
         for i, n_blocks in enumerate(stage_sizes):
             blocks = []
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 blocks.append(block(cin, num_filters * 2 ** i, stride, dtype,
-                                    bn_dtype))
+                                    bn_dtype, folded))
                 cin = num_filters * 2 ** i * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -195,6 +216,8 @@ class ResNet(nn.Module):
             raise ValueError(
                 f"Expected NHWC input [N, H, W, 3], got {tuple(x.shape)}. "
                 "(PyTorch-style NCHW must be transposed.)")
+        if self.folded and self.training:
+            raise ValueError("BN-folded models are inference-only")
         x = x.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
@@ -204,6 +227,11 @@ class ResNet(nn.Module):
             for i in range(self.num_stages):
                 x = getattr(self, f"layer{i + 1}")(x)
             return self.fc(x.mean(dim=(2, 3)))
+
+    def clone(self, **changes) -> "ResNet":
+        """A new ResNet of this one's arguments with `changes` (fresh
+        weights), as flax's Module.clone."""
+        return ResNet(**{**self._args, **changes})
 
 
 def _lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):

@@ -18,7 +18,9 @@ With a checkpoint manager, a fresh run wipes its directory and a run with
 `cfg.continue_train` resumes from it; each epoch saves the best-by-loss
 checkpoint when its loss is a new minimum, then its epoch checkpoint; a
 SIGTERM or SIGINT finishes the current step, saves epoch - 1 (resume with
-continue_train='latest') and returns.
+continue_train='latest') and returns. `hooks(epoch=, state=, train_loss=)`
+runs at the end of each epoch, after its checkpoints (the periodic
+verification of evaluation/periodic.py).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 import signal
 import time
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -235,7 +237,8 @@ def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
 
 def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
         head_cfg=None, checkpoint_manager: Optional[Any] = None,
-        teacher: Optional[torch.nn.Module] = None) -> FitResult:
+        teacher: Optional[torch.nn.Module] = None,
+        hooks: Optional[Callable] = None) -> FitResult:
     """Train for cfg.epochs over `loader` (any object with steps_per_epoch()
     and epoch(i) -> iterator of (uint8 NHWC images, int labels)).
 
@@ -243,7 +246,8 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     run saves and resumes as the module docstring says; a resumed run
     takes cfg.epochs more epochs from the one after the checkpoint's.
     `teacher` (a backbone module; needs cfg.distill.weight > 0) is the
-    in-memory alternative to cfg.distill.checkpoint_dir.
+    in-memory alternative to cfg.distill.checkpoint_dir. `hooks` is
+    called at each epoch's end (module docstring).
     Runs on the card unless device='cpu' is passed; raises without one.
     """
     device = resolve_device(device)
@@ -342,6 +346,8 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
                 checkpoint_manager.save(state, epoch, train_loss)
             else:
                 min_train_loss = min(min_train_loss, train_loss)
+            if hooks is not None:
+                hooks(epoch=epoch, state=state, train_loss=train_loss)
         # before the graph is freed, which takes the card a while
         wall = time.perf_counter() - t_start
     finally:

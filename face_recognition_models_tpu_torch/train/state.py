@@ -111,6 +111,15 @@ def restore(state: TrainState, saved) -> None:
         state.rng.set_state(rng)
 
 
+def build_backbone(cfg: TrainConfig, head_cfg) -> nn.Module:
+    """The backbone module cfg trains, on the CPU, weights not set: the
+    trunk of create_train_state, and the module an evaluation of its
+    weights loads them into."""
+    return get_backbone(cfg.backbone, embed_dim=head_cfg.feature_dim,
+                        dtype=getattr(torch, cfg.compute_dtype),
+                        bn_dtype=getattr(torch, cfg.bn_dtype))
+
+
 def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device):
     """Initialise (backbone, head, TrainState) from cfg.seed on `device`;
     with cfg.pretrained_path the backbone then takes that state_dict, on
@@ -120,9 +129,7 @@ def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device):
     cfg.grad_accum > 1; with cfg.model_ema > 0 the EMA starts as a copy of
     the initial parameters."""
     gen = torch.Generator().manual_seed(cfg.seed)
-    backbone = get_backbone(cfg.backbone, embed_dim=head_cfg.feature_dim,
-                            dtype=getattr(torch, cfg.compute_dtype),
-                            bn_dtype=getattr(torch, cfg.bn_dtype))
+    backbone = build_backbone(cfg, head_cfg)
     init_weights(backbone, gen)
     if cfg.pretrained_path:
         load_pretrained_backbone(cfg.pretrained_path, cfg.backbone, backbone)
