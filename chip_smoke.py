@@ -160,12 +160,47 @@ and no result line:
              <model>_best_acc, which `eval --which best_acc` reads; `fit`
              with scan_steps=4 and the hook equals the same run without
              it bit for bit.
+14. backbones - the other trunks of the registry at full width: 3 `fit`
+             steps of each of efficientnet_b0, mobilenet_v2, mobilefacenet,
+             iresnet18 / 50 / 100 and vit_t / s / b (ArcFace, C=10,575,
+             b512, 112 px, bf16 convs, fp32 BatchNorm, SGD 0.1 / 0.9 /
+             5e-4, the fused head; vit_b with its default remat): finite
+             losses, K1 / K2 launched once a step and no other kernel,
+             ms/step after step 1, peak GB; the trained trunk's eval-mode
+             embedding at b512 timed by CUDA events beside its bound (1x
+             the forward FLOPs of its convs, Dense layers and attention
+             products, from the module's shapes, at 989 TFLOP/s), and 8
+             images on the card against the port's CPU forward of the same
+             weights (both fp32, TF32 off; rtol 2e-3, atol 2e-4 x max),
+             and the timed module's own embeddings of them against that
+             CPU forward row by row (error / row norm <= 0.05, cosine >=
+             0.999), which two faulty forwards (every BatchNorm, or the
+             last, on the batch's statistics) must fail;
+             the profiler's device ms/step by category. inception_v3: the
+             embedding checks, and `fit` refused. Then efficientnet_b0
+             (dropout and stochastic depth from the step generator) and
+             vit_b (remat inside the graph): 10 steps with scan_steps=4
+             against 10 eager ones, bit for bit (losses, every state
+             tensor, the generator). Then `export_embedder` ->
+             `load_embedder` -> `fn` for iresnet50, mobilefacenet and vit_s
+             (seeded, moved BatchNorm statistics) against the live eval
+             step at b512, and iresnet50's `fn` on 150 rows of an artifact
+             of max_batch 64 (three slices joined) against the live step
+             on the same slices.
+15. convergence - the port's scripts/convergence_run at its defaults
+             (ArcFace + resnet18, 500 synthetic identities x 16 train + 4
+             held-out copies at noise 35, b512, 15 epochs, scan_steps 8,
+             the fused head): mean held-out 10-fold accuracy >= 98.0% and
+             AUC >= 0.995, beside the JAX package's 99.74% +- 0.22 (a
+             quality reference); K1 / K2 launched once a step (and once a
+             step of the capture's warm-up chunk).
 
 The line before the last is {"kernels": [...]} (each kernel's launches from
 the phase that runs its entry point: train, head_bf16, conv3x3_bench; the
 fp32 head kernels' and the _mem kernels' add the scan phase's graphed
 ArcFace and VPL-ArcFace runs, whose replays the host's counters do not see:
-the launches one replay captured times the replays, plus the real ones),
+the launches one replay captured times the replays, plus the real ones;
+the fp32 head kernels' also the recipe, backbones and convergence runs),
 the last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -305,7 +340,14 @@ CONV_SMALL = ((4, 7, 7, 16, 24, "float32"), (2, 5, 9, 4, 12, "float32"),
               (2, 6, 6, 6, 10, "float32"), (4, 7, 7, 12, 10, "float32"))
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets the seconds since the
+    script started (`elapsed_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1290,7 +1332,8 @@ def observe_steps(after=None, before=None):
 
 def train_phase(head_name, kernels, steps=TRAIN_STEPS, phase="train",
                 **cfg_kw):
-    """`steps` full-width steps of resnet18 + `head_name` through the port's
+    """`steps` full-width steps of resnet18 (or cfg_kw's backbone) +
+    `head_name` through the port's
     `fit` (TrainConfig fields in `cfg_kw`). The counters of `kernels` must
     equal the steps and all others stay 0. Returns (fit result, the step's
     batch, launch counts)."""
@@ -1337,14 +1380,15 @@ def train_phase(head_name, kernels, steps=TRAIN_STEPS, phase="train",
     # the wait for the card; step 1 carries cuDNN's first-call set-up
     ms_step = 1e3 * float(np.mean(res.step_seconds[1:]))
     extra = {"active_classes": active} if active else {}
-    emit({"phase": phase, "backbone": "resnet18", "head": head_name,
+    emit({"phase": phase, "backbone": cfg.backbone, "head": head_name,
           "num_classes": C_MAIN, "batch": bs, "image_size": size,
           "dtype": cfg.compute_dtype, "bn_dtype": cfg.bn_dtype,
           "use_fused_head": cfg.use_fused_head, "losses": res.losses,
           **extra,
           "step_ms": [1e3 * s for s in res.step_seconds],
           "ms_per_step_after_1": ms_step, "img_per_s_after_1": bs / ms_step
-          * 1e3, "max_memory_allocated": peak, "launches": launches,
+          * 1e3, "max_memory_allocated": peak, "peak_gb": peak / 1e9,
+          "launches": launches,
           "ok": True})
     return res, (images[:bs], labels[:bs]), launches
 
@@ -2668,6 +2712,15 @@ def move_bn_statistics(model, seed=4):
     return model
 
 
+def row_agreement(got, want):
+    """`got` against `want` ([N, D] host arrays) row by row: the least
+    cosine and the largest error relative to the row's norm."""
+    norm = np.linalg.norm(want, axis=1)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * norm)
+    rel = np.linalg.norm(got - want, axis=1) / norm
+    return {"min_cosine": float(cos.min()), "max_rel_err": float(rel.max())}
+
+
 def fold_agreement(got, want):
     """The folded embeddings against the unfolded ones, row by row: the
     least cosine and the largest error relative to the row's norm
@@ -2675,10 +2728,7 @@ def fold_agreement(got, want):
     each embedding, not on each of its 512 values), and, as readings, the
     elementwise error and its excess over rtol = atol TOL_FOLDED."""
     diff = got - want
-    norm = np.linalg.norm(want, axis=1)
-    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * norm)
-    rel = np.linalg.norm(diff, axis=1) / norm
-    out = {"min_cosine": float(cos.min()), "max_rel_err": float(rel.max()),
+    out = {**row_agreement(got, want),
            "max_abs_err": float(np.abs(diff).max()),
            "max_abs_of_unfolded": float(np.abs(want).max()),
            "max_excess_over_elementwise_2e-2": float(
@@ -3379,6 +3429,421 @@ def phase_serve(root, bench_embed_img_per_s):
     serve_periodic(root)
 
 
+# the backbones phase: each trainable trunk of the registry beyond the
+# ResNets, BACKBONE_STEPS full-width ArcFace steps (C = 10,575, b512, 112 px,
+# bf16 convs, fp32 BatchNorm, SGD 0.1 / 0.9 / 5e-4, the fused head); then
+# its eval-mode embedding at b512 timed, and BACKBONE_CHECK_IMAGES
+# embedded on the card against the port's CPU forward of the same weights.
+# inception_v3 gets the embedding checks and fit's refusal.
+BACKBONE_TRUNKS = ("efficientnet_b0", "mobilenet_v2", "mobilefacenet",
+                   "iresnet18", "iresnet50", "iresnet100", "vit_t", "vit_s",
+                   "vit_b")
+BACKBONE_STEPS = 3
+BACKBONE_PROFILED = 3          # steps of the profiler's device split
+BACKBONE_CHECK_IMAGES = 8
+BACKBONE_TIMED_CALLS = 10      # b512 eval steps the embedding rate averages
+# card against CPU, both fp32 with TF32 off (the CPU tests' bound against
+# the flax modules): rtol 2e-3 with an atol of 2e-4 x the largest output
+TOL_BACKBONE_RTOL, TOL_BACKBONE_ATOL_REL = 2e-3, 2e-4
+# the timed module (bf16 convs and products, the trained weights) against
+# the same CPU fp32 forward, row by row (bf16 rounding moves every value,
+# so the check is on each embedding): the largest error relative to the
+# row's norm and the least cosine. Each limit lies between the card's
+# readings (H100, 700 W) of the sound forwards of the ten trunks, at most
+# 0.0127 and at least 0.999919, and of the faulty ones that
+# batch_statistics_in_eval makes, at least 0.329 and at most 0.980
+TOL_BF16_ROW_REL, MIN_BF16_COSINE = 0.05, 0.999
+# scan_steps=SCAN_K graphed against eager, bit for bit: efficientnet_b0
+# (dropout and stochastic depth from the step generator) and vit_b (remat
+# inside the graph), SCAN_STEPS steps each
+BACKBONE_SCAN = ("efficientnet_b0", "vit_b")
+# artifact against the live eval step: TOL_ARTIFACT; a batch over the
+# first one's max_batch (BACKBONE_EXPORT_MAX) runs in slices
+BACKBONE_EXPORT = ("iresnet50", "mobilefacenet", "vit_s")
+BACKBONE_EXPORT_MAX, BACKBONE_EXPORT_ROWS = 64, 150
+
+
+def forward_flops(module, size):
+    """Multiply-add FLOPs (2 per MAC) of one image through `module`'s
+    convolutions, Dense layers and attention products, from the shapes a
+    forward of one image on the module's device gives them."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models.vit import MHSA
+
+    total = [0]
+
+    def conv(mod, args, out):
+        k = mod.weight[0].numel()        # (C_in / groups) x kh x kw
+        total[0] += 2 * out.numel() * k
+
+    def linear(mod, args, out):
+        total[0] += 2 * out.numel() * mod.in_features
+
+    def attention(mod, args, out):
+        n, t, d = args[0].shape
+        total[0] += 2 * 2 * n * t * t * d  # q k^T and probs v
+
+    hooks = []
+    for mod in module.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            hooks.append(mod.register_forward_hook(conv))
+        elif isinstance(mod, torch.nn.Linear):
+            hooks.append(mod.register_forward_hook(linear))
+        elif isinstance(mod, MHSA):
+            hooks.append(mod.register_forward_hook(attention))
+    device = next(module.parameters()).device
+    module.eval()
+    with torch.no_grad():
+        module(torch.zeros((1, size, size, 3), device=device))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def bf16_within(agreement):
+    return (agreement["min_cosine"] >= MIN_BF16_COSINE
+            and agreement["max_rel_err"] <= TOL_BF16_ROW_REL)
+
+
+@contextlib.contextmanager
+def batch_statistics_in_eval(norms):
+    """A fault for embed_checks to refuse: in the block, the BatchNorms
+    `norms` normalise eval forwards with the batch's statistics, as a
+    module left in training mode would, instead of their running ones."""
+    import torch
+    import torch.nn.functional as F
+
+    def hook(mod, args, out):
+        x = args[0].to(torch.float32) if mod.dtype == torch.float32 \
+            else args[0]
+        return F.batch_norm(x, None, None, mod.weight, mod.bias, True, 0.0,
+                            mod.eps).to(mod.dtype)
+
+    handles = [norm.register_forward_hook(hook) for norm in norms]
+    try:
+        yield
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def embed_checks(name, module, images):
+    """The eval-mode embedding of a trained (or seeded) `module` on the
+    card: b512 img/s by CUDA events beside its bound; and the first
+    BACKBONE_CHECK_IMAGES images through the port's CPU forward of the same
+    weights in fp32, against which the card's fp32 forward (TF32 off)
+    and the timed module's own forward are held, and two faulty forwards
+    of the timed module (every BatchNorm, or its last one, on the batch's
+    statistics) must be refused."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.models.backbones import to_device
+    from face_recognition_models_tpu_torch.models.resnet import BatchNorm
+    from face_recognition_models_tpu_torch.train.step import make_eval_step
+
+    cuda = torch.device("cuda")
+    step = make_eval_step(module, device=cuda)
+    x = torch.as_tensor(images).to(cuda)
+    ms = cuda_ms(lambda: step(x), warmup=3, iters=BACKBONE_TIMED_CALLS)
+    flops = forward_flops(module, images.shape[1])
+    bound_ms = flops * len(images) / PEAK_BF16_TC_FLOPS * 1e3
+    xs = x[:BACKBONE_CHECK_IMAGES]
+    out = step(xs)
+    if not (out.shape == (BACKBONE_CHECK_IMAGES, module.embed_dim)
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"backbones: {name} embedding {out.shape}")
+    out = out.cpu().numpy()
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    faulty = {}
+    for label, chosen in (("every_batchnorm_on_batch_statistics", norms),
+                          ("last_batchnorm_on_batch_statistics",
+                           norms[-1:])):
+        with batch_statistics_in_eval(chosen):
+            faulty[label] = step(xs).cpu().numpy()
+    m = get_backbone(name, embed_dim=module.embed_dim, dtype=torch.float32,
+                     image_size=images.shape[1])
+    m.load_state_dict({k: v.detach().cpu()
+                       for k, v in module.state_dict().items()})
+    fp32 = {}
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            m = to_device(m, torch.device(dev))
+            fp32[dev] = make_eval_step(m, device=dev)(
+                images[:BACKBONE_CHECK_IMAGES]).cpu().numpy()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    del m
+    want, got = fp32["cpu"], fp32["cuda"]
+    atol = TOL_BACKBONE_ATOL_REL * float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=TOL_BACKBONE_RTOL, atol=atol):
+        raise AssertionError(f"backbones: {name} card vs CPU fp32 forward: "
+                             f"max abs err {err} (atol {atol})")
+    timed = row_agreement(out, want)
+    if not bf16_within(timed):
+        raise AssertionError(f"backbones: {name} timed module vs CPU fp32 "
+                             f"forward: {timed}")
+    faulty = {k: row_agreement(v, want) for k, v in faulty.items()}
+    passed = [k for k, v in faulty.items() if bf16_within(v)]
+    if passed:
+        raise AssertionError(f"backbones: {name} faulty forwards {passed} "
+                             f"not refused: {faulty}")
+    return {"embed_img_per_s": len(images) * 1e3 / ms,
+            "embed_ms_per_batch": ms, "forward_gflop_per_image": flops / 1e9,
+            "embed_bound_ms": bound_ms,
+            "embed_bound_share": bound_ms / ms,
+            "card_vs_cpu_fp32_max_abs_err": err,
+            "card_vs_cpu_tolerance": {"rtol": TOL_BACKBONE_RTOL,
+                                      "atol": atol},
+            "timed_vs_cpu_fp32": timed, "faulty_vs_cpu_fp32": faulty,
+            "timed_vs_cpu_limit": {"max_rel_err": TOL_BF16_ROW_REL,
+                                   "min_cosine": MIN_BF16_COSINE}}
+
+
+def phase_backbones():
+    """The trunks of the registry beyond the ResNets at full width (module
+    constants above), then graphed against eager for BACKBONE_SCAN and the
+    serving artifact for BACKBONE_EXPORT. Returns {kernel: launches} of
+    the fit runs, the graphed runs' replays included."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.models.backbones import to_device
+    from face_recognition_models_tpu_torch.models.resnet import init_weights
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.train.loop import fit
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+    from face_recognition_models_tpu_torch.utils.profiling import (
+        profile_train_step)
+
+    smi = nvidia_smi()
+    total = {k: 0 for k in PLAIN_KERNELS}
+    images = train_batches(1, N_MAIN, 112, seed=5)[0]
+    for name in BACKBONE_TRUNKS:
+        torch.cuda.empty_cache()
+        res, _, launches = train_phase("arcface", PLAIN_KERNELS,
+                                       steps=BACKBONE_STEPS,
+                                       phase="backbones", backbone=name)
+        for k in PLAIN_KERNELS:
+            total[k] += launches[k]
+        module = res.state.backbone
+        checks = embed_checks(name, module, images)
+        del res, module
+        torch.cuda.empty_cache()
+        prof = profile_train_step(cfg_lib.TrainConfig(
+            backbone=name, num_classes=C_MAIN), device="cuda", warmup=1,
+            steps=BACKBONE_PROFILED)
+        emit({"phase": "backbones", "part": "embed", "backbone": name,
+              **checks, "device_ms_per_step": prof["device_ms_per_step"],
+              "profiled_host_ms_per_step": prof["ms_per_step"],
+              "idle_share": prof["idle_share"],
+              "by_category_ms": prof["by_category_ms"],
+              "bound": "forward FLOPs x 512 at 989 TFLOP/s dense bf16",
+              "nvidia_smi": smi, "ok": True})
+    # inception_v3: the embedding checks, and fit's refusal
+    torch.cuda.empty_cache()
+    module = get_backbone("inception_v3")
+    init_weights(module, torch.Generator().manual_seed(0))
+    checks = embed_checks("inception_v3", to_device(module, torch.device(
+        "cuda")), images)
+    try:
+        fit(cfg_lib.TrainConfig(backbone="inception_v3", num_classes=C_MAIN,
+                                batch_size=N_MAIN, epochs=1),
+            ArrayLoader(images, np.zeros(N_MAIN, np.int32),
+                        batch_size=N_MAIN), device="cuda")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "loop.py:169" not in refused:
+        raise AssertionError(f"backbones: fit(inception_v3) not refused: "
+                             f"{refused}")
+    emit({"phase": "backbones", "part": "embed", "backbone": "inception_v3",
+          **checks, "fit_refused": refused, "nvidia_smi": smi, "ok": True})
+    del module
+    torch.cuda.empty_cache()
+    for name, count in backbone_scan().items():
+        total[name] += count
+    backbone_export()
+    return total
+
+
+def backbone_scan():
+    """SCAN_STEPS full-width steps of each of BACKBONE_SCAN with
+    scan_steps=SCAN_K against the same steps one at a time, bit for bit
+    (losses, every state tensor, the generator). Returns the graphed runs'
+    {kernel: launches}, replays included."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.train.loop import fit
+
+    total = {k: 0 for k in PLAIN_KERNELS}
+    images, labels = train_batches(SCAN_STEPS, N_MAIN, 112, seed=6)
+    for name in BACKBONE_SCAN:
+        runs = {}
+        for k in (1, SCAN_K):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cfg = cfg_lib.TrainConfig(backbone=name, num_classes=C_MAIN,
+                                      batch_size=N_MAIN, epochs=1,
+                                      print_freq=10 ** 9, seed=0,
+                                      scan_steps=k)
+            fh.reset_launch_counts()
+            res = fit(cfg, ArrayLoader(images, labels, batch_size=N_MAIN,
+                                       seed=0), device="cuda")
+            torch.cuda.synchronize()
+            runs[k] = (res, dict(fh.launch_counts),
+                       torch.cuda.max_memory_allocated())
+        (eager, _, eager_peak), (graphed, real, graph_peak) = (runs[1],
+                                                               runs[SCAN_K])
+        if eager.losses != graphed.losses:
+            raise AssertionError(f"backbones: {name} graphed losses "
+                                 f"{graphed.losses} != eager {eager.losses}")
+        n = same_state(f"backbones {name}", graphed.state, eager.state)
+        launches = {k: real.get(k, 0) + graphed.replays
+                    * graphed.replay_launches.get(k, 0)
+                    for k in PLAIN_KERNELS}
+        # the capture's eager warm-up of one chunk launches SCAN_K more
+        if any(v != SCAN_STEPS + SCAN_K for v in launches.values()):
+            raise AssertionError(f"backbones: {name} graphed launches "
+                                 f"{launches}")
+        for k in PLAIN_KERNELS:
+            total[k] += launches[k]
+        emit({"phase": "backbones", "part": "scan", "backbone": name,
+              "steps": SCAN_STEPS, "scan_steps": SCAN_K,
+              "replays": graphed.replays, "losses": graphed.losses,
+              "bitwise": True, "state_tensors_compared": n,
+              "launches": launches,
+              "capture_seconds": graphed.capture_seconds,
+              "peak_gb_eager": eager_peak / 1e9,
+              "peak_gb_graphed": graph_peak / 1e9, "ok": True})
+        del runs, eager, graphed
+    return total
+
+
+def backbone_export():
+    """`export_embedder` -> `load_embedder` -> `fn` against the live eval
+    step at b512 for each of BACKBONE_EXPORT (seeded weights, moved
+    BatchNorm statistics), and for the first of them `fn` on
+    BACKBONE_EXPORT_ROWS rows of an artifact of max_batch
+    BACKBONE_EXPORT_MAX (slices joined) against the live eval step on the
+    same slices."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.models.backbones import to_device
+    from face_recognition_models_tpu_torch.models.resnet import init_weights
+    from face_recognition_models_tpu_torch.serving.export import (
+        export_embedder, load_embedder)
+    from face_recognition_models_tpu_torch.train.step import make_eval_step
+
+    cuda = torch.device("cuda")
+    host = train_batches(1, N_MAIN, 112, seed=7)[0]
+    with tempfile.TemporaryDirectory() as root:
+        for name in BACKBONE_EXPORT:
+            torch.cuda.empty_cache()
+            module = get_backbone(name)
+            init_weights(module, torch.Generator().manual_seed(3))
+            module = move_bn_statistics(to_device(module, cuda))
+            step = make_eval_step(module, device=cuda)
+            out = {}
+            cases = [(N_MAIN, N_MAIN)]
+            if name == BACKBONE_EXPORT[0]:
+                cases.append((BACKBONE_EXPORT_ROWS, BACKBONE_EXPORT_MAX))
+            for rows, max_batch in cases:
+                path = os.path.join(root, f"{name}_{max_batch}.frte")
+                t0 = time.perf_counter()
+                header = export_embedder(module, module.state_dict(), path,
+                                         meta={"backbone": name},
+                                         max_batch=max_batch)
+                export_s = time.perf_counter() - t0
+                art = load_embedder(path)
+                got = art.fn(host[:rows])
+                # the live step on the same slices: cuDNN picks its bf16
+                # conv algorithms by batch, so other batches round apart
+                want = np.concatenate([
+                    step(host[i:min(i + max_batch, rows)]).cpu().numpy()
+                    for i in range(0, rows, max_batch)])
+                err = float(np.abs(got - want).max())
+                if (header["bn_folded"] or got.shape != (rows, 512)
+                        or not np.allclose(got, want, rtol=TOL_ARTIFACT,
+                                           atol=TOL_ARTIFACT)):
+                    raise AssertionError(
+                        f"backbones: {name} artifact (max_batch {max_batch}"
+                        f", {rows} rows) vs the live eval step: max abs err "
+                        f"{err}")
+                out[f"rows{rows}_max_batch{max_batch}"] = {
+                    "export_s": export_s, "max_abs_err_vs_live": err,
+                    "bitwise_vs_live": bool(np.array_equal(got, want)),
+                    "slices": -(-rows // max_batch)}
+                del art
+            emit({"phase": "backbones", "part": "export", "backbone": name,
+                  "artifacts": out, "limit": {"rtol": TOL_ARTIFACT,
+                                              "atol": TOL_ARTIFACT},
+                  "ok": True})
+            del module
+
+
+# the convergence phase: the port's scripts/convergence_run at its
+# defaults (ArcFace + resnet18, 500 identities x 16 train + 4 held-out
+# copies at noise 35, b512, 15 epochs, scan_steps 8, the fused head); the
+# JAX package's result on its own hardware (99.74% +- 0.22, AUC 1.0000) is
+# a quality reference, not a bound
+MIN_CONVERGED_ACC, MIN_CONVERGED_AUC = 98.0, 0.995
+
+
+def phase_convergence():
+    """The port's first trained accuracy. Returns {kernel: launches} of
+    the run, its graph replays included."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.scripts import convergence_run
+
+    args = convergence_run.parser().parse_args(["--device", "cuda"])
+    torch.cuda.empty_cache()
+    fh.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, line = convergence_run.run_stage(args, args.classes, args.epochs,
+                                          args.lr, args.seed)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: fh.launch_counts[k]
+                + res.replays * res.replay_launches.get(k, 0)
+                for k in PLAIN_KERNELS}
+    steps = len(res.losses)
+    # the capture's eager warm-up of one chunk launches scan_steps more
+    want = steps + (args.scan_steps if res.replays else 0)
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"convergence: launches {launches}, {steps} "
+                             "steps")
+    if not (line["mean_accuracy"] >= MIN_CONVERGED_ACC
+            and line["mean_auc"] >= MIN_CONVERGED_AUC):
+        raise AssertionError(f"convergence: {line} below "
+                             f"{MIN_CONVERGED_ACC}% / {MIN_CONVERGED_AUC}")
+    emit({"phase": "convergence", **line, "steps": steps,
+          "replays": res.replays, "launches": launches,
+          "first_losses": res.losses[:3], "last_losses": res.losses[-3:],
+          "wall_seconds": wall,
+          "limit": {"mean_accuracy": MIN_CONVERGED_ACC,
+                    "mean_auc": MIN_CONVERGED_AUC},
+          "jax_reference": {"mean_accuracy": 99.74, "std_accuracy": 0.22,
+                            "mean_auc": 1.0},
+          "ok": True})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3431,6 +3896,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         phase_serve(root, embed_img_per_s)
+    torch.cuda.empty_cache()
+    for name, count in phase_backbones().items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+    for name, count in phase_convergence().items():
+        launches[name] += count
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] == "conv3x3_same_f32":

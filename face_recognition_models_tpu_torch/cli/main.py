@@ -57,6 +57,7 @@ from face_recognition_models_tpu_torch.heads.fused_adapter import (
     use_fused,
 )
 from face_recognition_models_tpu_torch.models import BACKBONES
+from face_recognition_models_tpu_torch.utils.pretrained import PORTED
 
 
 def add_recipe_arguments(p) -> None:
@@ -164,9 +165,11 @@ def _add_train_parser(sub):
     p.add_argument("--continue_train", choices=["min_loss", "latest"],
                    help="resume from best or latest checkpoint")
     p.add_argument("--pretrained", default=None, metavar="STATE_DICT.pth",
-                   help="torchvision backbone state_dict to initialize from "
-                        "(the reference trains from ImageNet-pretrained "
-                        "torchvision weights; resnet18/resnet50)")
+                   help="torchvision / arcface_torch backbone state_dict to "
+                        "initialize from (the reference trains from "
+                        "ImageNet-pretrained torchvision weights; resnet18/"
+                        "50, mobilenet_v2, efficientnet_b0, iresnet18/50/"
+                        "100)")
     p.add_argument("--working-path", default=os.environ.get("WORKING_PATH",
                                                             "./working"))
     p.add_argument("--model-save-path", default=None,
@@ -561,13 +564,15 @@ def _add_export_parser(sub):
                         "(same semantics as `eval --which`)")
     p.add_argument("--fold-bn", action="store_true",
                    help="fold BatchNorm into the conv weights (ResNet; "
-                        "exact in eval mode)")
+                        "exact in eval mode; other trunks stay unfolded)")
     p.add_argument("--format", default="stablehlo",
                    choices=["stablehlo", "torch"],
                    help="stablehlo (the JAX package's name for it): the "
                         "self-contained .frte serving artifact, which the "
                         "port writes as a torch.export program; torch: the "
-                        "backbone's torchvision-layout state_dict .pth")
+                        "backbone's torchvision / arcface_torch-layout "
+                        "state_dict .pth (resnet18/50, mobilenet_v2, "
+                        "efficientnet_b0, iresnet18/50/100)")
     p.add_argument("--device", default=None,
                    help="torch device to export on (default: cuda)")
     return p
@@ -582,6 +587,9 @@ def cmd_export(args) -> int:
         export_embedder)
     from face_recognition_models_tpu_torch.utils.device import resolve_device
 
+    if args.format == "torch" and args.backbone.lower() not in PORTED:
+        raise ValueError(f"--format torch supports {sorted(PORTED)}; got "
+                         f"'{args.backbone}'")
     finals = sorted(d for d in os.listdir(args.checkpoint_dir)
                     if d.endswith("_final"))
     if not finals and args.which != "min_loss":
@@ -600,7 +608,8 @@ def cmd_export(args) -> int:
     platforms = (args.platforms.split(",") if args.platforms
                  else [resolve_device(args.device).type])
     header = export_embedder(get_backbone(args.backbone,
-                                          embed_dim=args.embed_dim),
+                                          embed_dim=args.embed_dim,
+                                          image_size=args.image_size),
                              state_dict, args.output,
                              image_size=args.image_size,
                              platforms=platforms,

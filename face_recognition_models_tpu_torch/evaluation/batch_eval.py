@@ -165,7 +165,8 @@ def run_batch_evaluation(checkpoint_dir: str, eval_data_path: str,
     acc_rows: List[dict] = []
     auc_rows: List[dict] = []
     for name in model_names:
-        model = get_backbone(backbone, embed_dim=embed_dim)
+        model = get_backbone(backbone, embed_dim=embed_dim,
+                             image_size=image_size)
         try:
             model.load_state_dict(restore_backbone(
                 os.path.join(checkpoint_dir, name), which, model_name=name))

@@ -37,21 +37,39 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# the compute dtypes a trunk runs its convolutions and Dense layers in
+# under autocast; fp32 and fp64 trunks run as they are
+AUTOCAST_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of a normalisation's statistics: fp32, or fp64 for fp64
+    input (flax promotes the statistics' dtype to at least fp32)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 class BatchNorm(nn.Module):
-    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype), NCHW.
+    """flax.linen.BatchNorm(momentum=0.9, epsilon=eps, dtype=dtype) over
+    the channels of an NCHW map or the features of an [N, F] batch.
 
     The math is fp32; the output is `dtype` whatever the input dtype (fp32
     by default; a bf16 input with dtype bf16 goes through F.batch_norm's
     mixed-dtype path, which computes in fp32 and rounds once). In training
     mode it normalises with the batch statistics and, unless `update_stats`
     is False, moves the running averages as ra = 0.9 * ra + 0.1 *
-    batch_stat, with the biased variance."""
+    batch_stat, with the biased variance. `use_scale=False` is flax's
+    BatchNorm(use_scale=False): `weight` is a buffer of ones that no update
+    touches (arcface_torch's frozen `features.weight`)."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 use_scale: bool = True):
         super().__init__()
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
-        self.weight = nn.Parameter(torch.ones(num_features))
+        if use_scale:
+            self.weight = nn.Parameter(torch.ones(num_features))
+        else:
+            self.register_buffer("weight", torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
@@ -68,7 +86,8 @@ class BatchNorm(nn.Module):
                                 self.eps).to(self.dtype)
         if self.update_stats:
             with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                dims = (0,) if x.dim() == 2 else (0, 2, 3)
+                var, mean = torch.var_mean(x.to(stats_dtype(x)), dim=dims,
                                            unbiased=False)
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
@@ -105,7 +124,7 @@ class Conv2d(nn.Conv2d):
                 and x.shape[-2:] == (1, 1)):
             c = k // 2
             return F.conv2d(x, self.weight[:, :, c:c + 1, c:c + 1],
-                            self.bias)
+                            self.bias, groups=self.groups)
         return super().forward(x)
 
 
@@ -195,7 +214,7 @@ class ResNet(nn.Module):
         self._args = dict(stage_sizes=stage_sizes, block=block,
                           embed_dim=embed_dim, num_filters=num_filters,
                           dtype=dtype, bn_dtype=bn_dtype, folded=folded)
-        self.dtype, self.folded = dtype, folded
+        self.dtype, self.folded, self.embed_dim = dtype, folded, embed_dim
         self.conv1 = nn.Conv2d(3, num_filters, 7, stride=2, padding=3,
                                bias=folded)
         self.bn1 = _norm(num_filters, bn_dtype, folded)
@@ -220,7 +239,7 @@ class ResNet(nn.Module):
             raise ValueError("BN-folded models are inference-only")
         x = x.permute(0, 3, 1, 2)  # NCHW view, channels-last in memory
         with torch.autocast(x.device.type, dtype=self.dtype,
-                            enabled=self.dtype != torch.float32):
+                            enabled=self.dtype in AUTOCAST_DTYPES):
             x = self.conv1(x.to(self.dtype))
             x = F.relu(self.bn1(x)).to(self.dtype)
             x = F.max_pool2d(x, 3, stride=2, padding=1)
@@ -242,23 +261,31 @@ def _lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Initialise like the flax model: lecun-normal convs and Dense kernel,
-    zero Dense bias, unit BatchNorm scale and zero shift."""
+    """Initialise like the flax model: lecun-normal convs and Dense
+    kernels, zero biases, unit BatchNorm / LayerNorm scale and zero shift
+    (their construction values), and each module's own flax initialiser
+    where it has one (`reset_flax_(generator)`: PReLU's 0.25, ViT's
+    position embedding), all drawn from `generator`."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
                 _lecun_normal_(mod.weight, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            reset = getattr(mod, "reset_flax_", None)
+            if reset is not None:
+                reset(generator)
 
 
 def resnet18(embed_dim: int = 512, dtype: torch.dtype = torch.bfloat16,
-             bn_dtype: torch.dtype = torch.float32) -> ResNet:
+             bn_dtype: torch.dtype = torch.float32,
+             image_size: int = 112) -> ResNet:
     return ResNet((2, 2, 2, 2), BasicBlock, embed_dim=embed_dim, dtype=dtype,
                   bn_dtype=bn_dtype)
 
 
 def resnet50(embed_dim: int = 512, dtype: torch.dtype = torch.bfloat16,
-             bn_dtype: torch.dtype = torch.float32) -> ResNet:
+             bn_dtype: torch.dtype = torch.float32,
+             image_size: int = 112) -> ResNet:
     return ResNet((3, 4, 6, 3), Bottleneck, embed_dim=embed_dim, dtype=dtype,
                   bn_dtype=bn_dtype)

@@ -29,7 +29,7 @@ from typing import Callable, Dict
 
 import torch
 
-from face_recognition_models_tpu_torch.models import get_backbone
+from face_recognition_models_tpu_torch.models import BACKBONES, get_backbone
 from face_recognition_models_tpu_torch.models.backbones import to_device
 from face_recognition_models_tpu_torch.models.resnet import init_weights
 from face_recognition_models_tpu_torch.train.step import make_eval_step
@@ -52,11 +52,14 @@ _OP_CATEGORIES = (
 
 
 def build_model(backbone: str = "resnet50", bn_dtype: str = "bfloat16",
-                seed: int = 0, device=None) -> torch.nn.Module:
+                seed: int = 0, device=None,
+                image_size: int = 112) -> torch.nn.Module:
     """The benchmark's backbone on `device`: bf16 convolutions, BatchNorm
-    output in `bn_dtype`, weights from `seed` (the same for any bn_dtype)."""
+    output in `bn_dtype`, weights from `seed` (the same for any bn_dtype),
+    built for `image_size`."""
     model = get_backbone(backbone, dtype=torch.bfloat16,
-                         bn_dtype=getattr(torch, bn_dtype))
+                         bn_dtype=getattr(torch, bn_dtype),
+                         image_size=image_size)
     init_weights(model, torch.Generator().manual_seed(seed))
     return to_device(model, resolve_device(device))
 
@@ -76,8 +79,8 @@ def bench(backbone: str = "resnet50", batch: int = 512,
     """Embedding throughput of `backbone`; returns the JSON line's fields."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
-    step = make_eval_step(build_model(backbone, bn_dtype, seed, dev),
-                          device=dev)
+    step = make_eval_step(build_model(backbone, bn_dtype, seed, dev,
+                                      image_size), device=dev)
     batches = make_batches(iters, batch, image_size, seed, dev)
     acc = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -161,7 +164,7 @@ def device_split(step: Callable, images: torch.Tensor) -> Dict[str, float]:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backbone", default="resnet50",
-                    choices=["resnet18", "resnet50"])
+                    choices=sorted(BACKBONES))
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--image-size", type=int, default=112)
     ap.add_argument("--bn-dtype", default="bfloat16",
@@ -180,7 +183,8 @@ def main(argv=None) -> None:
     if args.profile:
         dev = resolve_device(args.device)
         step = make_eval_step(build_model(args.backbone, args.bn_dtype,
-                                          args.seed, dev), device=dev)
+                                          args.seed, dev, args.image_size),
+                              device=dev)
         images = make_batches(1, args.batch, args.image_size, args.seed,
                               dev)[0]
         print(json.dumps({"device_ms_by_category":

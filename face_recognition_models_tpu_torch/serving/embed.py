@@ -130,7 +130,8 @@ def load_embed_fn(model_path: Optional[str], checkpoint_dir: Optional[str],
 
     device = resolve_device(device)
     model = get_backbone(backbone, embed_dim=embed_dim,
-                         bn_dtype=getattr(torch, bn_dtype))
+                         bn_dtype=getattr(torch, bn_dtype),
+                         image_size=image_size)
     model.load_state_dict(restore_backbone(checkpoint_dir, which))
     eval_step = make_eval_step(to_device(model, device), device=device)
     return (lambda im: eval_step(im).cpu().numpy()), image_size

@@ -166,7 +166,8 @@ def _install_preemption_handlers(flag: dict) -> dict:
 
 
 def load_teacher(distill: cfg_lib.DistillConfig, feature_dim: int,
-                 device: torch.device) -> torch.nn.Module:
+                 device: torch.device, image_size: int = 112
+                 ) -> torch.nn.Module:
     """The frozen teacher a previous `train` run saved in
     distill.checkpoint_dir (checkpoint/manager.restore_backbone, artifact
     distill.which), as `get_backbone(distill.backbone)` builds it: bf16
@@ -174,7 +175,8 @@ def load_teacher(distill: cfg_lib.DistillConfig, feature_dim: int,
     from face_recognition_models_tpu_torch.checkpoint import (
         restore_backbone)
 
-    module = get_backbone(distill.backbone, embed_dim=feature_dim)
+    module = get_backbone(distill.backbone, embed_dim=feature_dim,
+                          image_size=image_size)
     module.load_state_dict(restore_backbone(distill.checkpoint_dir,
                                             distill.which))
     return module
@@ -196,7 +198,8 @@ def _prepare_teacher(cfg: cfg_lib.TrainConfig, head_cfg, teacher,
             raise ValueError(
                 "distill.weight > 0 needs a teacher: pass teacher=<backbone "
                 "module> or set --distill-dir <checkpoint dir>")
-        teacher = load_teacher(distill, head_cfg.feature_dim, device)
+        teacher = load_teacher(distill, head_cfg.feature_dim, device,
+                               cfg.data.image_size)
     teacher = to_device(teacher, device).eval().requires_grad_(False)
     size = cfg.data.image_size
     with torch.no_grad():
@@ -215,13 +218,28 @@ def _prepare_teacher(cfg: cfg_lib.TrainConfig, head_cfg, teacher,
 
 
 def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
-                schedule=None, teacher=None):
+                schedule=None, teacher=None, warm_start=None):
     """(head, state, step) of cfg's recipe on `device`: the train state
     (optimizer, accumulation, EMA) and the train step with the schedule,
     augmentations, teacher (given, or loaded from cfg.distill) and frozen
-    trunk cfg names."""
+    trunk cfg names. `warm_start`, a backbone state_dict, replaces the
+    initial backbone (and the EMA's copy of it), as the JAX `fit`'s
+    warm_start does."""
+    if cfg.backbone.lower() == "inception_v3":
+        raise ValueError(
+            "fit cannot train inception_v3: its dropout would need the "
+            "step's generator, which the JAX train loop gives only to "
+            "efficientnet_b0 and mobilenet_v2 (face_recognition_models_tpu/"
+            "train/loop.py:169), so JAX `fit` fails there with no dropout "
+            "generator. inception_v3 embeds, exports and serves; the "
+            "triplet path trains it")
     teacher = _prepare_teacher(cfg, head_cfg, teacher, device)
     _, head, state = create_train_state(cfg, head_cfg, device)
+    if warm_start is not None:
+        state.backbone.load_state_dict(warm_start)
+        if state.ema is not None:
+            for e, p in zip(state.ema, state.params()):
+                e.copy_(p.detach())
     data = cfg.data
     step_fn = make_train_step(
         head, head_cfg, lr_schedule=schedule, mean=data.mean, std=data.std,
@@ -238,7 +256,8 @@ def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
 def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
         head_cfg=None, checkpoint_manager: Optional[Any] = None,
         teacher: Optional[torch.nn.Module] = None,
-        hooks: Optional[Callable] = None) -> FitResult:
+        hooks: Optional[Callable] = None,
+        warm_start: Optional[dict] = None) -> FitResult:
     """Train for cfg.epochs over `loader` (any object with steps_per_epoch()
     and epoch(i) -> iterator of (uint8 NHWC images, int labels)).
 
@@ -247,7 +266,8 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     takes cfg.epochs more epochs from the one after the checkpoint's.
     `teacher` (a backbone module; needs cfg.distill.weight > 0) is the
     in-memory alternative to cfg.distill.checkpoint_dir. `hooks` is
-    called at each epoch's end (module docstring).
+    called at each epoch's end (module docstring). `warm_start` is a
+    backbone state_dict to start from (make_recipe).
     Runs on the card unless device='cpu' is passed; raises without one.
     """
     device = resolve_device(device)
@@ -261,7 +281,7 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     schedule = get_schedule(cfg.schedule, cfg.optimizer.learning_rate,
                             steps_per_epoch, cfg.epochs, device=device)
     head, state, step_fn = make_recipe(cfg, head_cfg, device, schedule,
-                                       teacher)
+                                       teacher, warm_start)
     runner = (ChunkRunner(make_chunk_fn(step_fn, head.requires_minput),
                           scan_k, device) if scan_k > 1 else None)
 

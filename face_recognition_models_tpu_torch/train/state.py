@@ -117,7 +117,8 @@ def build_backbone(cfg: TrainConfig, head_cfg) -> nn.Module:
     weights loads them into."""
     return get_backbone(cfg.backbone, embed_dim=head_cfg.feature_dim,
                         dtype=getattr(torch, cfg.compute_dtype),
-                        bn_dtype=getattr(torch, cfg.bn_dtype))
+                        bn_dtype=getattr(torch, cfg.bn_dtype),
+                        image_size=cfg.data.image_size)
 
 
 def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device):

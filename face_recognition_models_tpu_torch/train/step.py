@@ -12,7 +12,8 @@ before the update -> the model EMA -> the head state. The fused path
 ops/fused_head.py and never materialises the [N, C] logits; the eager path
 is the [N, C] head of heads/margins.py. The loss is the CE plus lambda_g
 times the head's auxiliary loss (MagFace's magnitude regulariser); heads
-with `requires_rng` draw from the state's generator `state.rng`. QAFace's
+with `requires_rng` draw from the state's generator `state.rng`, and so
+do the dropout masks of the trunks that have them. QAFace's
 degraded view (`minput_images`) goes through the same backbone in train
 mode, with its BatchNorm statistics dropped as the JAX step drops them.
 
@@ -89,7 +90,11 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
     `distill_weight * distill_loss(...)` and the metric `loss_kd`;
     `freeze_backbone` trains the head alone; `grad_accum` must be the
     MultiSteps K of the state's optimizer; `model_ema` > 0 needs
-    `state.ema`. Runs on the card unless device='cpu' is passed.
+    `state.ema`. A trunk that draws dropout masks (`takes_rng`) gets the
+    state's generator in its train-mode forwards (`rng=`): the dropout and
+    stochastic depth of mobilenet_v2 and efficientnet_b0 draw their masks
+    from it, as the JAX step gives those two trunks its dropout key. Runs
+    on the card unless device='cpu' is passed.
     """
     device = resolve_device(device)
     if use_fused_head and not fused_supported(head_cfg.name):
@@ -116,10 +121,12 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
             with torch.no_grad():
                 return state.backbone(images).to(torch.float32)
         state.backbone.train()
+        kw = ({"rng": state.rng}
+              if getattr(state.backbone, "takes_rng", False) else {})
         if view:
             with running_stats_frozen(state.backbone):
-                return state.backbone(images).to(torch.float32)
-        return state.backbone(images).to(torch.float32)
+                return state.backbone(images, **kw).to(torch.float32)
+        return state.backbone(images, **kw).to(torch.float32)
 
     def train_step(state: TrainState, images, labels, minput_images=None):
         images = apply_augmentations(state.rng, prepare(images),

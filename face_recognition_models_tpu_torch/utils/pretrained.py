@@ -1,13 +1,19 @@
-"""Backbone initialisation from a torchvision state_dict on disk (`train
+"""Backbone initialisation from a torch state_dict on disk (`train
 --pretrained`). Port of `load_pretrained_backbone` of
-face_recognition_models_tpu/utils/torch_port.py for the port's trunks.
+face_recognition_models_tpu/utils/torch_port.py.
 
 The reference trains from ImageNet-pretrained torchvision weights
-(backbones.py:12-26). The port's ResNets already use torchvision's
-parameter names, so a torchvision resnet18 / resnet50 state_dict loads key
-for key. Its 1000-class `fc` does not fit the 512-d embedding layer and is
-left out, as the JAX loader leaves it out; an `fc` of the embedding's shape
-is loaded. Any other missing or unexpected key raises. A file without
+(backbones.py:12-26); the JAX package also reads insightface's
+arcface_torch iresnets. The port's trunks for those files use their
+parameter names as they are (torchvision's resnet18 / resnet50 /
+mobilenet_v2 / efficientnet_b0, arcface_torch's iresnet18 / 50 / 100), so
+a file loads key for key. A classifier (`fc`, or `classifier.1` of
+mobilenet_v2 and efficientnet_b0) that does not fit the embedding layer is
+left out, as the JAX loader leaves it out; one of the embedding's shape is
+loaded. An iresnet's `fc` is its embedding layer: a shape that does not
+fit raises (the model was built for another image size), and its frozen
+`features.weight` must be 1 (the model has no scale there) and is not
+read. Any other missing or unexpected key raises. A file without
 `num_batches_tracked` counters (older torchvision files) keeps the
 model's own.
 """
@@ -17,7 +23,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-_PORTED = ("resnet18", "resnet50")
+# the JAX package's `_PORTERS` (utils/torch_port.py)
+PORTED = ("resnet18", "resnet50", "efficientnet_b0", "mobilenet_v2",
+          "iresnet18", "iresnet50", "iresnet100")
+_CLASSIFIER = {"efficientnet_b0": "classifier.1",
+               "mobilenet_v2": "classifier.1"}
 
 
 def load_pretrained_backbone(path: str, backbone_name: str,
@@ -26,8 +36,8 @@ def load_pretrained_backbone(path: str, backbone_name: str,
     `backbone_name` trunk, on any device) in place. The file is read on the
     CPU; a bare state_dict or one wrapped under 'state_dict' or 'model'."""
     name = backbone_name.lower()
-    if name not in _PORTED:
-        raise ValueError(f"--pretrained supports {sorted(_PORTED)}; got "
+    if name not in PORTED:
+        raise ValueError(f"--pretrained supports {sorted(PORTED)}; got "
                          f"'{backbone_name}'")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     for wrapper in ("state_dict", "model"):
@@ -36,11 +46,22 @@ def load_pretrained_backbone(path: str, backbone_name: str,
             sd = sd[wrapper]
     own = backbone.state_dict()
     sd = dict(sd)
-    if "fc.weight" in sd and sd["fc.weight"].shape != own["fc.weight"].shape:
-        sd.pop("fc.weight")
-        sd.pop("fc.bias", None)
-    fc = ("fc.weight", "fc.bias")
-    missing = [k for k in own if k not in sd and k not in fc
+    iresnet = name.startswith("iresnet")
+    head = _CLASSIFIER.get(name, "fc")
+    fc = (head + ".weight", head + ".bias")
+    if (not iresnet and fc[0] in sd
+            and sd[fc[0]].shape != own[fc[0]].shape):
+        sd.pop(fc[0])
+        sd.pop(fc[1], None)
+    if iresnet and "features.weight" in sd:
+        w = sd.pop("features.weight").float()
+        if not torch.allclose(w, torch.ones_like(w), atol=1e-3):
+            raise ValueError(
+                f"{path}: the features BatchNorm1d scale is not frozen at 1 "
+                f"(max deviation {float((w - 1).abs().max()):.3e}); the "
+                "iresnet has no scale there and cannot represent it")
+    optional = ("features.weight",) if iresnet else fc
+    missing = [k for k in own if k not in sd and k not in optional
                and not k.endswith("num_batches_tracked")]
     unexpected = [k for k in sd if k not in own]
     if missing or unexpected:

@@ -10,6 +10,7 @@ import os
 import pytest
 import torch
 
+from face_recognition_models_tpu.models import BACKBONES as JBACKBONES
 from face_recognition_models_tpu_torch.cli.main import main
 from face_recognition_models_tpu_torch.heads import available_heads
 from face_recognition_models_tpu_torch.heads.fused_adapter import FUSED_HEADS
@@ -104,5 +105,5 @@ def test_list(capsys):
     out = capsys.readouterr().out.splitlines()
     heads = out[0].split(":", 1)[1].strip().split(", ")
     assert heads == available_heads() and len(heads) == 14
-    assert out[1].split(":", 1)[1].strip().split(", ") == ["resnet18",
-                                                            "resnet50"]
+    backbones = out[1].split(":", 1)[1].strip().split(", ")
+    assert backbones == sorted(JBACKBONES) and len(backbones) == 12

@@ -121,8 +121,10 @@ def test_refusals(tmp_path):
     path = str(tmp_path / "r18.pth")
     torch.save(sd, path)
     with pytest.raises(ValueError, match=r"--pretrained supports "
-                       r"\['resnet18', 'resnet50'\]; got 'mobilenet_v2'"):
-        load_pretrained_backbone(path, "mobilenet_v2", _port_trunk())
+                       r"\['efficientnet_b0', 'iresnet100', 'iresnet18', "
+                       r"'iresnet50', 'mobilenet_v2', 'resnet18', "
+                       r"'resnet50'\]; got 'vit_t'"):
+        load_pretrained_backbone(path, "vit_t", _port_trunk())
     # a resnet18 file into a resnet50 trunk
     with pytest.raises(ValueError, match="does not fit resnet50"):
         load_pretrained_backbone(path, "resnet50", _port_trunk("resnet50"))

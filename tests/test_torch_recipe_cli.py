@@ -127,8 +127,8 @@ def test_distill_dir_trains_from_an_earlier_run(tmp_path, runs,
     loaded = []
     load = loop.load_teacher
 
-    def recording_load(distill, feature_dim, device):
-        module = load(distill, feature_dim, device)
+    def recording_load(distill, *args):
+        module = load(distill, *args)
         loaded.append((distill, module))
         return module
 
