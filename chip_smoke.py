@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only partial_fc,facenet]
 
-Phases, one JSON line each; any failure ends the run with a non-zero exit
+(`--only` runs just those phases after the device line: no build, no
+kernels line and no result line.) Phases, one JSON line each; any failure ends the run with a non-zero exit
 and no result line:
 
 1. device  - the card's name and power limit (nvidia-smi).
@@ -119,6 +120,18 @@ and no result line:
              CLI at batch 256 with the host and the device protocol and
              --tpr-far 1e-2,1e-3: equal fold thresholds and accuracies, AUC
              within 1e-12, mean AUC >= 0.9; the embedding img/s.
+11b. facenet - the FaceNet triplet path at FaceNet's defaults (ResNet-50,
+             embed 128, P = 16 x K = 4, margin 0.2, lr 0.05, 112 px, bf16
+             convs): `train_facenet` for 10 steps on synthetic identities
+             (finite losses, mined valid triplets > 0 at every step, ms/step
+             after step 1 with each step waited for, peak GB, beside 3x the
+             forward FLOPs at 989 TFLOP/s; the mining's device ms by
+             torch.profiler); the `facenet` CLI over a PNG identity tree
+             (PKLoader, PIL), whose <model>_final the `eval` CLI (on the
+             eval phase's .bin) and `embed` read; inception_v3 trained 3
+             steps with its dropout from the step generator, two runs from
+             one seed bitwise equal, another seed different. No kernel of
+             the port launches.
 12. bench_embed - the headline workload (`scripts/bench_embed.bench`:
              ResNet-50, b512, 112 px, bf16 BatchNorm, 20 batches in a CUDA
              graph) and the same with fp32 BatchNorm, one eager step's
@@ -187,6 +200,27 @@ and no result line:
              step at b512, and iresnet50's `fn` on 150 rows of an artifact
              of max_batch 64 (three slices joined) against the live step
              on the same slices.
+14b. partial_fc - `fit` with partial_fc 0.1 on ResNet-50 + ArcFace (D =
+             512, b512, 112 px, bf16 convs, SGD 0.1 / 0.9 / 5e-4): at C =
+             1,048,576 (C_s = 104,960) 5 steps (finite losses, step 1
+             writes exactly the sampled columns of kernel_w and kernel_mom,
+             no kernel of the port launched, ms/step after step 1, peak GB,
+             the sampler's device ms by torch.profiler, the gather +
+             scatter's by CUDA events (split by the profiler) beside its
+             HBM bound, the profiler's device ms/step, idle share and
+             split over 3 steps), 3 steps of the
+             dense fused head at the same C (K1 / K2 once a step; the
+             yardstick, not counted in the kernels line), and 10 steps with
+             scan_steps=4 against 10 eager ones, bit for bit (losses, every
+             state tensor with kernel_mom, the generator); at C = 10,575
+             (C_s = 1,280) two seeded runs bitwise equal, one full-sample
+             step (C_s = C, distinct labels) against the dense eager step
+             from the same state (loss rtol 1e-6, kernel_w rtol 1e-5 /
+             atol 1e-7, kernel_mom rtol = atol 1e-5), and 1 epoch + a
+             resumed epoch against 2 epochs, bit for bit; then `train
+             --partial-fc 0.1` through the CLI on the card's default
+             device (resnet18, 3,072 synthetic identities, b512): the
+             sampled path, no kernel, kernel_mom in the epoch checkpoint.
 15. convergence - the port's scripts/convergence_run at its defaults
              (ArcFace + resnet18, 500 synthetic identities x 16 train + 4
              held-out copies at noise 35, b512, 15 epochs, scan_steps 8,
@@ -200,7 +234,8 @@ the phase that runs its entry point: train, head_bf16, conv3x3_bench; the
 fp32 head kernels' and the _mem kernels' add the scan phase's graphed
 ArcFace and VPL-ArcFace runs, whose replays the host's counters do not see:
 the launches one replay captured times the replays, plus the real ones;
-the fp32 head kernels' also the recipe, backbones and convergence runs),
+the fp32 head kernels' also the recipe, backbones and convergence runs;
+the partial_fc and facenet phases launch none),
 the last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -1303,13 +1338,14 @@ def train_batches(steps, bs, size, seed=0):
 
 
 @contextlib.contextmanager
-def observe_steps(after=None, before=None):
+def observe_steps(after=None, before=None, factory="make_train_step"):
     """Run `before(state)` before and `after(state)` after every train step
-    that `fit` takes (by wrapping the loop's `make_train_step`); the step
-    itself is as is."""
+    that `fit` takes (by wrapping the loop's `factory`,
+    `make_partial_fc_train_step` for Partial-FC); the step itself is as
+    is."""
     from face_recognition_models_tpu_torch.train import loop
 
-    build = loop.make_train_step
+    build = getattr(loop, factory)
 
     def make(*args, **kwargs):
         step = build(*args, **kwargs)
@@ -1323,11 +1359,11 @@ def observe_steps(after=None, before=None):
             return out
         return observed
 
-    loop.make_train_step = make
+    setattr(loop, factory, make)
     try:
         yield
     finally:
-        loop.make_train_step = build
+        setattr(loop, factory, build)
 
 
 def train_phase(head_name, kernels, steps=TRAIN_STEPS, phase="train",
@@ -3844,9 +3880,556 @@ def phase_convergence():
     return launches
 
 
-def main() -> int:
+# the partial_fc phase: ResNet-50 + ArcFace, D=512, b512, 112 px, bf16
+# convs, SGD 0.1 / 0.9 / 5e-4, ratio 0.1, at C = 1,048,576 (C_s = 104,960)
+# and at CASIA's C = 10,575 (C_s = 1,280)
+PFC_CLASSES = 1_048_576
+PFC_RATIO = 0.1
+PFC_STEPS = 5
+PFC_DENSE_STEPS = 3
+PFC_SMALL_STEPS = 3
+PFC_RESUME_STEPS = 2     # steps an epoch of the resume check
+PFC_PROFILED = 10        # calls the profiler's sampler / gather readings average
+PFC_PROFILED_STEPS = 3   # steps of the profiler's device split
+PFC_CLI_CLASSES = 3072   # `train --partial-fc` through the CLI: 6 steps
+# the one-step full-sample check: the CPU test's bounds
+# (tests/test_torch_partial_fc.py)
+TOL_PFC_LOSS_RTOL = 1e-6
+TOL_PFC_KERNEL = dict(rtol=1e-5, atol=1e-7)
+TOL_PFC_MOMENTUM = dict(rtol=1e-5, atol=1e-5)
+
+
+def no_kernel_launched(label):
+    """Raise if any kernel of the port ran (fused-head K1-K5, captured in a
+    graph or not, and the conv K6) since the counters were reset."""
+    from face_recognition_models_tpu_torch.ops import conv3x3
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+
+    ran = {k: v for k, v in {**fh.launch_counts, **conv3x3.launch_counts,
+                             **{f"captured {k}": v for k, v in
+                                fh.captured_counts.items()}}.items() if v}
+    if ran:
+        raise AssertionError(f"{label}: kernels launched: {ran}")
+
+
+def reset_kernel_counts():
+    from face_recognition_models_tpu_torch.ops import conv3x3
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+
+    fh.reset_launch_counts()
+    conv3x3.reset_launch_counts()
+    for k in fh.captured_counts:
+        fh.captured_counts[k] = 0
+
+
+def profiled_kernel_ms(fn, calls, tries=3):
+    """{kernel: device ms per call of `fn`}: each kernel's (and copy's)
+    self device time in a torch.profiler trace of `calls` calls, or None
+    when `tries` traces in a row record no device time (CUPTI does not
+    always deliver its records on a shared machine)."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key[:120]: e.self_device_time_total / calls / 1e3
+               for e in prof.key_averages() if e.self_device_time_total}
+        if out:
+            return out
+        print(f"profiler: no device time recorded (trace {attempt + 1} of "
+              f"{tries})", file=sys.stderr, flush=True)
+    return None
+
+
+def profiled_device_ms(fn, calls):
+    """(device ms per call of `fn`, how it was timed): profiled_kernel_ms
+    summed, or CUDA events around `calls` back-to-back calls (device_ms)
+    when the profiler records nothing."""
+    kernels = profiled_kernel_ms(fn, calls)
+    if kernels is None:
+        return device_ms(fn, warmup=1, iters=calls), "cuda_events"
+    return sum(kernels.values()), "torch.profiler"
+
+
+def pfc_cfg(num_classes, partial_fc=PFC_RATIO, **kw):
+    from face_recognition_models_tpu_torch import config as cfg_lib
+
+    kw = {"epochs": 1, "print_freq": 1, **kw}
+    return cfg_lib.TrainConfig(backbone="resnet50", head="arcface",
+                               num_classes=num_classes, batch_size=N_MAIN,
+                               seed=0, partial_fc=partial_fc, **kw)
+
+
+def pfc_loader(steps, num_classes, seed=8):
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+
+    rs = np.random.RandomState(seed)
+    images = rs.randint(0, 256, (steps * N_MAIN, 112, 112, 3), np.uint8)
+    labels = rs.randint(0, num_classes, steps * N_MAIN).astype(np.int32)
+    return ArrayLoader(images, labels, batch_size=N_MAIN, seed=0)
+
+
+def pfc_fit(cfg, loader, label, **kw):
+    """`fit` on the card with every kernel counter reset before; the
+    result, its peak GB and ms/step after step 1 (the loss read every
+    step when cfg.print_freq is 1)."""
+    import torch
+
+    from face_recognition_models_tpu_torch.train.loop import fit
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    res = fit(cfg, loader, device="cuda", **kw)
+    torch.cuda.synchronize()
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"partial_fc {label}: losses {res.losses}")
+    ms = (1e3 * float(np.mean(res.step_seconds[1:]))
+          if len(res.step_seconds) > 1 else None)
+    return res, torch.cuda.max_memory_allocated() / 1e9, ms
+
+
+def pfc_large():
+    """C = 1,048,576: PFC_STEPS Partial-FC steps (columns written, no
+    kernel, ms/step, peak GB, the sampler's and the gather + scatter's
+    device ms), the dense fused head's PFC_DENSE_STEPS at the same C, and
+    SCAN_STEPS graphed (K = SCAN_K) against eager, bit for bit."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.train import partial_fc as pfc
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+    from face_recognition_models_tpu_torch.utils.profiling import (
+        profile_train_step)
+
+    c = PFC_CLASSES
+    c_s = pfc.num_sampled_classes(c, PFC_RATIO, N_MAIN)
+    seen = {}
+
+    def before(state):
+        if state.step == 0:
+            seen["w"] = state.kernel_w.detach().clone()
+            seen["m"] = state.kernel_mom.clone()
+
+    def after(state):
+        if state.step == 1:
+            seen["moved_w"] = (state.kernel_w.detach() != seen.pop("w")).any(0)
+            seen["moved_m"] = (state.kernel_mom != seen.pop("m")).any(0)
+
+    t0 = time.perf_counter()
+    with recorded(pfc, "sample_classes") as drawn, observe_steps(
+            after, before, factory="make_partial_fc_train_step"):
+        res, peak, ms = pfc_fit(pfc_cfg(c), pfc_loader(PFC_STEPS, c), "1M")
+    no_kernel_launched("partial_fc 1M")
+    losses = res.losses
+    classes, col_valid, target = drawn[0]
+    sampled = torch.zeros(c, dtype=torch.bool, device="cuda")
+    sampled[classes[col_valid]] = True
+    for key in ("moved_w", "moved_m"):
+        if not torch.equal(seen[key], sampled):
+            raise AssertionError(
+                f"partial_fc 1M: step 1 wrote {int(seen[key].sum())} columns "
+                f"of {key[-1]}, {int((seen[key] & ~sampled).sum())} outside "
+                f"the {int(sampled.sum())} sampled")
+    state = res.state
+    labels = torch.from_numpy(pfc_loader(1, c).labels[:N_MAIN]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sampler_ms, sampler_timer = profiled_device_ms(
+        lambda: pfc.sample_classes(gen, labels, c, c_s), PFC_PROFILED)
+    cols = torch.where(col_valid, classes, classes[:1])
+
+    def gather_scatter():
+        # the step's two gathers and two write-backs (the same values, so
+        # the state stays as it is)
+        w_s = state.kernel_w.detach().index_select(1, cols)
+        m_s = state.kernel_mom.index_select(1, cols)
+        state.kernel_w.detach().index_copy_(1, cols, w_s)
+        state.kernel_mom.index_copy_(1, cols, m_s)
+
+    # CUDA events behind a spin kernel give the walk's time: traces of it
+    # have come back without the gather's records (0.66 ms against 9.2)
+    gather_ms = device_ms(gather_scatter, warmup=1, iters=PFC_PROFILED)
+    gather_kernels = profiled_kernel_ms(gather_scatter, PFC_PROFILED)
+    gather_bytes = 8 * 512 * c_s * 4   # 2 x (read + write) x gather, scatter
+    written = int(seen["moved_w"].sum())
+    del state, res, seen, drawn
+    torch.cuda.empty_cache()
+    prof = profile_train_step(pfc_cfg(c), device="cuda", warmup=1,
+                              steps=PFC_PROFILED_STEPS)
+    sampled_line = {
+        "losses": losses, "ms_per_step_after_1": ms,
+        "img_per_s_after_1": N_MAIN / ms * 1e3, "peak_gb": peak,
+        "num_sampled": c_s, "sampled_classes_step1": int(sampled.sum()),
+        "columns_written_step1": written,
+        "sampler_device_ms": sampler_ms, "sampler_timed_by": sampler_timer,
+        "gather_scatter_device_ms": gather_ms,
+        "gather_scatter_by_kernel_ms": gather_kernels or "not measured",
+        "gather_scatter_profiled_ms": (sum(gather_kernels.values())
+                                       if gather_kernels else None),
+        "gather_scatter_bound_ms": gather_bytes / PEAK_BYTES * 1e3,
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "profiled_host_ms_per_step": prof["ms_per_step"],
+        "idle_share": prof["idle_share"],
+        "by_category_ms": prof["by_category_ms"],
+        "seconds": time.perf_counter() - t0}
+    # the yardstick: the dense fused head (K1 / K2) at the same C
+    res, peak, ms = pfc_fit(pfc_cfg(c, partial_fc=0.0),
+                            pfc_loader(PFC_DENSE_STEPS, c), "dense 1M")
+    dense_launches = dict(fh.launch_counts)
+    want = {k: PFC_DENSE_STEPS if k in PLAIN_KERNELS else 0
+            for k in dense_launches}
+    if dense_launches != want:
+        raise AssertionError(f"partial_fc dense 1M: launches "
+                             f"{dense_launches}")
+    dense_line = {"losses": res.losses, "ms_per_step_after_1": ms,
+                  "img_per_s_after_1": N_MAIN / ms * 1e3, "peak_gb": peak,
+                  "launches": {k: v for k, v in dense_launches.items()
+                               if v}}
+    del res
+    # graphed (K = SCAN_K) against eager, the whole state bit for bit
+    runs = {}
+    for k in (1, SCAN_K):
+        runs[k] = pfc_fit(pfc_cfg(c, scan_steps=k, print_freq=10 ** 9),
+                          pfc_loader(SCAN_STEPS, c, seed=9), f"K={k}")
+        no_kernel_launched(f"partial_fc 1M K={k}")
+    (eager, eager_peak, _), (graphed, graph_peak, _) = runs[1], runs[SCAN_K]
+    if eager.losses != graphed.losses:
+        raise AssertionError(f"partial_fc: graphed losses {graphed.losses} "
+                             f"!= eager {eager.losses}")
+    n = same_state("partial_fc graphed", graphed.state, eager.state)
+    scan_line = {"steps": SCAN_STEPS, "scan_steps": SCAN_K,
+                 "replays": graphed.replays, "bitwise": True,
+                 "state_tensors_compared": n,
+                 "capture_seconds": graphed.capture_seconds,
+                 "peak_gb_eager": eager_peak, "peak_gb_graphed": graph_peak}
+    del runs, eager, graphed
+    emit({"phase": "partial_fc", "part": "1M", "backbone": "resnet50",
+          "head": "arcface", "num_classes": c, "batch": N_MAIN,
+          "ratio": PFC_RATIO, "sampled": sampled_line, "dense": dense_line,
+          "dense_over_sampled_ms": (dense_line["ms_per_step_after_1"]
+                                    / sampled_line["ms_per_step_after_1"]),
+          "graphed": scan_line, "nvidia_smi": nvidia_smi(), "ok": True})
+
+
+def pfc_small(root):
+    """C = 10,575: two seeded runs bitwise equal; one step with the full
+    sample against the dense eager step from the same state; a resumed
+    Partial-FC fit against an uninterrupted one, bit for bit."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from face_recognition_models_tpu_torch.train import partial_fc as pfc
+    from face_recognition_models_tpu_torch.train.state import (
+        create_train_state)
+    from face_recognition_models_tpu_torch.train.step import make_train_step
+
+    c, cuda = C_MAIN, torch.device("cuda")
+    c_s = pfc.num_sampled_classes(c, PFC_RATIO, N_MAIN)
+    a, _, ms = pfc_fit(pfc_cfg(c), pfc_loader(PFC_SMALL_STEPS, c), "C=10575")
+    b, _, _ = pfc_fit(pfc_cfg(c), pfc_loader(PFC_SMALL_STEPS, c), "again")
+    no_kernel_launched("partial_fc C=10575")
+    if a.losses != b.losses:
+        raise AssertionError(f"partial_fc: two seeded runs {a.losses} vs "
+                             f"{b.losses}")
+    n = same_state("partial_fc repeat", a.state, b.state)
+    repeat = {"losses": a.losses, "ms_per_step_after_1": ms,
+              "state_tensors_compared": n}
+    del a, b
+
+    # the full sample (C_s = C, 512 distinct labels) against the dense
+    # eager step from the same seeded state
+    cfg = pfc_cfg(c)
+    head_cfg = cfg_lib.make_head_config("arcface", num_classes=c)
+    _, head, sampled = create_train_state(cfg, head_cfg, cuda,
+                                          partial_fc=True)
+    _, _, dense = create_train_state(cfg, head_cfg, cuda)
+    rs = np.random.RandomState(10)
+    images = torch.from_numpy(rs.randint(0, 256, (N_MAIN, 112, 112, 3),
+                                         np.uint8)).cuda()
+    labels = torch.from_numpy(rs.choice(c, N_MAIN, replace=False).astype(
+        np.int32)).cuda()
+    _, ms_full = pfc.make_partial_fc_train_step(head, head_cfg, c,
+                                                device=cuda)(
+        sampled, images, labels)
+    _, md = make_train_step(head, head_cfg, use_fused_head=False,
+                            device=cuda)(dense, images, labels)
+    loss_err = abs(float(ms_full["loss"]) - float(md["loss"]))
+    if loss_err > TOL_PFC_LOSS_RTOL * abs(float(md["loss"])):
+        raise AssertionError(f"partial_fc full sample: loss "
+                             f"{float(ms_full['loss'])} vs dense "
+                             f"{float(md['loss'])}")
+    w_err = close("partial_fc full sample kernel_w", sampled.kernel_w.detach(),
+                  dense.kernel_w.detach(), **TOL_PFC_KERNEL)
+    m_err = close("partial_fc full sample kernel_mom", sampled.kernel_mom,
+                  dense.optimizer.state[dense.kernel_w]["momentum_buffer"],
+                  **TOL_PFC_MOMENTUM)
+    full = {"loss": float(ms_full["loss"]), "dense_loss": float(md["loss"]),
+            "loss_abs_err": loss_err, "kernel_w_max_abs_err": w_err,
+            "kernel_mom_max_abs_err": m_err,
+            "limits": {"loss_rtol": TOL_PFC_LOSS_RTOL,
+                       "kernel_w": TOL_PFC_KERNEL,
+                       "kernel_mom": TOL_PFC_MOMENTUM}}
+    del sampled, dense
+
+    # resume: 1 epoch, then a resumed one, against 2 epochs
+    def run(directory, epochs, resume=None):
+        mgr = CheckpointManager(directory, "arcface")
+        return pfc_fit(pfc_cfg(c, epochs=epochs, continue_train=resume,
+                               print_freq=100),
+                       pfc_loader(PFC_RESUME_STEPS, c, seed=11),
+                       "resume", checkpoint_manager=mgr)[0]
+
+    whole = run(os.path.join(root, "pfc_a"), 2)
+    first = run(os.path.join(root, "pfc_b"), 1)
+    second = run(os.path.join(root, "pfc_b"), 1, "latest")
+    if first.losses + second.losses != whole.losses:
+        raise AssertionError(f"partial_fc resume: {first.losses} + "
+                             f"{second.losses} vs {whole.losses}")
+    n = same_state("partial_fc resumed", second.state, whole.state)
+    size = os.path.getsize(os.path.join(root, "pfc_a", "epoch_2"))
+    emit({"phase": "partial_fc", "part": "C10575", "backbone": "resnet50",
+          "num_classes": c, "num_sampled": c_s, "batch": N_MAIN,
+          "repeat": repeat, "full_sample_vs_dense": full,
+          "resume": {"losses": whole.losses, "state_tensors_compared": n,
+                     "checkpoint_bytes": size},
+          "ok": True})
+
+
+def pfc_cli(root):
+    """`train --partial-fc 0.1` through the CLI on the card (its default
+    device): resnet18 + ArcFace, b512, 112 px, PFC_CLI_CLASSES synthetic
+    identities x 1 image, one epoch; the sampled path ran (no dense
+    fallback), no kernel launched, and the epoch checkpoint holds
+    kernel_mom."""
+    import torch
+
+    from face_recognition_models_tpu_torch.cli.main import main as cli_main
+
+    work = os.path.join(root, "pfc_cli")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["train", "--synthetic", "--synthetic-classes",
+                   str(PFC_CLI_CLASSES), "--synthetic-per-class", "1",
+                   "--epochs", "1", "--partial-fc", str(PFC_RATIO),
+                   "--working-path", work, "--print_freq", "1000"])
+    seconds = time.perf_counter() - t0
+    no_kernel_launched("partial_fc CLI")
+    with open(os.path.join(work, "log", "arcface.txt")) as f:
+        log = f.read()
+    state = torch.load(os.path.join(work, "checkpoints", "arcface",
+                                    "epoch_1"), map_location="cpu",
+                       weights_only=True)["state"]
+    if (rc != 0 or "partial-fc head" not in log or "dense path" in log
+            or state["kernel_mom"] is None
+            or tuple(state["kernel_mom"].shape) != (512, PFC_CLI_CLASSES)):
+        raise AssertionError(f"partial_fc CLI: rc {rc}, log {log[-400:]}")
+    return {"classes": PFC_CLI_CLASSES, "steps":
+            PFC_CLI_CLASSES // N_MAIN, "seconds": seconds}
+
+
+def phase_partial_fc(root):
+    """Partial-FC at full width (see the module docstring); it launches no
+    kernel of the port."""
+    t0 = time.perf_counter()
+    pfc_large()
+    pfc_small(root)
+    cli = pfc_cli(root)
+    emit({"phase": "partial_fc", "cli": cli,
+          "seconds": time.perf_counter() - t0, "ok": True})
+
+
+# the facenet phase: FaceNet's defaults (ResNet-50, embed 128, P = 16 x
+# K = 4, margin 0.2, lr 0.05, 112 px, bf16 convs)
+FACENET_STEPS = 10
+FACENET_TREE = (32, 4)        # PNG identity tree of the CLI run: ids x images
+INCEPTION_STEPS = 3
+
+
+def timed_triplet_steps():
+    """Wrap triplet.train.make_triplet_train_step so that each step waits
+    for the card and its host seconds are recorded; returns the list."""
+    import torch
+
+    from face_recognition_models_tpu_torch.triplet import train as ttrain
+
+    build = ttrain.make_triplet_train_step
+    seconds = []
+
+    @contextlib.contextmanager
+    def patched():
+        def make(*args, **kwargs):
+            step = build(*args, **kwargs)
+
+            def timed(state, *batch):
+                t0 = time.perf_counter()
+                out = step(state, *batch)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                return out
+            return timed
+
+        ttrain.make_triplet_train_step = make
+        try:
+            yield seconds
+        finally:
+            ttrain.make_triplet_train_step = build
+
+    return patched()
+
+
+def facenet_train(cfg, images, labels, seed=0, **kw):
+    """train_facenet on the card, its steps timed, no kernel launched."""
+    import torch
+
+    from face_recognition_models_tpu_torch.triplet import train_facenet
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    with timed_triplet_steps() as seconds:
+        res = train_facenet(cfg, images, labels, image_size=112, seed=seed,
+                            verbose=False, device="cuda", **kw)
+    no_kernel_launched(f"facenet {cfg.backbone}")
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"facenet {cfg.backbone}: losses {res.losses}")
+    return res, seconds, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_facenet(root):
+    """The triplet path at full width (see the module docstring)."""
+    import torch
+    from PIL import Image
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.cli.main import main as cli_main
+    from face_recognition_models_tpu_torch.data.synthetic import (
+        synthetic_identities)
+    from face_recognition_models_tpu_torch.evaluation import batch_eval
+    from face_recognition_models_tpu_torch.ops import mining
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+
+    t_phase = time.perf_counter()
+    cfg = cfg_lib.FaceNetConfig()
+    b = cfg.p * cfg.k
+    images, labels = synthetic_identities(FACENET_STEPS * cfg.p, cfg.k,
+                                          image_size=112, seed=12)
+    res, seconds, peak = facenet_train(cfg, images, labels)
+    if len(res.losses) != FACENET_STEPS or min(res.triplets) <= 0:
+        raise AssertionError(f"facenet: {len(res.losses)} steps, mined "
+                             f"triplets {res.triplets}")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    flops = forward_flops(res.state.backbone, 112)
+    bound_ms = 3 * flops * b / PEAK_BF16_TC_FLOPS * 1e3
+    emb = torch.nn.functional.normalize(torch.randn(
+        b, cfg.embed_dim, generator=torch.Generator().manual_seed(0)),
+        dim=1).cuda()
+    batch_labels = torch.from_numpy(labels[:b]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mining_ms, mining_timer = profiled_device_ms(
+        lambda: mining.semi_hard_negatives(
+            mining.pairwise_sq_distances(emb), batch_labels, cfg.margin,
+            gen),
+        PFC_PROFILED)
+    emit({"phase": "facenet", "part": "train", "backbone": cfg.backbone,
+          "embed_dim": cfg.embed_dim, "p": cfg.p, "k": cfg.k,
+          "margin": cfg.margin, "learning_rate": cfg.learning_rate,
+          "losses": res.losses, "triplets": res.triplets,
+          "step_ms": [1e3 * x for x in seconds],
+          "ms_per_step_after_1": ms, "img_per_s_after_1": b / ms * 1e3,
+          "peak_gb": peak, "forward_gflop_per_image": flops / 1e9,
+          "fwd_bwd_bound_ms": bound_ms, "bound_share": bound_ms / ms,
+          "bound": "3 x forward FLOPs x 64 at 989 TFLOP/s dense bf16",
+          "mining_device_ms": mining_ms, "mining_timed_by": mining_timer,
+          "nvidia_smi": nvidia_smi(),
+          "ok": True})
+    del res
+
+    # the CLI over a PNG identity tree (PKLoader, PIL), then eval / embed
+    tree = os.path.join(root, "facenet_tree")
+    ids, per = FACENET_TREE
+    tree_images, tree_labels = synthetic_identities(ids, per, image_size=112,
+                                                    seed=13)
+    for i, (img, lab) in enumerate(zip(tree_images, tree_labels)):
+        d = os.path.join(tree, f"id_{lab:05d}")
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(img).save(os.path.join(d, f"{i:04d}.png"))
+    work = os.path.join(root, "facenet_work")
+    t0 = time.perf_counter()
+    rc = cli_main(["facenet", "--dataset-path", tree, "--epochs", "1",
+                   "--working-path", work, "--num-workers", "4"])
+    cli_s = time.perf_counter() - t0
+    ckpt = os.path.join(work, "checkpoints")
+    final = os.path.join(ckpt, "facenet_resnet50", "facenet_resnet50_final")
+    if rc != 0 or not os.path.isfile(final):
+        raise AssertionError(f"facenet CLI: rc {rc}, no {final}")
+    bench_dir = os.path.join(root, "benchmarks")
+    if not os.path.isfile(os.path.join(bench_dir, "synth_lfw.bin")):
+        os.makedirs(bench_dir, exist_ok=True)
+        synthetic_benchmark(os.path.join(bench_dir, "synth_lfw.bin"))
+    with recorded(batch_eval, "evaluate_model_on_benchmark") as calls:
+        rc = cli_main(["eval", "--checkpoint-dir", ckpt, "--head",
+                       "facenet_resnet50", "--backbone", "resnet50",
+                       "--embed-dim", "128", "--eval-data-path", bench_dir,
+                       "--benchmarks", "synth_lfw", "--output-dir",
+                       os.path.join(root, "facenet_eval")])
+    if rc != 0 or len(calls) != 1:
+        raise AssertionError(f"facenet eval: rc {rc}, {len(calls)} runs")
+    npz = os.path.join(root, "facenet_embed.npz")
+    rc = cli_main(["embed", "--input", tree, "--output", npz,
+                   "--checkpoint-dir", os.path.join(ckpt, "facenet_resnet50"),
+                   "--backbone", "resnet50", "--embed-dim", "128"])
+    emb = np.load(npz)["embeddings"]
+    if rc != 0 or emb.shape != (ids * per, 128) or not np.isfinite(emb).all():
+        raise AssertionError(f"facenet embed: rc {rc}, {emb.shape}")
+    emit({"phase": "facenet", "part": "cli", "tree": [ids, per],
+          "format": "png", "cli_seconds": cli_s,
+          "eval_mean_accuracy": calls[0].mean_accuracy,
+          "eval_mean_auc": calls[0].mean_auc,
+          "embed_rows": int(emb.shape[0]), "ok": True})
+
+    # inception_v3: dropout from the step generator
+    inc = dataclasses.replace(cfg, backbone="inception_v3")
+    steps = images[:INCEPTION_STEPS * inc.p * inc.k], labels[
+        :INCEPTION_STEPS * inc.p * inc.k]
+    runs = [facenet_train(inc, *steps, seed=s)[0] for s in (0, 0, 1)]
+    same = [torch.equal(x, y) for x, y in zip(
+        runs[0].state.backbone.state_dict().values(),
+        runs[1].state.backbone.state_dict().values())]
+    other = [torch.equal(x, y) for x, y in zip(
+        runs[0].state.backbone.state_dict().values(),
+        runs[2].state.backbone.state_dict().values())]
+    if (len(runs[0].losses) != INCEPTION_STEPS
+            or runs[0].losses != runs[1].losses or not all(same)
+            or runs[0].losses == runs[2].losses or all(other)):
+        raise AssertionError(f"facenet inception_v3: losses "
+                             f"{[r.losses for r in runs]}")
+    emit({"phase": "facenet", "part": "inception_v3", "image_size": 112,
+          "losses": [r.losses for r in runs], "same_seed_bitwise": True,
+          "other_seed_differs": True, "seconds":
+          time.perf_counter() - t_phase, "ok": True})
+
+
+ONLY_PHASES = {"partial_fc": phase_partial_fc, "facenet": phase_facenet}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default="",
+                        help="run just these comma-separated phases of "
+                             f"{sorted(ONLY_PHASES)} (no build, no kernels "
+                             "line, no result line)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
         return 1
@@ -3859,6 +4442,11 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    if args.only:
+        with tempfile.TemporaryDirectory() as root:
+            for name in args.only.split(","):
+                ONLY_PHASES[name](root)
+        return 0
 
     t0 = time.perf_counter()
     reports = _build.build()
@@ -3888,6 +4476,8 @@ def main() -> int:
         run_a = phase_checkpoint(root)
         phase_eval(root, run_a)
         del run_a
+        torch.cuda.empty_cache()
+        phase_facenet(root)
     torch.cuda.empty_cache()
     phase_train_packed()
     phase_decode()
@@ -3899,6 +4489,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, count in phase_backbones().items():
         launches[name] += count
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        phase_partial_fc(root)
     torch.cuda.empty_cache()
     for name, count in phase_convergence().items():
         launches[name] += count

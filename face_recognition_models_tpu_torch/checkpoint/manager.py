@@ -20,7 +20,8 @@ Saves are synchronous.
 
 The payload is everything a resumed run needs to repeat the uninterrupted
 one bit for bit: the backbone's state_dict (parameters and BatchNorm
-buffers, num_batches_tracked included), `kernel_w`, every head-state
+buffers, num_batches_tracked included), `kernel_w` (and Partial-FC's
+`kernel_mom`; none of either for the triplet path), every head-state
 tensor in its own dtype (the VPL / QAFace memory and counters, SphereFace's
 int iter, CurricularFace's t, AdaFace's statistics, AdaCos's scale), the
 optimizer's state_dict (its slots and step count; under grad_accum also
@@ -58,13 +59,16 @@ def _load(path: str, map_location) -> Any:
 
 
 def _payload(state) -> Dict[str, Any]:
-    """The train state's tensors and counters, as torch.save takes them."""
+    """The train state's tensors and counters, as torch.save takes them.
+    A state without a head (the triplet path's) has kernel_w None."""
     rng = {"cpu": torch.get_rng_state()}
-    device = state.kernel_w.device
+    device = state.count.device
     if device.type == "cuda":
         rng["cuda"] = torch.cuda.get_rng_state(device)
     return {"backbone": state.backbone.state_dict(),
-            "kernel_w": state.kernel_w.detach(),
+            "kernel_w": (None if state.kernel_w is None
+                         else state.kernel_w.detach()),
+            "kernel_mom": state.kernel_mom,
             "head_state": (None if state.head_state is None
                            else list(state.head_state)),
             "optimizer": state.optimizer.state_dict(),
@@ -80,17 +84,21 @@ def _load_into(state, payload: Dict[str, Any]) -> None:
     state's tensors and the step count keep their addresses."""
     state.backbone.load_state_dict(payload["backbone"])
     with torch.no_grad():
-        state.kernel_w.copy_(payload["kernel_w"])
+        if state.kernel_w is not None:
+            state.kernel_w.copy_(payload["kernel_w"])
         if payload["head_state"] is not None:
             for x, y in zip(state.head_state, payload["head_state"],
                             strict=True):
                 x.copy_(y)
-        if (payload.get("ema") is None) != (state.ema is None):
-            raise ValueError("the checkpoint and the run differ in "
-                             "model_ema: one has an EMA, the other none")
+        for key in ("ema", "kernel_mom"):
+            if (payload.get(key) is None) != (getattr(state, key) is None):
+                raise ValueError(f"the checkpoint and the run differ in "
+                                 f"{key}: one has it, the other not")
         for x, y in zip(state.ema or (), payload.get("ema") or (),
                         strict=True):
             x.copy_(y)
+        if state.kernel_mom is not None:
+            state.kernel_mom.copy_(payload["kernel_mom"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.set_step(payload["step"])
     # generator states are CPU byte tensors, wherever the load mapped them
@@ -99,7 +107,7 @@ def _load_into(state, payload: Dict[str, Any]) -> None:
     torch.set_rng_state(payload["rng"]["cpu"].cpu())
     if "cuda" in payload["rng"]:
         torch.cuda.set_rng_state(payload["rng"]["cuda"].cpu(),
-                                 state.kernel_w.device)
+                                 state.count.device)
 
 
 class CheckpointManager:
@@ -173,7 +181,7 @@ class CheckpointManager:
             if not epochs:
                 return None, 1, float("inf")
             target = self._epoch_path(epochs[-1])
-        payload = _load(target, state.kernel_w.device)
+        payload = _load(target, state.count.device)
         _load_into(state, payload["state"])
         return state, payload["epoch"] + 1, payload["train_loss"]
 

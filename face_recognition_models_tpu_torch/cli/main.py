@@ -1,18 +1,22 @@
-"""Command line of the port. Port of the `train`, `eval`, `pack`,
-`export`, `embed`, `serve`, `identify` and `list` subcommands of
+"""Command line of the port. Port of the `train`, `facenet`, `eval`,
+`pack`, `export`, `embed`, `serve`, `identify` and `list` subcommands of
 face_recognition_models_tpu/cli/main.py; flag names and defaults follow it.
 
     python -m face_recognition_models_tpu_torch.cli train \
         --dataset-path P | --synthetic [--head NAME] \
         [--head-path auto|fused|eager] [--lambda_g G] \
         [--pretrained STATE_DICT.pth] [--bn-dtype bfloat16] \
-        [--scan-steps K] [--scheduler NAME] [--warmup-epochs E] \
+        [--scan-steps K] [--partial-fc RATIO] [--scheduler NAME] \
+        [--warmup-epochs E] \
         [--optimizer NAME|ID] [--clip-grad-norm X] [--grad-accum K] \
         [--model-ema D] [--freeze-backbone] [--flip] [--crop-pad P] \
         [--color-jitter S] [--random-erasing P] [--distill-dir DIR \
         --distill-weight W] [--working-path W] [--continue_train latest] \
         [--eval-every N | --eval-after] [--eval-data-path E] \
         [--benchmarks lfw,...] [--eval-flip] [--device cpu] ...
+    python -m face_recognition_models_tpu_torch.cli facenet \
+        --dataset-path TREE_OR_REC | --synthetic [--backbone resnet50] \
+        [--embed-dim 128] [--p 16 --k 4] [--margin 0.2] [--resume] ...
     python -m face_recognition_models_tpu_torch.cli pack \
         --dataset-path P --output DIR [--image-size 112] [--backend auto]
     python -m face_recognition_models_tpu_torch.cli eval \
@@ -35,7 +39,9 @@ prefix, or a dir holding `train.rec`) or an identity tree
 writes its checkpoints under <working>/checkpoints/<model> (with
 --model-ema also <model>_final_ema, the averaged backbone; with
 --eval-every also <model>_best_acc) and tees its output to
-<working>/log/<model>.txt; `eval`, `export` and `embed` read them. `embed`
+<working>/log/<model>.txt; `eval`, `export` and `embed` read them, and
+`facenet`'s <working>/checkpoints/<model-name> (facenet_<backbone> by
+default) with `--embed-dim 128`. `embed`
 and `serve` decode images with PIL. Every subcommand that runs a model,
 and `identify`'s scoring, runs on the card unless `--device cpu` is given,
 and fails without one.
@@ -188,6 +194,13 @@ def _add_train_parser(sub):
                    help="run K train steps per replay of one CUDA graph "
                         "(a plain loop of K steps on the CPU; amortizes "
                         "the host's per-step cost; 1 = off)")
+    p.add_argument("--partial-fc", type=float, default=0.0, metavar="RATIO",
+                   help="Partial-FC sampled classifier: each step's softmax "
+                        "over the batch's positives + RATIO*C sampled "
+                        "negatives, on the eager head (the insightface "
+                        "large-C recipe; 0 = dense; needs --optimizer sgd; "
+                        "not for vpl_arcface, qaface, subcenter_arcface, "
+                        "adacos)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
@@ -317,6 +330,7 @@ def cmd_train(args) -> int:
         continue_train=args.continue_train,
         pretrained_path=args.pretrained, bn_dtype=args.bn_dtype,
         use_fused_head=fused, scan_steps=args.scan_steps,
+        partial_fc=args.partial_fc,
         schedule=cfg_lib.ScheduleConfig(
             name=args.scheduler,
             steps=tuple(int(s) for s in args.lr_steps.split(",") if s),
@@ -347,8 +361,9 @@ def cmd_train(args) -> int:
         args.working_path, "checkpoints", model_name)
     with open(os.path.join(log_dir, f"{model_name}.txt"), "a") as logfile, \
             contextlib.redirect_stdout(Tee(sys.stdout, logfile)):
-        print(f"Training {model_name} ({cfg.backbone}, "
-              f"{'fused' if fused else 'eager'} head) - batch "
+        path = ("partial-fc" if cfg.partial_fc > 0
+                else "fused" if fused else "eager")
+        print(f"Training {model_name} ({cfg.backbone}, {path} head) - batch "
               f"{cfg.batch_size}, epochs {cfg.epochs}, "
               f"{cfg.optimizer.name} lr {args.learning_rate}")
         mgr = CheckpointManager(ckpt_dir, model_name,
@@ -390,6 +405,92 @@ def cmd_train(args) -> int:
                 print("--eval-after: no --eval-data-path given, skipping")
             else:
                 _eval_after(args, cfg, head_cfg, model_name, eval_weights)
+    return 0
+
+
+def _add_facenet_parser(sub):
+    p = sub.add_parser("facenet", help="FaceNet triplet training "
+                                       "(PK sampling + semi-hard mining)")
+    p.add_argument("--dataset-path", default="",
+                   help="identity tree root or an insightface RecordIO "
+                        "set, streamed through the PK loader (or "
+                        "--synthetic)")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--synthetic-classes", type=int, default=32)
+    p.add_argument("--synthetic-per-class", type=int, default=16)
+    p.add_argument("--backbone", default="resnet50",
+                   choices=sorted(BACKBONES))
+    p.add_argument("--embed-dim", type=int, default=128)
+    p.add_argument("--p", type=int, default=16, help="identities per batch")
+    p.add_argument("--k", type=int, default=4, help="images per identity")
+    p.add_argument("--margin", type=float, default=0.2)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--learning-rate", type=float, default=0.05)
+    p.add_argument("--image-size", type=int, default=cfg_lib.IMAGE_SIZE)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--working-path", default="train_output",
+                   help="checkpoints land under "
+                        "<working>/checkpoints/<model-name>, the layout "
+                        "`train` writes, so `embed` / `eval` / `export "
+                        "--checkpoint-dir` read the result")
+    p.add_argument("--model-name", default=None,
+                   help="default facenet_<backbone>")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest epoch checkpoint")
+    p.add_argument("--keep-checkpoints", type=int, default=3)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda)")
+    return p
+
+
+def cmd_facenet(args) -> int:
+    from face_recognition_models_tpu_torch.triplet import train_facenet
+
+    images = labels = loader = None
+    if args.synthetic:
+        from face_recognition_models_tpu_torch.data.synthetic import (
+            synthetic_identities)
+        images, labels = synthetic_identities(
+            args.synthetic_classes, args.synthetic_per_class,
+            image_size=args.image_size, seed=args.seed)
+    elif not args.dataset_path:
+        print("error: --dataset-path required (or --synthetic)",
+              file=sys.stderr)
+        return 2
+    else:
+        from face_recognition_models_tpu_torch.data.recordio import (
+            is_recordio)
+        if is_recordio(args.dataset_path):
+            from face_recognition_models_tpu_torch.data import (
+                PKRecLoader, RecordIODataset)
+            loader = PKRecLoader(RecordIODataset.open(args.dataset_path),
+                                 args.p, args.k, image_size=args.image_size,
+                                 seed=args.seed,
+                                 num_workers=args.num_workers)
+        else:
+            from face_recognition_models_tpu_torch.data import (
+                ImageFolderIndex, PKLoader)
+            loader = PKLoader(ImageFolderIndex.build(args.dataset_path),
+                              args.p, args.k, image_size=args.image_size,
+                              seed=args.seed, num_workers=args.num_workers)
+
+    cfg = cfg_lib.FaceNetConfig(backbone=args.backbone,
+                                embed_dim=args.embed_dim, p=args.p, k=args.k,
+                                margin=args.margin,
+                                learning_rate=args.learning_rate)
+    model_name = args.model_name or f"facenet_{args.backbone}"
+    ckpt_dir = os.path.join(args.working_path, "checkpoints", model_name)
+    result = train_facenet(cfg, images, labels, epochs=args.epochs,
+                           image_size=args.image_size, seed=args.seed,
+                           loader=loader, checkpoint_dir=ckpt_dir,
+                           model_name=model_name, resume=args.resume,
+                           keep=args.keep_checkpoints, device=args.device)
+    print(f"final loss {result.losses[-1]:.4f} — "
+          f"{result.images_per_sec:.0f} img/s; saved {model_name}_final "
+          f"under {ckpt_dir} (evaluate: `eval --checkpoint-dir "
+          f"{os.path.dirname(ckpt_dir)} --head {model_name} "
+          f"--backbone {args.backbone} --embed-dim {args.embed_dim} ...`)")
     return 0
 
 
@@ -750,6 +851,7 @@ def main(argv=None) -> int:
                     "evaluation, dataset packing and serving")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train_parser(sub)
+    _add_facenet_parser(sub)
     _add_eval_parser(sub)
     _add_pack_parser(sub)
     _add_export_parser(sub)
@@ -758,7 +860,8 @@ def main(argv=None) -> int:
     _add_serve_parser(sub)
     sub.add_parser("list", help="list the heads and backbones")
     args = parser.parse_args(argv)
-    commands = {"train": cmd_train, "eval": cmd_eval, "pack": cmd_pack,
+    commands = {"train": cmd_train, "facenet": cmd_facenet,
+                "eval": cmd_eval, "pack": cmd_pack,
                 "export": cmd_export, "embed": cmd_embed,
                 "identify": cmd_identify, "serve": cmd_serve,
                 "list": cmd_list}

@@ -5,8 +5,9 @@ that the ResNet training path reads, with every margin head of the JAX
 package; defaults are the same values (the reference's recipe:
 resnet18, ArcFace m=0.5 s=64, CASIA's 10,575 classes, batch 512, 112 px, SGD
 lr 0.1 momentum 0.9 wd 5e-4, customstep, every lr schedule's fields), plus
-the checkpoint and resume fields, step batching (`scan_steps`) and the
-benchmarks `eval` reads.
+the checkpoint and resume fields, step batching (`scan_steps`),
+Partial-FC (`partial_fc`, `partial_fc_logq`), the benchmarks `eval` reads
+and the FaceNet triplet path's `FaceNetConfig`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import math
 from typing import Optional, Tuple, Union
 
 FEATURE_DIM = 512
+FACENET_EMBED_DIM = 128
 CASIA_NUM_CLASSES = 10575
 IMAGE_SIZE = 112
 # the verification benchmarks of `eval` (evaluate_models.py's five)
@@ -353,6 +355,13 @@ class TrainConfig:
     # step batching: K train steps per replay of one CUDA graph (a plain
     # loop of the same K steps on the CPU); 1 = one step at a time
     scan_steps: int = 1
+    # Partial-FC sampled classifier (train/partial_fc.py): each step's
+    # softmax runs over the batch's positive classes + uniformly sampled
+    # negatives, max(2 * batch, ratio * C) columns rounded up to 256.
+    # 0.0 = dense. Not for vpl_arcface, qaface, subcenter_arcface, adacos
+    partial_fc: float = 0.0
+    # the sampled softmax's logQ bias correction (partial_fc > 0 only)
+    partial_fc_logq: bool = True
     # exponential moving average of the backbone parameters and kernel_w,
     # ema = ema * d + p * (1 - d) after every optimizer update; saved as
     # <model>_final_ema. 0 = off
@@ -368,3 +377,17 @@ class TrainConfig:
     schedule: ScheduleConfig = ScheduleConfig()
     data: DataConfig = DataConfig()
     distill: DistillConfig = DistillConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class FaceNetConfig:
+    """The FaceNet triplet subproject (reference FaceNet/)."""
+
+    embed_dim: int = FACENET_EMBED_DIM  # FaceNet/main.py:16
+    backbone: str = "resnet50"
+    margin: float = 0.2                  # FaceNet/utils/criterions.py:6
+    p: int = 16                          # identities per batch (PK sampling)
+    k: int = 4                           # images per identity
+    learning_rate: float = 0.05
+    momentum: float = 0.9
+    weight_decay: float = 5e-4

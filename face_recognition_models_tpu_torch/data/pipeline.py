@@ -1,5 +1,5 @@
-"""Host-side batch loaders. Port of `Loader` and `ArrayLoader` from
-face_recognition_models_tpu/data/pipeline.py: the loop's
+"""Host-side batch loaders. Port of `Loader`, `PKLoader` and `ArrayLoader`
+from face_recognition_models_tpu/data/pipeline.py: the loop's
 `steps_per_epoch()` / `epoch(i)` contract, yielding (uint8 images
 [B, H, W, 3], int32 labels [B]).
 
@@ -27,6 +27,7 @@ from typing import Callable, Iterable, Iterator, Optional, Tuple
 import numpy as np
 
 from face_recognition_models_tpu_torch.data.index import ImageFolderIndex
+from face_recognition_models_tpu_torch.data.sampler import PKBatchSampler
 
 Batch = Tuple[np.ndarray, np.ndarray]
 
@@ -245,6 +246,37 @@ class Loader:
                                            rng)
 
         return prefetched(produce, self.prefetch)
+
+
+class PKLoader(Loader):
+    """PK-structured streaming loader for triplet training: every batch
+    holds P identities x K images (data/sampler.PKBatchSampler), decoded
+    through the Loader's backends with its prefetch thread, so `facenet
+    --dataset-path` trains an identity tree without holding it in host
+    memory (the reference's DataLoader + PKSampler, FaceNet/main.py:48-77,
+    133-139).
+
+    Corrupt images follow the Loader's resample policy; a resampled slot
+    may fall outside the batch's P identities, which the miner tolerates
+    (pairs without a valid positive or negative are masked out,
+    ops/mining.py)."""
+
+    def __init__(self, index: ImageFolderIndex, p: int, k: int,
+                 image_size: int = 112, seed: int = 0, num_workers: int = 8,
+                 prefetch: int = 2, backend: str = "auto"):
+        super().__init__(index, batch_size=p * k, image_size=image_size,
+                         shuffle=False, seed=seed, num_workers=num_workers,
+                         drop_remainder=True, prefetch=prefetch,
+                         backend=backend)
+        self._sampler = PKBatchSampler(self._labels, p, k, seed=seed)
+
+    def steps_per_epoch(self) -> int:
+        return len(self._sampler)
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        # one flat index array that epoch() slices back into the sampler's
+        # PK batches (batch_size == p * k)
+        return np.concatenate(list(self._sampler.epoch(epoch)))
 
 
 class ArrayLoader:

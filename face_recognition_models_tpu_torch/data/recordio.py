@@ -1,5 +1,5 @@
 """MXNet/insightface RecordIO dataset support (train.rec / train.idx). Port
-of face_recognition_models_tpu/data/recordio.py without PKRecLoader.
+of face_recognition_models_tpu/data/recordio.py.
 
 Face training sets such as CASIA-WebFace and MS1M are distributed by the
 insightface project as RecordIO pairs. This module reads (and, for tests
@@ -46,6 +46,7 @@ from face_recognition_models_tpu_torch.data.pipeline import (
     prefetched,
     steps_per_epoch,
 )
+from face_recognition_models_tpu_torch.data.sampler import PKBatchSampler
 
 _MAGIC = 0xCED7230A
 _LREC = struct.Struct("<II")
@@ -482,3 +483,28 @@ class RecLoader:
                                            rng)
 
         return prefetched(produce, self.prefetch)
+
+
+class PKRecLoader(RecLoader):
+    """PK-structured streaming loader over a RecordIO set for triplet
+    training: every batch holds P identities x K images decoded off the
+    .rec mmap; the RecordIO twin of `data.pipeline.PKLoader`, so `facenet
+    --dataset-path train.rec` trains insightface-format sets without
+    holding them in host memory."""
+
+    def __init__(self, dataset: RecordIODataset, p: int, k: int,
+                 image_size: int = 112, seed: int = 0, num_workers: int = 8,
+                 prefetch: int = 2, backend: str = "auto"):
+        super().__init__(dataset, batch_size=p * k, image_size=image_size,
+                         shuffle=False, seed=seed, num_workers=num_workers,
+                         drop_remainder=True, prefetch=prefetch,
+                         backend=backend)
+        self._sampler = PKBatchSampler(dataset.labels, p, k, seed=seed)
+
+    def steps_per_epoch(self) -> int:
+        return len(self._sampler)
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        # one flat index array that epoch() slices back into the sampler's
+        # PK batches (batch_size == p * k)
+        return np.concatenate(list(self._sampler.epoch(epoch)))

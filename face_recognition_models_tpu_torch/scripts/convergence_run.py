@@ -133,11 +133,6 @@ def run_stage(args, classes, epochs, lr, seed, warm_start=None,
     from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
     from face_recognition_models_tpu_torch.train.loop import fit
 
-    if args.partial_fc > 0.0:
-        raise ValueError(
-            "--partial-fc > 0 needs Partial-FC (train/partial_fc.py), which "
-            "the port does not have yet (ROADMAP.md, Queue 1 item 9); run "
-            "with --partial-fc 0")
     train_x, train_y, held_x, held_y = build_split(
         classes, args.train_per_class, args.eval_per_class,
         args.image_size, seed, args.noise)
@@ -145,7 +140,8 @@ def run_stage(args, classes, epochs, lr, seed, warm_start=None,
         backbone=args.backbone, head=args.head, num_classes=classes,
         batch_size=args.batch, epochs=epochs,
         print_freq=args.print_freq, bn_dtype=args.bn_dtype,
-        scan_steps=args.scan_steps, model_ema=args.model_ema,
+        scan_steps=args.scan_steps, partial_fc=args.partial_fc,
+        model_ema=args.model_ema,
         optimizer=cfg_lib.OptimizerConfig(
             name=args.optimizer, learning_rate=lr,
             weight_decay=args.weight_decay),
@@ -228,7 +224,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--bn-dtype", choices=["float32", "bfloat16"],
                     default="float32")
     ap.add_argument("--partial-fc", type=float, default=0.0,
-                    help="not ported yet: > 0 raises")
+                    help="Partial-FC sample ratio (train --partial-fc; 0 = "
+                    "dense)")
     ap.add_argument("--model-ema", type=float, default=0.0)
     ap.add_argument("--pairs-per-kind", type=int, default=1000)
     ap.add_argument("--eval-every", type=int, default=0,

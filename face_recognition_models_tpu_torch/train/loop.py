@@ -1,7 +1,8 @@
 """The epoch loop. Port of `fit` from face_recognition_models_tpu/train/
 loop.py, with checkpoints and resume, the optimizer factory, clipping,
-gradient accumulation, the model EMA, the frozen trunk, the augmentations
-and distillation; without mesh or partial-FC yet.
+gradient accumulation, the model EMA, the frozen trunk, the augmentations,
+distillation and Partial-FC (`cfg.partial_fc`, train/partial_fc.py, with
+the JAX loop's checks and its dense fallback); without the mesh.
 
 Metrics stay on the device and are read (which waits for the card) only at
 `print_freq` steps and at the end of each epoch. Heads that need a second
@@ -40,6 +41,10 @@ from face_recognition_models_tpu_torch.ops.image_ops import degrade_images
 from face_recognition_models_tpu_torch.train.graphed import (
     ChunkRunner,
     make_chunk_fn,
+)
+from face_recognition_models_tpu_torch.train.partial_fc import (
+    make_partial_fc_train_step,
+    num_sampled_classes,
 )
 from face_recognition_models_tpu_torch.train.schedules import get_schedule
 from face_recognition_models_tpu_torch.train.state import create_train_state
@@ -217,14 +222,57 @@ def _prepare_teacher(cfg: cfg_lib.TrainConfig, head_cfg, teacher,
     return teacher
 
 
+def partial_fc_classes(cfg: cfg_lib.TrainConfig, head_cfg) -> int:
+    """The Partial-FC sample size C_s of cfg, or 0 for the dense path: the
+    JAX loop's refusals (train/loop.py:126-130, 181-185, 211-216,
+    228-242) and its dense fallback (:243-258), on one device."""
+    ratio = float(cfg.partial_fc)
+    if ratio <= 0.0:
+        return 0
+    if cfg.grad_accum > 1:
+        raise ValueError(
+            "grad_accum requires --partial-fc 0: Partial-FC's manual "
+            "sampled-column update applies immediately and cannot "
+            "accumulate")
+    if cfg.distill.weight > 0.0:
+        raise ValueError(
+            "distillation requires --partial-fc 0 (the sampled-"
+            "classifier step does not carry the teacher forward)")
+    if cfg.freeze_backbone:
+        raise ValueError(
+            "freeze_backbone is not supported with partial_fc (the "
+            "sampled-column step has no frozen-trunk path yet); "
+            "use --partial-fc 0 or --no freeze")
+    if cfg.optimizer.name != "sgd":
+        raise ValueError(
+            f"partial_fc requires optimizer 'sgd' (got "
+            f"'{cfg.optimizer.name}'): the sampled classifier columns "
+            "are updated by a manual torch-SGD rule (train/partial_fc"
+            ".py); use --partial-fc 0 or --optimizer sgd")
+    if cfg.optimizer.clip_grad_norm > 0.0:
+        raise ValueError(
+            "clip_grad_norm is not supported with partial_fc (the "
+            "sampled classifier columns bypass the optimizer); "
+            "use --clip-grad-norm 0 or --partial-fc 0")
+    num_classes = head_cfg.num_classes
+    n_sampled = num_sampled_classes(num_classes, ratio, cfg.batch_size)
+    if cfg.batch_size >= num_classes or n_sampled >= num_classes:
+        # sampling cannot beat dense when the sample must cover (almost)
+        # every class
+        print(f"[partial_fc] C={num_classes} too small for batch "
+              f"{cfg.batch_size} / ratio {ratio} — using the dense path")
+        return 0
+    return n_sampled
+
+
 def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
                 schedule=None, teacher=None, warm_start=None):
     """(head, state, step) of cfg's recipe on `device`: the train state
     (optimizer, accumulation, EMA) and the train step with the schedule,
     augmentations, teacher (given, or loaded from cfg.distill) and frozen
-    trunk cfg names. `warm_start`, a backbone state_dict, replaces the
-    initial backbone (and the EMA's copy of it), as the JAX `fit`'s
-    warm_start does."""
+    trunk cfg names, or Partial-FC's step (partial_fc_classes). `warm_start`,
+    a backbone state_dict, replaces the initial backbone (and the EMA's copy
+    of it), as the JAX `fit`'s warm_start does."""
     if cfg.backbone.lower() == "inception_v3":
         raise ValueError(
             "fit cannot train inception_v3: its dropout would need the "
@@ -232,24 +280,40 @@ def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
             "efficientnet_b0 and mobilenet_v2 (face_recognition_models_tpu/"
             "train/loop.py:169), so JAX `fit` fails there with no dropout "
             "generator. inception_v3 embeds, exports and serves; the "
-            "triplet path trains it")
+            "triplet path trains it (`facenet --backbone inception_v3`, "
+            "triplet/train.py)")
+    n_sampled = partial_fc_classes(cfg, head_cfg)
     teacher = _prepare_teacher(cfg, head_cfg, teacher, device)
-    _, head, state = create_train_state(cfg, head_cfg, device)
+    if n_sampled:
+        _, head, state = create_train_state(cfg, head_cfg, device,
+                                            partial_fc=True)
+    else:
+        _, head, state = create_train_state(cfg, head_cfg, device)
     if warm_start is not None:
         state.backbone.load_state_dict(warm_start)
         if state.ema is not None:
             for e, p in zip(state.ema, state.params()):
                 e.copy_(p.detach())
     data = cfg.data
+    augment = dict(mean=data.mean, std=data.std, device=device,
+                   horizontal_flip=data.horizontal_flip,
+                   crop_pad=data.crop_pad, color_jitter=data.color_jitter,
+                   random_erasing=data.random_erasing)
+    if n_sampled:
+        opt = cfg.optimizer
+        step_fn = make_partial_fc_train_step(
+            head, head_cfg, n_sampled, lr_schedule=schedule,
+            momentum=opt.momentum, weight_decay=opt.weight_decay,
+            nesterov=opt.nesterov, lambda_g=cfg.lambda_g,
+            logq_correction=cfg.partial_fc_logq, model_ema=cfg.model_ema,
+            **augment)
+        return head, state, step_fn
     step_fn = make_train_step(
-        head, head_cfg, lr_schedule=schedule, mean=data.mean, std=data.std,
+        head, head_cfg, lr_schedule=schedule,
         use_fused_head=cfg.use_fused_head, lambda_g=cfg.lambda_g,
-        device=device, horizontal_flip=data.horizontal_flip,
-        crop_pad=data.crop_pad, color_jitter=data.color_jitter,
-        random_erasing=data.random_erasing, teacher=teacher,
-        distill_weight=cfg.distill.weight, distill_mode=cfg.distill.mode,
-        freeze_backbone=cfg.freeze_backbone,
-        grad_accum=cfg.grad_accum, model_ema=cfg.model_ema)
+        teacher=teacher, distill_weight=cfg.distill.weight,
+        distill_mode=cfg.distill.mode, freeze_backbone=cfg.freeze_backbone,
+        grad_accum=cfg.grad_accum, model_ema=cfg.model_ema, **augment)
     return head, state, step_fn
 
 

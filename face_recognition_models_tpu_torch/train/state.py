@@ -5,9 +5,10 @@ parameters and BatchNorm buffers), the head kernel `kernel_w` [D, C] in the
 JAX layout, the head state, the optimizer (a rule of train/optim.py, or
 train/accum.MultiSteps around one under grad_accum), the model EMA `ema`
 (fp32 copies of the backbone's parameters and kernel_w, the JAX state's
-`ema_params`, or None), the global step and the step generator `rng` (the
-JAX state's PRNG key: the elastic heads and the augmentations draw from
-it).
+`ema_params`, or None), Partial-FC's momentum of kernel_w `kernel_mom`
+(its optimizer then holds the backbone alone; train/partial_fc.py), the
+global step and the step generator `rng` (the JAX state's PRNG key: the
+elastic heads and the augmentations draw from it).
 
 The global step is kept twice: `step`, a host int the loop reads for epochs
 and checkpoints, and `count`, the same number as a 0-d int64 tensor on the
@@ -52,6 +53,9 @@ class TrainState:
     lr: Optional[torch.Tensor] = None
     # model EMA of [*backbone.parameters(), kernel_w], or None
     ema: Optional[List[torch.Tensor]] = None
+    # Partial-FC: the [D, C] momentum of kernel_w, which the step updates
+    # on the sampled columns; None on the dense path
+    kernel_mom: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         device = self.kernel_w.device
@@ -84,12 +88,13 @@ def ema_state_dict(state: TrainState):
 def state_tensors(state: TrainState) -> List[torch.Tensor]:
     """Every tensor a train step changes in place: the backbone's
     parameters and buffers, kernel_w, the optimizer's tensors (slots, step
-    counts, accumulated gradients), the head state, `count`, `lr` and the
-    EMA."""
+    counts, accumulated gradients), the head state, `count`, `lr`, the
+    EMA and Partial-FC's kernel_mom."""
     return [*state.backbone.parameters(), *state.backbone.buffers(),
             state.kernel_w, *state.optimizer.tensors(),
             *(state.head_state or ()), state.count, state.lr,
-            *(state.ema or ())]
+            *(state.ema or ()),
+            *(() if state.kernel_mom is None else (state.kernel_mom,))]
 
 
 def snapshot(state: TrainState):
@@ -121,14 +126,17 @@ def build_backbone(cfg: TrainConfig, head_cfg) -> nn.Module:
                         image_size=cfg.data.image_size)
 
 
-def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device):
+def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device,
+                       partial_fc: bool = False):
     """Initialise (backbone, head, TrainState) from cfg.seed on `device`;
     with cfg.pretrained_path the backbone then takes that state_dict, on
     the CPU, before it moves to `device`. The optimizer is cfg.optimizer's
     rule with the overrides the JAX package's `fit` passes (momentum,
     weight_decay, nesterov, clip_grad_norm), in MultiSteps for
     cfg.grad_accum > 1; with cfg.model_ema > 0 the EMA starts as a copy of
-    the initial parameters."""
+    the initial parameters. With `partial_fc` the optimizer holds the
+    backbone alone and `kernel_mom` starts at zero (Partial-FC's manual
+    update of kernel_w)."""
     gen = torch.Generator().manual_seed(cfg.seed)
     backbone = build_backbone(cfg, head_cfg)
     init_weights(backbone, gen)
@@ -138,7 +146,8 @@ def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device):
     head = get_head(cfg.head)
     kernel_w = nn.Parameter(head.init_kernel(head_cfg, gen, device))
     opt = cfg.optimizer
-    optimizer = get_optimizer(opt.name, [*backbone.parameters(), kernel_w],
+    trained = [*backbone.parameters()] + ([] if partial_fc else [kernel_w])
+    optimizer = get_optimizer(opt.name, trained,
                               opt.learning_rate, momentum=opt.momentum,
                               weight_decay=opt.weight_decay,
                               nesterov=opt.nesterov,
@@ -150,6 +159,11 @@ def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device):
                        head_state=head.init_state(head_cfg, device),
                        rng=torch.Generator(device=device).manual_seed(
                            cfg.seed))
+    if partial_fc:
+        # imported here: train/partial_fc.py imports this module
+        from face_recognition_models_tpu_torch.train.partial_fc import (
+            init_partial_fc_opt_state)
+        state.kernel_mom = init_partial_fc_opt_state(kernel_w)
     if cfg.model_ema > 0.0:
         state.ema = [p.detach().clone() for p in state.params()]
     return backbone, head, state

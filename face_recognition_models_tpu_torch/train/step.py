@@ -175,9 +175,9 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
             state.lr.copy_(lr_update)
             state.optimizer.step(state.lr)
             if model_ema > 0.0:
-                _ema_update(state, model_ema, k)
+                ema_update(state, model_ema, k)
             # after the backward, which may still read the old state
-            _copy_state(state.head_state, out.state)
+            copy_head_state(state.head_state, out.state)
             state.count.add_(1)
         state.step += 1
         metrics = {"loss": loss.detach(), "loss_id": loss_id.detach(),
@@ -190,7 +190,7 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
     return train_step
 
 
-def _ema_update(state: TrainState, decay: float, k: int) -> None:
+def ema_update(state: TrainState, decay: float, k: int) -> None:
     """ema = ema * d + p * (1 - d), written as the JAX package writes it.
     Under grad_accum K, d is 1 (the EMA stays) except after the K-th
     micro-step, where the parameters moved; `state.count` is the count
@@ -205,7 +205,7 @@ def _ema_update(state: TrainState, decay: float, k: int) -> None:
     torch._foreach_add_(state.ema, torch._foreach_mul(params, one_minus))
 
 
-def _copy_state(head_state, new_state) -> None:
+def copy_head_state(head_state, new_state) -> None:
     """Write a head's new state into its state tensors (same shapes and
     dtypes), so their addresses never change."""
     if head_state is None:

@@ -139,6 +139,9 @@ def test_tiny_run_prints_the_jax_keys(capsys):
 
 
 def test_partial_fc_is_refused():
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
+    """--partial-fc reaches fit, which refuses it with another optimizer
+    than sgd (JAX train/loop.py:228-235)."""
+    with pytest.raises(ValueError, match="partial_fc requires optimizer"):
         convergence_run.main(["--device", "cpu", "--partial-fc", "0.5",
-                              "--classes", "4", "--image-size", "16"])
+                              "--optimizer", "adamw", "--classes", "4",
+                              "--batch", "8", "--image-size", "16"])
