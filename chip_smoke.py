@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--only partial_fc,facenet]
+    python3 chip_smoke.py [--only partial_fc,facenet,mesh]
 
 (`--only` runs just those phases after the device line: no build, no
 kernels line and no result line.) Phases, one JSON line each; any failure ends the run with a non-zero exit
@@ -221,6 +221,37 @@ and no result line:
              --partial-fc 0.1` through the CLI on the card's default
              device (resnet18, 3,072 synthetic identities, b512): the
              sampled path, no kernel, kernel_mom in the epoch checkpoint.
+14c. mesh - the ('data', 'model') mesh (parallel/): two ranks, each a
+             process of this script (`--mesh-rank`), share the one card
+             over gloo (NCCL refuses two ranks on one device), so their
+             times and memory are no scaling figure. The collectives gloo
+             takes on CUDA tensors (probed in a group of their own);
+             data=2: `fit` of ResNet-50 + ArcFace (fused head, C = 10,575,
+             global b512, 112 px, 5 steps) in fp32 (TF32 off) and in bf16
+             against one process on the same global batches (the step-1
+             loss, the step-1 update's drift, that of the classifier's
+             update, every loss; the bf16 drifts bounded by twice the
+             one-process bf16-vs-fp32 drift; both ranks' losses,
+             parameters and BatchNorm running statistics bitwise equal; K1
+             / K2 once a step a rank), and two faults planted in the bf16
+             world's data path (BatchNorm on the rank's half batch,
+             gradients summed and not averaged) that these checks must
+             each catch; model=2: the class-sharded fused head at C =
+             1,048,576 (a rank's [512, 524,288] shard, about half its rows
+             with no target column) on ResNet-50's b512 features, one
+             step's loss, dx and the rank's kernel-gradient shard against
+             the one-process head (tests/test_sharded_fused.py's bounds)
+             for ArcFace (K1 / K2) and VPL-ArcFace (K4), each twice a rank
+             (the second call timed), and each kernel's output on the
+             rank's own shard inputs against its plain version (the
+             kernels phase's tolerances);
+             the sharded Partial-FC's `fit` at C = 1,048,576 for 5 steps
+             (finite losses, step 1 writes exactly each shard's sampled
+             columns of kernel_w and kernel_mom), its state saved by the
+             world and restored in one process, bitwise (fingerprints of
+             each shard); ms/step and peak GB a rank. With two or more
+             cards the data=2 and model=2 checks again over NCCL, one
+             rank a card; otherwise it prints that NCCL was not run.
 15. convergence - the port's scripts/convergence_run at its defaults
              (ArcFace + resnet18, 500 synthetic identities x 16 train + 4
              held-out copies at noise 35, b512, 15 epochs, scan_steps 8,
@@ -234,8 +265,9 @@ the phase that runs its entry point: train, head_bf16, conv3x3_bench; the
 fp32 head kernels' and the _mem kernels' add the scan phase's graphed
 ArcFace and VPL-ArcFace runs, whose replays the host's counters do not see:
 the launches one replay captured times the replays, plus the real ones;
-the fp32 head kernels' also the recipe, backbones and convergence runs;
-the partial_fc and facenet phases launch none),
+the fp32 head kernels' also the recipe, backbones, mesh and convergence
+runs, the _mem kernels' the mesh phase's VPL-ArcFace head: each rank's
+launches; the partial_fc and facenet phases launch none),
 the last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -3959,10 +3991,10 @@ def profiled_device_ms(fn, calls):
 def pfc_cfg(num_classes, partial_fc=PFC_RATIO, **kw):
     from face_recognition_models_tpu_torch import config as cfg_lib
 
-    kw = {"epochs": 1, "print_freq": 1, **kw}
-    return cfg_lib.TrainConfig(backbone="resnet50", head="arcface",
-                               num_classes=num_classes, batch_size=N_MAIN,
-                               seed=0, partial_fc=partial_fc, **kw)
+    kw = {"epochs": 1, "print_freq": 1, "backbone": "resnet50", **kw}
+    return cfg_lib.TrainConfig(head="arcface", num_classes=num_classes,
+                               batch_size=N_MAIN, seed=0,
+                               partial_fc=partial_fc, **kw)
 
 
 def pfc_loader(steps, num_classes, seed=8):
@@ -4416,7 +4448,795 @@ def phase_facenet(root):
           time.perf_counter() - t_phase, "ok": True})
 
 
-ONLY_PHASES = {"partial_fc": phase_partial_fc, "facenet": phase_facenet}
+# the mesh phase: a world of MESH_WORLD ranks, each its own process, on the
+# one card over gloo (NCCL refuses two ranks on one device); with two or
+# more cards, the data-parallel and class-sharded checks again with one
+# rank a card over NCCL
+MESH_WORLD = 2
+MESH_STEPS = 5
+MESH_BACKBONE = "resnet50"
+MESH_IMAGE = 112
+MESH_TIMEOUT_S = 900         # the ranks' process group and their run
+# the data=2 run against one process on the same global batches, by compute
+# dtype. The two differ only in the order of sums (BatchNorm's global sums,
+# the gradient all-reduce, cuDNN's algorithms at b256 and b512). The step-1
+# loss is the same forward: 8.7e-8 apart in fp32 and 6.1e-5 in bf16 on an
+# H100 at 700 W; the later losses 3.3e-4 at most. The
+# step-1 update (the parameters' move) is ill-conditioned: each BatchNorm
+# backward subtracts the means of dy and dy * xhat, a cancellation, so a
+# rounding in another order grows through ResNet-50's 53 of them. In fp32
+# (TF32 off) the world's update was 0.017 of itself from one process's. In
+# bf16 the noise is the bf16 rounding's, measured in each run: the
+# one-process bf16 update lies 1.27 of the fp32 one from it, and two such
+# noisy updates lie about sqrt(2) times that apart, so the world's bf16
+# drift is held to twice the yardstick (None below), a bound above 1 that
+# no fault of the data path needs to cross. The classifier's step-1 update
+# (kernel_w's move) sits behind the trunk's forward and no BatchNorm
+# backward, so its bf16 noise is the forward's: the world's is held to twice
+# the one-process bf16-vs-fp32 drift of that update (None below), which
+# must be under 1 (0.12 on an H100 at 700 W; the world's 0.029). Both
+# ranks' losses, parameters and BatchNorm running statistics must be
+# bitwise equal: the synced statistics are the same all-reduced sums on
+# every rank. Two faults
+# planted in the bf16 world (MESH_FAULTS) must each break a bound: summed
+# gradients move the classifier's update by 1.0 and the later losses by
+# 0.25-0.34; BatchNorm on the rank's half batch moves no bf16 number past
+# its noise (the step-1 loss 8.2e-4, the one-process bf16-vs-fp32 gap 4.8e-4;
+# the classifier's update 0.060, under its bound) and is caught by the
+# ranks' running statistics alone. Later steps compound every drift through
+# a chaotic trajectory (lr 0.1, random weights), so the final drift is only
+# reported.
+MESH_TOL = {"float32": {"step1_loss_rtol": 1e-5, "step1_update_drift": 5e-2,
+                        "step1_head_drift": 5e-2, "loss_rtol": 2e-3},
+            "bfloat16": {"step1_loss_rtol": 1e-3, "step1_update_drift": None,
+                         "step1_head_drift": None, "loss_rtol": 5e-3}}
+MESH_BF16_DRIFT_FACTOR = 2.0
+# faults planted in the bf16 world's data path: BatchNorm on the rank's own
+# rows (no sums over the data group), and the gradients summed over the data
+# group, not averaged
+MESH_FAULTS = ("batchnorm_local", "gradients_summed")
+# the class-sharded head against the one-process head: the bounds of
+# tests/test_sharded_fused.py (the same kernels, only the lse combine's
+# order differs)
+MESH_HEAD_TOL = {"loss": dict(rtol=2e-5, atol=2e-5),
+                 "grads": dict(rtol=5e-4, atol=1e-6)}
+# the calls probed on CUDA tensors over gloo, in a group of their own with
+# a short timeout (a call one rank refuses leaves the other waiting).
+# dist.barrier and send / recv are not among them: under gloo with a CUDA
+# device current each hands the socket a device pointer ("writev: Bad
+# address" on an H100), which gloo's I/O thread may raise where no caller
+# catches it and abort the process; collectives.barrier is an all-reduce.
+MESH_COLLECTIVES = ("all_reduce", "broadcast", "all_gather",
+                    "all_gather_into_tensor", "reduce_scatter_tensor",
+                    "all_to_all_single", "reduce")
+MESH_PROBE_TIMEOUT_S = 30
+
+
+def fingerprint(x):
+    """An exact fingerprint of a float32 tensor's bits on its device: the
+    sums of the int32 words and of the words weighted by their position
+    (mod 65,521), in int64."""
+    import torch
+
+    w = x.detach().contiguous().view(torch.int32).reshape(-1).long()
+    pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+    return [int(w.sum()), int((w * pos).sum())]
+
+
+def mesh_probe_collectives(device):
+    """{collective: 'ok' or its error} on CUDA tensors, in a gloo group of
+    its own."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    g = dist.new_group(backend="gloo", timeout=datetime.timedelta(
+        seconds=MESH_PROBE_TIMEOUT_S))
+    x = torch.full((4,), float(rank + 1), device=device)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=g),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0, group=g),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x, group=g),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(world * 4, device=device), x, group=g),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device=device), torch.ones(2 * world,
+                                                      device=device),
+            group=g),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(2 * world, device=device),
+            torch.ones(2 * world, device=device), group=g),
+        "reduce": lambda: dist.reduce(x.clone(), dst=0, group=g),
+    }
+    out = {}
+    for name in MESH_COLLECTIVES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize(device)
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the answer is the message
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def mesh_dp_cfg(**kw):
+    from face_recognition_models_tpu_torch import config as cfg_lib
+
+    return cfg_lib.TrainConfig(backbone=MESH_BACKBONE, head="arcface",
+                               num_classes=C_MAIN, batch_size=N_MAIN,
+                               epochs=1, print_freq=1, seed=0,
+                               data=cfg_lib.DataConfig(image_size=MESH_IMAGE),
+                               **kw)
+
+
+def mesh_dp_batches():
+    return train_batches(MESH_STEPS, N_MAIN, MESH_IMAGE, seed=11)
+
+
+def params_of(state):
+    """The backbone's parameters and kernel_w, in one flat host vector."""
+    import torch
+
+    return torch.cat([p.detach().float().reshape(-1).cpu()
+                      for p in state.params()])
+
+
+def backbone_params(state):
+    """The backbone's parameters, in one flat vector on their device."""
+    import torch
+
+    return torch.cat([p.detach().float().reshape(-1)
+                      for p in state.backbone.parameters()])
+
+
+@contextlib.contextmanager
+def conv_tf32(allowed):
+    import torch
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+@contextlib.contextmanager
+def mesh_fault(name):
+    """Plant the fault `name` of MESH_FAULTS (None: none) in the data path
+    of the block."""
+    from face_recognition_models_tpu_torch.models import resnet
+    from face_recognition_models_tpu_torch.parallel import collectives as coll
+
+    if name is None:
+        yield
+        return
+    if name == "batchnorm_local":
+        target, attr = resnet.BatchNorm, "_synced"
+
+        def planted(self, x, mesh):
+            with coll.using(None):
+                return self.forward(x)
+    elif name == "gradients_summed":
+        target, attr = coll, "average_gradients"
+        average = coll.average_gradients
+
+        def planted(params, mesh=None):
+            average(params, mesh)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(coll.data_size(mesh))
+    else:
+        raise ValueError(f"unknown fault {name}")
+    kept = getattr(target, attr)
+    setattr(target, attr, planted)
+    try:
+        yield
+    finally:
+        setattr(target, attr, kept)
+
+
+def mesh_dp_run(mesh, device, dtype, fault=None):
+    """(1) `fit` of ResNet-50 + ArcFace (fused head, C = 10,575, global
+    b512, 112 px, convolutions in `dtype`, fp32 with TF32 off) over a
+    data=2 mesh for MESH_STEPS steps, with the planted `fault` of
+    MESH_FAULTS or none: this rank loads its 256 rows a step.
+    Returns the losses, ms/step, peak GB, the launches, the parameters'
+    fingerprints and, on rank 0, the parameters after step 1 and at the end
+    (host vectors)."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.train.loop import fit
+
+    images, labels = mesh_dp_batches()
+    loader = ArrayLoader(images, labels, batch_size=N_MAIN // mesh.data,
+                         shuffle=False, seed=0,
+                         shard=(mesh.data_index, mesh.data))
+    seen = {}
+
+    def after(state):
+        if state.step == 1:
+            seen["step1"] = params_of(state)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_kernel_counts()
+    with observe_steps(after), conv_tf32(dtype != "float32"), \
+            mesh_fault(fault):
+        res = fit(mesh_dp_cfg(mesh=cfg_lib.MeshConfig(data=mesh.data,
+                                                      model=1),
+                              compute_dtype=dtype),
+                  loader, device=device, mesh=mesh)
+    torch.cuda.synchronize(device)
+    launches = {k: v for k, v in fh.launch_counts.items() if v}
+    out = {"losses": res.losses,
+           "ms_per_step_after_1": 1e3 * float(np.mean(res.step_seconds[1:])),
+           "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+           "launches": launches,
+           "fingerprint": fingerprint(params_of(res.state)),
+           "buffers": fingerprint(torch.cat([
+               b.detach().reshape(-1) for b in res.state.backbone.buffers()
+               if b.dtype == torch.float32]))}
+    if mesh.rank == 0:
+        out["step1"], out["final"] = seen["step1"], params_of(res.state)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dp_reference(dtype, device="cuda"):
+    """The one-process run of mesh_dp_run: the same global batches, in the
+    order of the rows, through `fit` with no mesh."""
+    import torch
+
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.train.loop import fit
+
+    images, labels = mesh_dp_batches()
+    seen = {}
+
+    def after(state):
+        if state.step == 1:
+            seen["step1"] = params_of(state)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with observe_steps(after), conv_tf32(dtype != "float32"):
+        res = fit(mesh_dp_cfg(compute_dtype=dtype),
+                  ArrayLoader(images, labels, N_MAIN, shuffle=False, seed=0),
+                  device=device)
+    torch.cuda.synchronize()
+    out = {"losses": res.losses, "step1": seen["step1"],
+           "final": params_of(res.state),
+           "ms_per_step_after_1": 1e3 * float(np.mean(res.step_seconds[1:])),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_initial_params():
+    """The parameters `fit` starts the mesh_dp runs from, on the host
+    (kernel_w last, as params_of lays them out)."""
+    import torch
+
+    from face_recognition_models_tpu_torch.config import make_head_config
+    from face_recognition_models_tpu_torch.train.state import (
+        create_train_state)
+
+    cfg = mesh_dp_cfg()
+    _, _, state = create_train_state(
+        cfg, make_head_config("arcface", num_classes=C_MAIN),
+        torch.device("cpu"))
+    return params_of(state)
+
+
+@contextlib.contextmanager
+def first_calls(module, names):
+    """Record ((args, kwargs), result) of the first call of each
+    module.<name> in the block, by name."""
+    kept = {name: getattr(module, name) for name in names}
+    calls = {}
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.setdefault(name, ((args, kwargs), out))
+            return out
+        return wrapper
+
+    for name, fn in kept.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in kept.items():
+            setattr(module, name, fn)
+
+
+def check_recorded(calls, mem):
+    """Each kernel's recorded output (first_calls of the fwd, bwd_dx and
+    bwd_dw wrappers of the plain or the memory-blended family) against its
+    plain version on the same inputs, at the kernels phase's tolerances.
+    Returns ({kernel: max abs err}, rows where `higher` differs)."""
+    import torch
+
+    with torch.no_grad():
+        return _check_recorded(calls, mem)
+
+
+def _check_recorded(calls, mem):
+    names, fns = kernel_fns(mem)
+    (args, kw), out = calls[names[0]]
+    ref = fns[0][1](*args, **kw)
+    errs = {names[0]: max(
+        close("lse", out.lse, ref.lse, **TOL_STATS),
+        close("target_logit", out.target_logit, ref.target_logit,
+              **TOL_STATS))}
+    flips = close_higher("higher", out.higher, ref.higher)
+    del ref
+    (args, kw), out = calls[names[1]]
+    errs[names[1]] = max(close_grad(k, a, b) for k, a, b in zip(
+        ("dx", "dt", "dscale"), out, fns[1][1](*args, **kw)))
+    (args, kw), out = calls[names[2]]
+    errs[names[2]] = close_grad("dw", out, fns[2][1](*args, **kw))
+    return errs, flips
+
+
+def mesh_head_case(name, mesh, device):
+    """(2) The class-sharded fused head at C = PFC_CLASSES (the rank's
+    [512, C/2] shard) on ResNet-50's b512 features, forward and backward,
+    against the one-process fused head at the same C from the same state:
+    the loss, dx and the rank's slice of the kernel gradient; each called
+    twice, the second call timed. Then each kernel's output in the sharded
+    run (its first call) against its plain version on the same inputs: the
+    rank's [512, C/2] shard, whose rows with a label in the other shard
+    carry the out-of-range label C/2 + 1. VPL-ArcFace's state is
+    that after one step of the one-process head on another batch."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.heads import get_head
+    from face_recognition_models_tpu_torch.heads.fused_adapter import (
+        fused_apply)
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.models.backbones import to_device
+    from face_recognition_models_tpu_torch.models.resnet import init_weights
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.parallel import sharding
+
+    c = PFC_CLASSES
+    cfg = cfg_lib.make_head_config(name, num_classes=c)
+    head = get_head(name)
+    gen = torch.Generator().manual_seed(5)
+    trunk = get_backbone(MESH_BACKBONE, embed_dim=512,
+                         image_size=MESH_IMAGE)
+    init_weights(trunk, gen)
+    trunk = to_device(trunk, device).train()
+    rs = np.random.RandomState(12)
+    images = rs.randint(0, 256, (2 * N_MAIN, MESH_IMAGE, MESH_IMAGE, 3),
+                        np.uint8)
+    labels = rs.randint(0, c, 2 * N_MAIN)
+    x = torch.as_tensor(images, device=device).float() / 127.5 - 1.0
+    y = torch.as_tensor(labels, device=device)
+    with torch.no_grad():
+        feats = trunk(x[:N_MAIN]).float()
+        warm = trunk(x[N_MAIN:]).float()
+    del trunk, x
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel = head.init_kernel(cfg, gen, device)
+    state = head.init_state(cfg, device)
+    if state is not None:
+        state = fused_apply(cfg, kernel, warm, y[N_MAIN:], state).state
+    y = y[:N_MAIN]
+
+    def run(k, st, m):
+        """(loss, dx, dw, ms of a second, warm call)."""
+        k = torch.nn.Parameter(k)
+        for _ in range(2):
+            k.grad = None
+            f = feats.clone().requires_grad_()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fused_apply(cfg, k, f, y, st, mesh=m)
+            out.loss_id.backward()
+            torch.cuda.synchronize(device)
+        return (out.loss_id.detach(), f.grad, k.grad,
+                1e3 * (time.perf_counter() - t0))
+
+    loss_1, dx_1, dw_1, ms_1 = run(kernel, state, None)
+    n = c // mesh.model
+    cols = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
+    dw_1 = dw_1[:, cols].clone()
+    spec = sharding.spec_for("kernel_w", kernel.shape, c)
+    shard = sharding.shard(kernel, spec, mesh)
+    st = sharding.shard_head_state(state, c, mesh)
+    del kernel, state
+    torch.cuda.empty_cache()
+    mem = name == "vpl_arcface"
+    kernels = MEM_KERNELS if mem else PLAIN_KERNELS
+    reset_kernel_counts()
+    with first_calls(fh, kernels) as calls:
+        loss, dx, dw, ms = run(shard, st, mesh)
+    launches = {k: v for k, v in fh.launch_counts.items() if v}
+    if launches != {k: 2 for k in kernels}:
+        raise AssertionError(f"mesh head {name}: launches {launches}")
+    labels = calls[kernels[0]][0][0][4 if mem else 2]
+    no_target = int((labels == n + 1).sum())
+    if not 0 < no_target < N_MAIN:
+        raise AssertionError(f"mesh head {name}: {no_target} of {N_MAIN} "
+                             f"rows with no target column in the shard")
+    plain_errs, flips = check_recorded(calls, mem)
+    del calls
+    torch.cuda.empty_cache()
+    tol = MESH_HEAD_TOL
+    return {"head": name, "num_classes": c, "shard": list(shard.shape),
+            "rows_no_target_column": no_target,
+            "kernel_vs_plain_max_abs_err": plain_errs,
+            "kernel_vs_plain_higher_flips": flips,
+            "loss": float(loss), "loss_one_process": float(loss_1),
+            "loss_err": close(f"mesh head {name} loss", loss, loss_1,
+                              **tol["loss"]),
+            "dx_err": close(f"mesh head {name} dx", dx, dx_1,
+                            **tol["grads"]),
+            "dw_shard_err": close(f"mesh head {name} dw", dw, dw_1,
+                                  **tol["grads"]),
+            "ms_fwd_bwd": ms, "ms_fwd_bwd_one_process": ms_1,
+            "launches": launches}
+
+
+def mesh_pfc_run(mesh, device, root):
+    """(3) + (4) `fit` of the class-sharded Partial-FC (ResNet-50 + ArcFace,
+    ratio 0.1, C = PFC_CLASSES, b512) over a model=2 mesh for MESH_STEPS
+    steps: finite losses, step 1 writes exactly the shard's sampled
+    columns of kernel_w and kernel_mom (the sample replayed from a copy of
+    the step generator), then the state saved by the world into
+    `root`/mesh_pfc with every class shard gathered on rank 0. Returns
+    the losses, ms/step, peak GB and the fingerprints of the rank's
+    shards and backbone."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
+    from face_recognition_models_tpu_torch.train.loop import fit
+    from face_recognition_models_tpu_torch.train.partial_fc import (
+        num_sampled_classes)
+    from face_recognition_models_tpu_torch.train.partial_fc_sharded import (
+        local_sample_from_draws)
+
+    c = PFC_CLASSES
+    c_local = c // mesh.model
+    c_s_local = num_sampled_classes(c_local, PFC_RATIO, N_MAIN)
+    offset = mesh.model_index * c_local
+    rs = np.random.RandomState(14)
+    images = rs.randint(0, 256, (MESH_STEPS * N_MAIN, MESH_IMAGE,
+                                 MESH_IMAGE, 3), np.uint8)
+    labels = rs.randint(0, c, MESH_STEPS * N_MAIN).astype(np.int32)
+    seen = {}
+
+    def before(state):
+        if state.step == 0:
+            g = torch.Generator(device=device)
+            g.set_state(state.rng.get_state())
+            scores = torch.rand((mesh.model, c_local + 1), generator=g,
+                                device=device)[mesh.model_index]
+            shift = torch.randint(0, c_local, (mesh.model,), generator=g,
+                                  device=device)[mesh.model_index]
+            cls, valid, _ = local_sample_from_draws(
+                torch.as_tensor(labels[:N_MAIN], device=device), c_local,
+                min(N_MAIN, c_local), c_s_local, offset, scores, shift)
+            seen["sampled"] = torch.zeros(c_local, dtype=torch.bool,
+                                          device=device)
+            seen["sampled"][cls[valid]] = True
+            seen["w"] = state.kernel_w.detach().clone()
+            seen["m"] = state.kernel_mom.clone()
+
+    def after(state):
+        if state.step == 1:
+            for key, now in (("w", state.kernel_w.detach()),
+                             ("m", state.kernel_mom)):
+                moved = (now != seen.pop(key)).any(0)
+                if not torch.equal(moved, seen["sampled"]):
+                    raise AssertionError(
+                        f"mesh partial_fc: step 1 wrote {int(moved.sum())} "
+                        f"columns of kernel_{key} on shard "
+                        f"{mesh.model_index}, "
+                        f"{int((moved & ~seen['sampled']).sum())} outside "
+                        f"the {int(seen['sampled'].sum())} sampled")
+
+    cfg = pfc_cfg(c, mesh=cfg_lib.MeshConfig(data=1, model=mesh.model),
+                  backbone=MESH_BACKBONE,
+                  data=cfg_lib.DataConfig(image_size=MESH_IMAGE))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_kernel_counts()
+    with observe_steps(after, before,
+                       factory="make_sharded_partial_fc_train_step"):
+        res = fit(cfg, ArrayLoader(images, labels, N_MAIN, shuffle=False,
+                                   seed=0), device=device, mesh=mesh)
+    torch.cuda.synchronize(device)
+    no_kernel_launched("mesh partial_fc")
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"mesh partial_fc: losses {res.losses}")
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.join(root, "mesh_pfc"), "arcface").save(
+        res.state, 1, res.losses[-1], mesh=mesh)
+    save_s = time.perf_counter() - t0
+    state = res.state
+    return {"num_classes": c, "shard": list(state.kernel_w.shape),
+            "num_sampled_local": c_s_local, "losses": res.losses,
+            "sampled_step1": int(seen["sampled"].sum()),
+            "ms_per_step_after_1": 1e3 * float(np.mean(
+                res.step_seconds[1:])),
+            "peak_gb": peak, "save_s": save_s,
+            "fingerprint": {
+                "kernel_w": fingerprint(state.kernel_w),
+                "kernel_mom": fingerprint(state.kernel_mom),
+                "backbone": fingerprint(backbone_params(state))}}
+
+
+def mesh_rank_main(rank, world, port, root, backend):
+    """One rank of the mesh phase, in its own process: joins the group,
+    runs the checks and writes its results to `root`/rank<r>.pkl."""
+    import datetime
+
+    import torch
+
+    from face_recognition_models_tpu_torch.config import MeshConfig
+    from face_recognition_models_tpu_torch.parallel import dist as pdist
+    from face_recognition_models_tpu_torch.parallel import make_mesh
+
+    device = pdist.initialize(
+        backend=backend, device=f"cuda:{rank if backend == 'nccl' else 0}",
+        init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    out = {"rank": rank, "backend": backend, "device": str(device)}
+    try:
+        if backend == "gloo":
+            out["collectives"] = mesh_probe_collectives(device)
+        dp_mesh = make_mesh(MeshConfig(data=world, model=1))
+        out["dp"] = {dtype: mesh_dp_run(dp_mesh, device, dtype)
+                     for dtype in MESH_TOL}
+        if backend == "gloo":
+            out["dp_faults"] = {"bfloat16": {
+                fault: mesh_dp_run(dp_mesh, device, "bfloat16", fault)
+                for fault in MESH_FAULTS}}
+        head_mesh = make_mesh(MeshConfig(data=1, model=world))
+        out["head"] = [mesh_head_case(name, head_mesh, device)
+                       for name in ("arcface", "vpl_arcface")]
+        if backend == "gloo":
+            out["pfc"] = mesh_pfc_run(head_mesh, device, root)
+    finally:
+        with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        pdist.shutdown()
+    return 0
+
+
+def mesh_world(root, backend, entry=None):
+    """Run the ranks of the mesh phase (`entry`, this script by default,
+    with --mesh-rank) and return their results; a rank that fails or times
+    out fails the phase (every rank is stopped)."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, entry or os.path.abspath(__file__),
+         "--mesh-rank", str(r),
+         "--mesh-port", str(port), "--mesh-root", root,
+         "--mesh-backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_WORLD)]
+    logs = []
+    try:
+        deadline = time.monotonic() + MESH_TIMEOUT_S + 60
+        for p in procs:
+            logs.append(p.communicate(timeout=max(
+                1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        sys.stderr.write(log[-6000:])
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank {r} ({backend}) exited "
+                                 f"{p.returncode}")
+    out = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def mesh_dp_drifts(world, ref, init):
+    """The step-1 update drifts of a world run against the one-process run
+    `ref`: the whole parameter vector's and the classifier's (kernel_w, the
+    last D_MAIN x C_MAIN values of params_of), each relative to the
+    one-process update; and the final parameters' drift."""
+    head = D_MAIN * C_MAIN
+
+    def drift(a, b, part=slice(None)):
+        return float((a[part] - b[part]).norm()
+                     / (b[part] - init[part]).norm())
+
+    return (drift(world["step1"], ref["step1"]),
+            drift(world["step1"], ref["step1"], slice(-head, None)),
+            drift(world["final"], ref["final"]))
+
+
+def mesh_dp_verdict(worlds, ref, init, tol):
+    """(metrics, [the checks that the world run breaks]) of a data=2 run
+    (`worlds`: every rank's mesh_dp_run, rank 0 first) against the
+    one-process run on the same batches: the bounds of `tol`, and
+    "ranks_bitwise_equal" (losses, parameters, BatchNorm running
+    statistics)."""
+    world = worlds[0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(world["losses"],
+                                                ref["losses"])]
+    drift1, head1, drift = mesh_dp_drifts(world, ref, init)
+    # a non-finite value breaks its bound
+    broken = [name for name, value in (
+        ("step1_loss_rtol", rel[0]), ("loss_rtol", max(rel)),
+        ("step1_update_drift", drift1), ("step1_head_drift", head1))
+        if not value <= tol[name]]
+    keys = ("losses", "fingerprint", "buffers")
+    if any(w[k] != world[k] for w in worlds for k in keys):
+        broken.append("ranks_bitwise_equal")
+    return {"losses": world["losses"], "loss_rel_err": rel,
+            "step1_update_drift": drift1, "step1_head_drift": head1,
+            "final_update_drift": drift}, broken
+
+
+def mesh_check_dp(ranks, ref, init, dtype):
+    """(1): both ranks' losses, parameters and BatchNorm running statistics
+    equal each other bit for bit and the one-process run's within MESH_TOL;
+    K1 / K2 once a step; in bf16 every planted fault (MESH_FAULTS) breaks a
+    check."""
+    dp = [r["dp"][dtype] for r in ranks]
+    tol = dict(MESH_TOL[dtype])
+    if dtype == "bfloat16":
+        # the bf16 noise: the one-process bf16 step against the fp32 one
+        whole, head, _ = mesh_dp_drifts(ref["bfloat16"], ref["float32"], init)
+        tol["step1_update_drift"] = MESH_BF16_DRIFT_FACTOR * whole
+        tol["step1_head_drift"] = MESH_BF16_DRIFT_FACTOR * head
+        if tol["step1_head_drift"] >= 1.0:
+            raise AssertionError(f"mesh dp bf16: the classifier's drift bound "
+                                 f"{tol['step1_head_drift']} is not under 1")
+    ref = ref[dtype]
+    want = {k: MESH_STEPS for k in PLAIN_KERNELS}
+    for r, d in enumerate(dp):
+        if d["launches"] != want:
+            raise AssertionError(f"mesh dp rank {r}: launches "
+                                 f"{d['launches']}")
+    metrics, broken = mesh_dp_verdict(dp, ref, init, tol)
+    faults = {}
+    for fault in ranks[0].get("dp_faults", {}).get(dtype, {}):
+        metrics_f, broken_f = mesh_dp_verdict(
+            [r["dp_faults"][dtype][fault] for r in ranks], ref, init, tol)
+        faults[fault] = {**metrics_f, "broken": broken_f}
+    out = {"compute_dtype": dtype, **metrics,
+           "losses_one_process": ref["losses"], "tolerance": tol,
+           "planted_faults": faults,
+           "ms_per_step_after_1": [d["ms_per_step_after_1"] for d in dp],
+           "ms_per_step_one_process": ref["ms_per_step_after_1"],
+           "peak_gb": [d["peak_gb"] for d in dp],
+           "peak_gb_one_process": ref["peak_gb"],
+           "launches_per_rank": dp[0]["launches"]}
+    missed = [f for f, v in faults.items() if not v["broken"]]
+    if broken or missed or (dtype == "bfloat16"
+                            and sorted(faults) != sorted(MESH_FAULTS)):
+        emit({"phase": "mesh", "part": f"dp_{dtype}", "failed": True, **out})
+        raise AssertionError(
+            f"mesh dp {dtype} against one process: bounds broken {broken}, "
+            f"planted faults no bound caught {missed} (of {sorted(faults)})")
+    return out
+
+
+def mesh_check_restore(ranks, root, device="cuda"):
+    """(4): the world's checkpoint loaded in one process equals the ranks'
+    shards bit for bit."""
+    import torch
+
+    from face_recognition_models_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from face_recognition_models_tpu_torch.config import make_head_config
+    from face_recognition_models_tpu_torch.train.loop import make_recipe
+
+    from face_recognition_models_tpu_torch.config import DataConfig
+
+    cfg = pfc_cfg(PFC_CLASSES, backbone=MESH_BACKBONE,
+                  data=DataConfig(image_size=MESH_IMAGE))
+    _, state, _ = make_recipe(
+        cfg, make_head_config("arcface", num_classes=PFC_CLASSES),
+        torch.device(device))
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.join(root, "mesh_pfc"), "arcface").restore(
+        state)
+    restore_s = time.perf_counter() - t0
+    n = PFC_CLASSES // MESH_WORLD
+    for r in ranks:
+        cols = slice(r["rank"] * n, (r["rank"] + 1) * n)
+        got = {"kernel_w": fingerprint(state.kernel_w[:, cols]),
+               "kernel_mom": fingerprint(state.kernel_mom[:, cols]),
+               "backbone": fingerprint(backbone_params(state))}
+        if got != r["pfc"]["fingerprint"]:
+            raise AssertionError(f"mesh checkpoint: rank {r['rank']}'s "
+                                 f"shards {r['pfc']['fingerprint']} != the "
+                                 f"restored {got}")
+    size = os.path.getsize(os.path.join(root, "mesh_pfc", "epoch_1"))
+    del state
+    torch.cuda.empty_cache()
+    return {"bitwise": True, "file_gb": size / 1e9, "restore_s": restore_s}
+
+
+def phase_mesh(root):
+    """The ('data', 'model') mesh on the card (see the module docstring).
+    Returns {kernel: launches} of the ranks' main-path runs."""
+    import torch
+
+    from face_recognition_models_tpu_torch.ops import _build
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+
+    t0 = time.perf_counter()
+    _build.build()
+    init = mesh_initial_params()
+    ref = {dtype: mesh_dp_reference(dtype) for dtype in MESH_TOL}
+    ranks = mesh_world(root, "gloo")
+    note = ("two ranks share one card over gloo: times and memory are not "
+            "a scaling figure")
+    launches = {}
+    for r in ranks:
+        for part in [*r["dp"].values(), *r["head"]]:
+            for k, v in part["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    emit({"phase": "mesh", "part": "collectives", "backend": "gloo",
+          "tensors": "cuda", "by_rank": [r["collectives"] for r in ranks]})
+    for dtype in MESH_TOL:
+        emit({"phase": "mesh", "part": f"dp_{dtype}", "mesh": [MESH_WORLD, 1],
+              "backbone": MESH_BACKBONE, "head": "arcface",
+              "num_classes": C_MAIN, "global_batch": N_MAIN,
+              "steps": MESH_STEPS,
+              **mesh_check_dp(ranks, ref, init, dtype), "note": note})
+    for i, name in enumerate(("arcface", "vpl_arcface")):
+        emit({"phase": "mesh", "part": f"head_{name}",
+              "mesh": [1, MESH_WORLD], "tolerance": MESH_HEAD_TOL,
+              "kernel_vs_plain_tolerance": TOLERANCE,
+              "by_rank": [r["head"][i] for r in ranks], "note": note})
+    restore = mesh_check_restore(ranks, root)
+    emit({"phase": "mesh", "part": "partial_fc", "mesh": [1, MESH_WORLD],
+          "by_rank": [r["pfc"] for r in ranks], "checkpoint": restore,
+          "note": note})
+    if torch.cuda.device_count() >= MESH_WORLD:
+        for r in mesh_world(root, "nccl"):
+            emit({"phase": "mesh", "part": "nccl", "rank": r["rank"],
+                  "dp": {dtype: {k: v for k, v in d.items()
+                                 if k not in ("step1", "final")}
+                         for dtype, d in r["dp"].items()},
+                  "head": r["head"]})
+    else:
+        print(f"mesh: NCCL not run ({torch.cuda.device_count()} card; "
+              f"it needs {MESH_WORLD})", flush=True)
+    emit({"phase": "mesh", "launches": launches, "nvidia_smi": nvidia_smi(),
+          "seconds": time.perf_counter() - t0, "ok": True})
+    return launches
+
+
+ONLY_PHASES = {"partial_fc": phase_partial_fc, "facenet": phase_facenet,
+               "mesh": phase_mesh}
 
 
 def main(argv=None) -> int:
@@ -4429,7 +5249,16 @@ def main(argv=None) -> int:
                         help="run just these comma-separated phases of "
                              f"{sorted(ONLY_PHASES)} (no build, no kernels "
                              "line, no result line)")
+    # a rank of the mesh phase (its own process; mesh_world starts it)
+    parser.add_argument("--mesh-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-root", help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-backend", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args.mesh_rank, MESH_WORLD, args.mesh_port,
+                              args.mesh_root, args.mesh_backend)
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
         return 1
@@ -4492,6 +5321,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         phase_partial_fc(root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        for name, count in phase_mesh(root).items():
+            launches[name] = launches.get(name, 0) + count
     torch.cuda.empty_cache()
     for name, count in phase_convergence().items():
         launches[name] += count

@@ -34,6 +34,16 @@ float32). Restoring
 loads into a live TrainState in place: the parameters keep their objects
 and layout (channels-last on the card), so the optimizer's slots stay bound
 to them, and the slots, the EMA and the head state keep their addresses.
+
+Under a mesh (`mesh=` of save / restore / reset) a checkpoint holds whole
+tensors in the one-process layout, so a world's checkpoint resumes in one
+process and the reverse. The class shards (kernel_w, kernel_mom, the
+kernel's optimizer slots and EMA, the head memories and lifetimes) are
+broadcast over rank 0's model group in blocks of columns (or rows) into
+one host copy on rank 0, which alone writes and rotates the files; on
+restore each rank maps the file and takes its own slice. Every rank calls
+save and restore, and each ends with a barrier, so no rank runs ahead of a
+file or waits in a collective the others have left.
 """
 
 from __future__ import annotations
@@ -44,6 +54,10 @@ import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from face_recognition_models_tpu_torch.parallel import collectives as coll
+from face_recognition_models_tpu_torch.parallel import sharding
 
 _EPOCH_RE = re.compile(r"^epoch_(\d+)$")
 
@@ -54,13 +68,111 @@ def _write(obj: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _load(path: str, map_location) -> Any:
-    return torch.load(path, map_location=map_location, weights_only=True)
+def _load(path: str, map_location, mmap: bool = False) -> Any:
+    return torch.load(path, map_location=map_location, weights_only=True,
+                      mmap=mmap)
 
 
-def _payload(state) -> Dict[str, Any]:
+# columns (or rows) of a class shard per broadcast when a checkpoint is
+# gathered: the device holds one block of it at a time
+_BLOCK = 1 << 16
+
+
+def _class_entries(payload: Dict[str, Any], state, num_classes: int,
+                   model: int):
+    """(container, key, dim) of every class-sharded tensor of a payload
+    whose kernel has num_classes / model columns (a rank's shard, or with
+    model 1 the whole): kernel_w and kernel_mom on dim 1, the kernel's
+    optimizer slots and gradient means and its EMA, and the head state's
+    class rows."""
+    kernel = state.kernel_w
+    if kernel is None:
+        return []
+    shape = payload["kernel_w"].shape
+    out = [(payload, "kernel_w", 1)]
+    if payload["kernel_mom"] is not None:
+        out.append((payload, "kernel_mom", 1))
+    if payload["ema"] is not None:
+        out.append((payload["ema"], len(payload["ema"]) - 1, 1))
+    for i, x in enumerate(payload["head_state"] or ()):
+        if x.dim() and sharding.sharded_dim(sharding.spec_for(
+                "head_state", (x.shape[0] * model,) + tuple(x.shape[1:]),
+                num_classes)) == 0:
+            out.append((payload["head_state"], i, 0))
+    params = state.optimizer._params
+    k = next((i for i, p in enumerate(params) if p is kernel), None)
+    if k is not None:
+        opt = payload["optimizer"]
+        inner = opt.get("inner", opt)
+        slots = inner["state"].get(k, {})
+        out += [(slots, name, 1) for name, v in slots.items()
+                if isinstance(v, torch.Tensor) and v.shape == shape]
+        if "acc" in opt:
+            out.append((opt["acc"], k, 1))
+    return out
+
+
+def _gather_to_host(x: torch.Tensor, dim: int, mesh, writer: bool):
+    """The whole tensor of the model group's shards x on the host of the
+    writer (None elsewhere), one block of `_BLOCK` broadcast at a time."""
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * mesh.model
+    whole = torch.empty(shape, dtype=x.dtype) if writer else None
+    ranks = dist.get_process_group_ranks(mesh.model_group)
+    for j, src in enumerate(ranks):
+        for start in range(0, n, _BLOCK):
+            width = min(_BLOCK, n - start)
+            if j == mesh.model_index:
+                buf = x.detach().narrow(dim, start, width).contiguous()
+            else:
+                size = list(x.shape)
+                size[dim] = width
+                buf = torch.empty(size, dtype=x.dtype, device=x.device)
+            dist.broadcast(buf, src=src, group=mesh.model_group)
+            if writer:
+                whole.narrow(dim, j * n + start, width).copy_(buf)
+    return whole
+
+
+def _payload(state, mesh=None) -> Optional[Dict[str, Any]]:
     """The train state's tensors and counters, as torch.save takes them.
-    A state without a head (the triplet path's) has kernel_w None."""
+    A state without a head (the triplet path's) has kernel_w None. Under a
+    mesh with a model axis the class shards are gathered on rank 0, and
+    the payload is None on the other ranks."""
+    payload = _local_payload(state)
+    if mesh is None or mesh.model == 1:
+        return payload if coll.is_writer(mesh) else None
+    writer = coll.is_writer(mesh)
+    # new containers: the optimizer's state_dict holds its live slot dicts
+    payload = _containers_copied(payload)
+    c = state.kernel_w.shape[1] * mesh.model
+    for box, key, dim in _class_entries(payload, state, c, mesh.model):
+        box[key] = _gather_to_host(box[key], dim, mesh, writer)
+    return payload if writer else None
+
+
+def _containers_copied(obj):
+    """obj with every dict and list copied, the tensors shared."""
+    if isinstance(obj, dict):
+        return {k: _containers_copied(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_containers_copied(v) for v in obj]
+    return obj
+
+
+def _shard_payload(payload: Dict[str, Any], state, mesh) -> None:
+    """Cut a whole payload's class tensors to the rank's shards, in
+    place."""
+    if mesh is None or mesh.model == 1 or state.kernel_w is None:
+        return
+    c = payload["kernel_w"].shape[1]
+    for box, key, dim in _class_entries(payload, state, c, 1):
+        size = box[key].shape[dim] // mesh.model
+        box[key] = box[key].narrow(dim, mesh.model_index * size, size)
+
+
+def _local_payload(state) -> Dict[str, Any]:
     rng = {"cpu": torch.get_rng_state()}
     device = state.count.device
     if device.type == "cuda":
@@ -138,33 +250,42 @@ class CheckpointManager:
                 out.append(int(m.group(1)))
         return sorted(out)
 
-    def reset(self):
-        """Fresh-run wipe (model_utils.py:532-534)."""
-        if os.path.isdir(self.directory):
-            shutil.rmtree(self.directory)
-        os.makedirs(self.directory, exist_ok=True)
+    def reset(self, mesh=None):
+        """Fresh-run wipe (model_utils.py:532-534), by rank 0."""
+        if coll.is_writer(mesh):
+            if os.path.isdir(self.directory):
+                shutil.rmtree(self.directory)
+            os.makedirs(self.directory, exist_ok=True)
+        coll.barrier(mesh)
 
     def save(self, state, epoch: int, train_loss: float,
-             is_best: bool = False):
-        """Save an epoch checkpoint (rotating keep-N) or the best one."""
-        os.makedirs(self.directory, exist_ok=True)
-        target = self._best_path if is_best else self._epoch_path(epoch)
-        _write({"state": _payload(state), "epoch": int(epoch),
-                "train_loss": float(train_loss)}, target)
-        if not is_best:
-            epochs = self._list_epochs()
-            while len(epochs) > self.keep:
-                victim = epochs.pop(0)
-                if victim != epoch:
-                    os.remove(self._epoch_path(victim))
+             is_best: bool = False, mesh=None):
+        """Save an epoch checkpoint (rotating keep-N) or the best one.
+        Under a mesh every rank calls it and rank 0 writes."""
+        payload = (_payload(state, mesh)
+                   if mesh is None or mesh.data_index == 0 else None)
+        if payload is not None:
+            os.makedirs(self.directory, exist_ok=True)
+            target = self._best_path if is_best else self._epoch_path(epoch)
+            _write({"state": payload, "epoch": int(epoch),
+                    "train_loss": float(train_loss)}, target)
+            if not is_best:
+                epochs = self._list_epochs()
+                while len(epochs) > self.keep:
+                    victim = epochs.pop(0)
+                    if victim != epoch:
+                        os.remove(self._epoch_path(victim))
+        coll.barrier(mesh)
 
-    def restore(self, state, mode: str = "latest"
+    def restore(self, state, mode: str = "latest", mesh=None
                 ) -> Tuple[Any, int, float]:
         """Load per resume semantics into `state` (a live TrainState of the
-        same configuration). Returns (state, start_epoch, loss);
-        (None, 1, inf) when there is nothing to restore."""
+        same configuration; under a mesh the rank's sharded one). Returns
+        (state, start_epoch, loss); (None, 1, inf) when there is nothing to
+        restore."""
         if mode not in ("latest", "min_loss"):
             raise ValueError("mode must be 'latest' or 'min_loss'")
+        coll.barrier(mesh)
         if not os.path.isdir(self.directory):
             return None, 1, float("inf")
         if mode == "min_loss":
@@ -173,16 +294,23 @@ class CheckpointManager:
             # best never destroys the only resumable state
             if not os.path.isfile(self._best_path):
                 return None, 1, float("inf")
-            for e in self._list_epochs():
-                os.remove(self._epoch_path(e))
+            coll.barrier(mesh)
+            if coll.is_writer(mesh):
+                for e in self._list_epochs():
+                    os.remove(self._epoch_path(e))
             target = self._best_path
         else:
             epochs = self._list_epochs()
             if not epochs:
                 return None, 1, float("inf")
             target = self._epoch_path(epochs[-1])
-        payload = _load(target, state.count.device)
+        if mesh is None:
+            payload = _load(target, state.count.device)
+        else:
+            payload = _load(target, "cpu", mmap=True)
+            _shard_payload(payload["state"], state, mesh)
         _load_into(state, payload["state"])
+        coll.barrier(mesh)
         return state, payload["epoch"] + 1, payload["train_loss"]
 
     def save_final(self, obj: Any, filename: Optional[str] = None):

@@ -204,6 +204,12 @@ def _add_train_parser(sub):
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
+    p.add_argument("--mesh-data", type=int, default=-1,
+                   help="ranks on the mesh's data axis (with --multihost; "
+                        "-1: every rank the model axis leaves)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="ranks the classifier's class axis is split over "
+                        "(with --multihost)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dataset-path", default=os.environ.get("DATASET_PATH", ""),
                    help="identity tree root, a `pack` dir, or an "
@@ -255,9 +261,10 @@ class UsageError(Exception):
     """A refusal of the command line's arguments: printed, exit code 2."""
 
 
-def _open_dataset(args, cfg):
-    """(loader, cfg) for `train --dataset-path`. A pack's image size
-    overrides --image-size; more identities than --num-classes raise
+def _open_dataset(args, cfg, batch_size: int, shard=None):
+    """(loader, cfg) for `train --dataset-path`, loading `batch_size`
+    rows a step of `shard` (the rank's data coordinate). A pack's image
+    size overrides --image-size; more identities than --num-classes raise
     UsageError."""
     from face_recognition_models_tpu_torch.data.index import index_tree
     from face_recognition_models_tpu_torch.data.packed import (
@@ -272,9 +279,10 @@ def _open_dataset(args, cfg):
         if rec.num_identities > args.num_classes:
             raise UsageError(f"error: rec has {rec.num_identities} "
                              f"identities > --num-classes {args.num_classes}")
-        return RecLoader(rec, batch_size=cfg.batch_size,
+        return RecLoader(rec, batch_size=batch_size,
                          image_size=cfg.data.image_size,
-                         num_workers=args.num_workers, seed=cfg.seed), cfg
+                         num_workers=args.num_workers, seed=cfg.seed,
+                         shard=shard), cfg
     if is_packed_dir(path):
         # a pack from `pack`: no JPEG work on the host
         packed = PackedDataset.open(path)
@@ -286,11 +294,12 @@ def _open_dataset(args, cfg):
                   f"--image-size {cfg.data.image_size}")
             cfg = dataclasses.replace(cfg, data=dataclasses.replace(
                 cfg.data, image_size=packed.image_size))
-        return PackedLoader(packed, batch_size=cfg.batch_size,
-                            seed=cfg.seed), cfg
-    return Loader(index_tree(path), batch_size=cfg.batch_size,
+        return PackedLoader(packed, batch_size=batch_size,
+                            seed=cfg.seed, shard=shard), cfg
+    return Loader(index_tree(path), batch_size=batch_size,
                   image_size=cfg.data.image_size,
-                  num_workers=args.num_workers, seed=cfg.seed), cfg
+                  num_workers=args.num_workers, seed=cfg.seed,
+                  shard=shard), cfg
 
 
 def cmd_train(args) -> int:
@@ -298,16 +307,9 @@ def cmd_train(args) -> int:
         print("error: --dataset-path required (or --synthetic)",
               file=sys.stderr)
         return 2
-    from face_recognition_models_tpu_torch.checkpoint import (
-        CheckpointManager)
     from face_recognition_models_tpu_torch.data.pipeline import ArrayLoader
     from face_recognition_models_tpu_torch.data.synthetic import (
         synthetic_identities)
-    from face_recognition_models_tpu_torch.evaluation.periodic import (
-        PeriodicEvalHook)
-    from face_recognition_models_tpu_torch.train.loop import fit
-    from face_recognition_models_tpu_torch.train.state import (
-        build_backbone, ema_state_dict)
 
     head, head_kw = args.head, {}
     if head == "mv_softmax_arc":
@@ -331,6 +333,7 @@ def cmd_train(args) -> int:
         pretrained_path=args.pretrained, bn_dtype=args.bn_dtype,
         use_fused_head=fused, scan_steps=args.scan_steps,
         partial_fc=args.partial_fc,
+        mesh=cfg_lib.MeshConfig(data=args.mesh_data, model=args.mesh_model),
         schedule=cfg_lib.ScheduleConfig(
             name=args.scheduler,
             steps=tuple(int(s) for s in args.lr_steps.split(",") if s),
@@ -343,68 +346,117 @@ def cmd_train(args) -> int:
         return 2
     head_cfg = cfg_lib.make_head_config(head, num_classes=cfg.num_classes,
                                         **head_kw)
+    # under --multihost cfg.batch_size is the global batch: each rank loads
+    # batch_size // data rows a step of its data coordinate's shard, and
+    # the model peers of one coordinate load the same rows
+    mesh = _mesh(cfg.mesh) if args.multihost else None
+    batch, shard = cfg.batch_size, None
+    if mesh is not None and mesh.data > 1:
+        if cfg.batch_size % mesh.data:
+            print(f"error: batch_size {cfg.batch_size} must divide across "
+                  f"the mesh data axis ({mesh.data})", file=sys.stderr)
+            return 2
+        batch, shard = cfg.batch_size // mesh.data, (mesh.data_index,
+                                                     mesh.data)
     if args.synthetic:
         images, labels = synthetic_identities(
             args.synthetic_classes, args.synthetic_per_class,
             image_size=args.image_size, seed=cfg.seed)
-        loader = ArrayLoader(images, labels, batch_size=cfg.batch_size,
-                             seed=cfg.seed)
+        loader = ArrayLoader(images, labels, batch_size=batch,
+                             seed=cfg.seed, shard=shard)
     else:
         try:
-            loader, cfg = _open_dataset(args, cfg)
+            loader, cfg = _open_dataset(args, cfg, batch, shard)
         except UsageError as e:
             print(e, file=sys.stderr)
             return 2
+    if mesh is not None and mesh.rank != 0:
+        # the other ranks train in step with rank 0 and keep quiet
+        return _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
+                      False)
     log_dir = os.path.join(args.working_path, "log")
     os.makedirs(log_dir, exist_ok=True)
-    ckpt_dir = args.model_save_path or os.path.join(
-        args.working_path, "checkpoints", model_name)
     with open(os.path.join(log_dir, f"{model_name}.txt"), "a") as logfile, \
             contextlib.redirect_stdout(Tee(sys.stdout, logfile)):
-        path = ("partial-fc" if cfg.partial_fc > 0
-                else "fused" if fused else "eager")
-        print(f"Training {model_name} ({cfg.backbone}, {path} head) - batch "
-              f"{cfg.batch_size}, epochs {cfg.epochs}, "
-              f"{cfg.optimizer.name} lr {args.learning_rate}")
-        mgr = CheckpointManager(ckpt_dir, model_name,
-                                keep=cfg.keep_checkpoints)
-        eval_hook = None
-        if args.eval_every > 0:
-            if not args.eval_data_path:
-                print("--eval-every: no --eval-data-path given, skipping")
-            else:
-                eval_hook = PeriodicEvalHook(
-                    build_backbone(cfg, head_cfg), args.eval_data_path,
-                    args.benchmarks.split(","), every=args.eval_every,
-                    image_size=cfg.data.image_size, total_epochs=cfg.epochs,
-                    checkpoint_manager=mgr, model_name=model_name,
-                    use_ema=cfg.model_ema > 0.0, flip=args.eval_flip,
-                    device=args.device)
-        t0 = time.time()
-        result = fit(cfg, loader, device=args.device, head_cfg=head_cfg,
-                     checkpoint_manager=mgr, hooks=eval_hook)
-        if result.preempted:
-            return 143
-        if eval_hook is not None and eval_hook.best_epoch > 0:
-            print(f"Best verification {eval_hook.best_acc:.3f}% at epoch "
-                  f"{eval_hook.best_epoch} (saved {model_name}_best_acc)")
-        # the final artifact is the embedding model; the full train state
-        # (head kernel and state, optimizer) lives in the epoch and
-        # min_loss checkpoints
-        eval_weights = result.state.backbone.state_dict()
+        return _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
+                      True)
+
+
+def _mesh(mesh_cfg):
+    from face_recognition_models_tpu_torch.parallel import make_mesh
+    return make_mesh(mesh_cfg)
+
+
+def _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
+           writer: bool) -> int:
+    """The rest of `train` once the loader is open: fit, the final
+    artifacts and --eval-after; under --multihost every rank runs it and
+    rank 0 (the `writer`) alone prints and writes."""
+    from face_recognition_models_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from face_recognition_models_tpu_torch.evaluation.periodic import (
+        PeriodicEvalHook)
+    from face_recognition_models_tpu_torch.train.loop import fit
+    from face_recognition_models_tpu_torch.train.state import (
+        build_backbone, ema_state_dict)
+
+    def say(*a):
+        if writer:
+            print(*a)
+
+    ckpt_dir = args.model_save_path or os.path.join(
+        args.working_path, "checkpoints", model_name)
+    path = ("partial-fc" if cfg.partial_fc > 0
+            else "fused" if fused else "eager")
+    say(f"Training {model_name} ({cfg.backbone}, {path} head) - batch "
+        f"{cfg.batch_size}, epochs {cfg.epochs}, "
+        f"{cfg.optimizer.name} lr {args.learning_rate}"
+        + ("" if mesh is None else
+           f", mesh {mesh.data}x{mesh.model} (data x model)"))
+    mgr = CheckpointManager(ckpt_dir, model_name,
+                            keep=cfg.keep_checkpoints)
+    eval_hook = None
+    # the hook embeds on one rank, with no collective: rank 0's alone
+    if args.eval_every > 0 and writer:
+        if not args.eval_data_path:
+            print("--eval-every: no --eval-data-path given, skipping")
+        else:
+            eval_hook = PeriodicEvalHook(
+                build_backbone(cfg, head_cfg), args.eval_data_path,
+                args.benchmarks.split(","), every=args.eval_every,
+                image_size=cfg.data.image_size, total_epochs=cfg.epochs,
+                checkpoint_manager=mgr, model_name=model_name,
+                use_ema=cfg.model_ema > 0.0, flip=args.eval_flip,
+                device=args.device)
+    t0 = time.time()
+    result = fit(cfg, loader, device=args.device, head_cfg=head_cfg,
+                 checkpoint_manager=mgr, hooks=eval_hook, mesh=mesh)
+    if result.preempted:
+        return 143
+    if eval_hook is not None and eval_hook.best_epoch > 0:
+        print(f"Best verification {eval_hook.best_acc:.3f}% at epoch "
+              f"{eval_hook.best_epoch} (saved {model_name}_best_acc)")
+    # the final artifact is the embedding model; the full train state
+    # (head kernel and state, optimizer) lives in the epoch and
+    # min_loss checkpoints
+    eval_weights = result.state.backbone.state_dict()
+    if writer:
         mgr.save_final(eval_weights)
-        if result.state.ema is not None:
-            # the averaged weights are what a run with an EMA deploys
-            eval_weights = ema_state_dict(result.state)
-            mgr.save_final(eval_weights, filename=f"{model_name}_final_ema")
-        print(f"Done in {time.time() - t0:.0f}s - min train loss "
-              f"{result.min_train_loss:.6f}, "
-              f"{result.images_per_sec:.0f} img/s")
-        if args.eval_after:
-            if not args.eval_data_path:
-                print("--eval-after: no --eval-data-path given, skipping")
-            else:
-                _eval_after(args, cfg, head_cfg, model_name, eval_weights)
+    if result.state.ema is not None:
+        # the averaged weights are what a run with an EMA deploys
+        eval_weights = ema_state_dict(result.state)
+        if writer:
+            mgr.save_final(eval_weights,
+                           filename=f"{model_name}_final_ema")
+    say(f"Done in {time.time() - t0:.0f}s - min train loss "
+        f"{result.min_train_loss:.6f}, "
+        f"{result.images_per_sec:.0f} img/s")
+    if args.eval_after:
+        if not args.eval_data_path:
+            say("--eval-after: no --eval-data-path given, skipping")
+        else:
+            _eval_after(args, cfg, head_cfg, model_name, eval_weights,
+                        mesh, say)
     return 0
 
 
@@ -441,6 +493,10 @@ def _add_facenet_parser(sub):
     p.add_argument("--keep-checkpoints", type=int, default=3)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
+    p.add_argument("--use-mesh", action="store_true",
+                   help="data-parallel over every rank of the world (with "
+                        "--multihost): each rank embeds its rows of the PK "
+                        "batch, the mining runs on the global batch")
     return p
 
 
@@ -479,13 +535,23 @@ def cmd_facenet(args) -> int:
                                 embed_dim=args.embed_dim, p=args.p, k=args.k,
                                 margin=args.margin,
                                 learning_rate=args.learning_rate)
+    mesh = None
+    if args.use_mesh and args.multihost:
+        mesh = _mesh(cfg_lib.MeshConfig(model=1))
+        if (cfg.p * cfg.k) % mesh.data:
+            print(f"error: PK batch {cfg.p}*{cfg.k} must divide the mesh "
+                  f"data axis ({mesh.data})", file=sys.stderr)
+            return 2
     model_name = args.model_name or f"facenet_{args.backbone}"
     ckpt_dir = os.path.join(args.working_path, "checkpoints", model_name)
     result = train_facenet(cfg, images, labels, epochs=args.epochs,
                            image_size=args.image_size, seed=args.seed,
                            loader=loader, checkpoint_dir=ckpt_dir,
                            model_name=model_name, resume=args.resume,
-                           keep=args.keep_checkpoints, device=args.device)
+                           keep=args.keep_checkpoints, device=args.device,
+                           mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return 0
     print(f"final loss {result.losses[-1]:.4f} — "
           f"{result.images_per_sec:.0f} img/s; saved {model_name}_final "
           f"under {ckpt_dir} (evaluate: `eval --checkpoint-dir "
@@ -494,9 +560,11 @@ def cmd_facenet(args) -> int:
     return 0
 
 
-def _eval_after(args, cfg, head_cfg, model_name, weights) -> None:
+def _eval_after(args, cfg, head_cfg, model_name, weights, mesh=None,
+                say=print) -> None:
     """`train --eval-after`: each benchmark's verification of the trained
-    backbone (its EMA with --model-ema); a missing benchmark is skipped."""
+    backbone (its EMA with --model-ema); a missing benchmark is skipped.
+    Under a mesh the embedding passes split over all its ranks."""
     from face_recognition_models_tpu_torch.evaluation.batch_eval import (
         evaluate_model_on_benchmark, make_embed_fn)
     from face_recognition_models_tpu_torch.models.backbones import to_device
@@ -506,15 +574,20 @@ def _eval_after(args, cfg, head_cfg, model_name, weights) -> None:
     device = resolve_device(args.device)
     module = build_backbone(cfg, head_cfg)
     module.load_state_dict(weights)
-    embed = make_embed_fn(to_device(module, device), device=device)
+    batch = 256
+    if mesh is not None:
+        mesh = _mesh(cfg_lib.MeshConfig(data=mesh.size, model=1))
+        batch += (-batch) % mesh.data
+    embed = make_embed_fn(to_device(module, device), device=device,
+                          mesh=mesh)
     for bench in args.benchmarks.split(","):
         try:
             res = evaluate_model_on_benchmark(
                 embed, args.eval_data_path, bench, cfg.data.image_size,
-                verbose=False, flip=args.eval_flip)
-            print(f"[eval-after] {model_name} on {bench}: {res}")
+                batch, verbose=False, flip=args.eval_flip)
+            say(f"[eval-after] {model_name} on {bench}: {res}")
         except FileNotFoundError as e:
-            print(f"[eval-after] skip {bench}: {e}")
+            say(f"[eval-after] skip {bench}: {e}")
 
 
 def _add_eval_parser(sub):
@@ -585,6 +658,8 @@ def cmd_eval(args) -> int:
         flip=args.eval_flip,
         embed_dim=args.embed_dim,
         device=args.device,
+        mesh=(_mesh(cfg_lib.MeshConfig(model=1)) if args.multihost
+              else None),
     )
 
 
@@ -849,6 +924,13 @@ def main(argv=None) -> int:
         prog="python -m face_recognition_models_tpu_torch.cli",
         description="PyTorch/CUDA face-recognition training, "
                     "evaluation, dataset packing and serving")
+    parser.add_argument(
+        "--multihost", action="store_true",
+        help="join the process group torchrun's environment describes "
+             "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): "
+             "one process a card, NCCL on the card and gloo with --device "
+             "cpu; `train` then runs over the --mesh-data x --mesh-model "
+             "mesh, `facenet --use-mesh` and `eval` data-parallel")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train_parser(sub)
     _add_facenet_parser(sub)
@@ -865,4 +947,15 @@ def main(argv=None) -> int:
                 "export": cmd_export, "embed": cmd_embed,
                 "identify": cmd_identify, "serve": cmd_serve,
                 "list": cmd_list}
-    return commands[args.command](args)
+    if not args.multihost:
+        return commands[args.command](args)
+    if args.command not in ("train", "facenet", "eval"):
+        print(f"error: --multihost runs train, facenet and eval, not "
+              f"{args.command}", file=sys.stderr)
+        return 2
+    from face_recognition_models_tpu_torch.parallel import dist as pdist
+    args.device = str(pdist.initialize(device=args.device))
+    try:
+        return commands[args.command](args)
+    finally:
+        pdist.shutdown()

@@ -6,8 +6,9 @@ package; defaults are the same values (the reference's recipe:
 resnet18, ArcFace m=0.5 s=64, CASIA's 10,575 classes, batch 512, 112 px, SGD
 lr 0.1 momentum 0.9 wd 5e-4, customstep, every lr schedule's fields), plus
 the checkpoint and resume fields, step batching (`scan_steps`),
-Partial-FC (`partial_fc`, `partial_fc_logq`), the benchmarks `eval` reads
-and the FaceNet triplet path's `FaceNetConfig`.
+Partial-FC (`partial_fc`, `partial_fc_logq`), the ('data', 'model') mesh
+(`MeshConfig`, `TrainConfig.mesh`), the benchmarks `eval` reads and the
+FaceNet triplet path's `FaceNetConfig`.
 """
 
 from __future__ import annotations
@@ -328,6 +329,18 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The ('data', 'model') mesh of a multi-process run
+    (parallel/mesh.py): `data` splits the batch, `model` the classifier's
+    class axis (and the head memories'). data = -1 takes every rank the
+    model axis leaves."""
+
+    data: int = -1
+    model: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     backbone: str = "resnet18"
     head: str = "arcface"
@@ -375,6 +388,7 @@ class TrainConfig:
     freeze_backbone: bool = False
     optimizer: OptimizerConfig = OptimizerConfig()
     schedule: ScheduleConfig = ScheduleConfig()
+    mesh: MeshConfig = MeshConfig()
     data: DataConfig = DataConfig()
     distill: DistillConfig = DistillConfig()
 

@@ -281,13 +281,17 @@ class PKLoader(Loader):
 
 class ArrayLoader:
     """In-memory variant (synthetic data, tests): the same epoch API over
-    uint8 arrays, shuffled per epoch from `seed + epoch`."""
+    uint8 arrays, shuffled per epoch from `seed + epoch`; `shard=(rank,
+    count)` follows Loader's law."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
                  batch_size: int, shuffle: bool = True, seed: int = 0,
-                 drop_remainder: bool = True):
+                 drop_remainder: bool = True,
+                 shard: Optional[Tuple[int, int]] = None):
         if images.dtype != np.uint8 or images.ndim != 4:
             raise ValueError("images must be uint8 [N, H, W, 3]")
+        check_shard(shard)
+        self.shard = shard
         self.images = images
         self.labels = labels.astype(np.int32)
         self.batch_size = batch_size
@@ -297,11 +301,11 @@ class ArrayLoader:
 
     def steps_per_epoch(self) -> int:
         return steps_per_epoch(len(self.images), self.batch_size,
-                               self.drop_remainder)
+                               self.drop_remainder, self.shard)
 
     def epoch(self, epoch: int = 0):
         order = epoch_order(len(self.images), self.shuffle, self.seed, epoch,
-                            None)
+                            self.shard)
         bs = self.batch_size
         for s in range(self.steps_per_epoch()):
             idxs = order[s * bs:(s + 1) * bs]

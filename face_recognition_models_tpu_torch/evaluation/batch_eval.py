@@ -8,7 +8,9 @@ or as insightface `<bench>.bin` files), and write accuracy/AUC CSV tables
 (plus an XLSX workbook when pandas and openpyxl are installed — the
 reference writes a 2-sheet workbook, evaluate_models.py:108-115).
 
-Every unique image is embedded once, on the card unless device='cpu'.
+Every unique image is embedded once, on the card unless device='cpu'. With
+a mesh each rank embeds its share of every batch (`make_embed_fn(mesh=)`),
+and rank 0 writes the tables.
 """
 
 from __future__ import annotations
@@ -39,15 +41,32 @@ from face_recognition_models_tpu_torch.evaluation.verification import (
 )
 from face_recognition_models_tpu_torch.models import get_backbone
 from face_recognition_models_tpu_torch.models.backbones import to_device
+from face_recognition_models_tpu_torch.parallel import collectives as coll
 from face_recognition_models_tpu_torch.train.step import make_eval_step
 from face_recognition_models_tpu_torch.utils.device import resolve_device
 
 
-def make_embed_fn(backbone, device=None):
+def make_embed_fn(backbone, device=None, mesh=None):
     """`embed_fn(uint8 images) -> raw fp32 embeddings` on the device (the
     port's eval step: normalise on the device, backbone in eval mode with
-    its running BatchNorm statistics)."""
-    return make_eval_step(backbone, device=device)
+    its running BatchNorm statistics). With `mesh` every rank is given the
+    whole batch, embeds its 1/data of the rows and gathers the rest over
+    the data group: the batch must divide by the data axis."""
+    step = make_eval_step(backbone, device=device)
+    if mesh is None:
+        return step
+    n_data = mesh.data
+
+    def embed(images):
+        n = images.shape[0]
+        if n % n_data:
+            raise ValueError(
+                f"batch {n} not divisible by mesh data axis {n_data}")
+        rows = n // n_data
+        part = images[mesh.data_index * rows:(mesh.data_index + 1) * rows]
+        return coll.gather_rows(step(part), mesh)
+
+    return embed
 
 
 def _load_benchmark_images(pairs: np.ndarray, imgs_dir: str,
@@ -142,13 +161,21 @@ def run_batch_evaluation(checkpoint_dir: str, eval_data_path: str,
                          fars: Sequence[float] = (),
                          flip: bool = False,
                          embed_dim: int = 512,
-                         device=None) -> int:
+                         device=None, mesh=None) -> int:
     """which: 'final' evaluates the end-of-training snapshot; 'min_loss'
     evaluates the best-by-train-loss checkpoint (the reference's
     evaluate_models.py loads <Name>_min_loss.pth). Runs on the card
     unless device='cpu' is passed. `num_classes` is accepted for the JAX
-    CLI's flag set; the embedding model does not read it."""
+    CLI's flag set; the embedding model does not read it. With `mesh` the
+    embedding passes split over its data axis (the batch rounded up to a
+    multiple of it) and rank 0 prints and writes."""
     device = resolve_device(device)
+    writer = coll.is_writer(mesh)
+    if mesh is not None and batch_size % mesh.data:
+        batch_size += mesh.data - batch_size % mesh.data
+        if writer:
+            print(f"[mesh] rounded eval batch to {batch_size} "
+                  f"({mesh.data} ranks)")
     if head is not None:
         model_names = [head]
     else:
@@ -173,7 +200,8 @@ def run_batch_evaluation(checkpoint_dir: str, eval_data_path: str,
         except Exception as e:  # missing, corrupt or another backbone's
             print(f"[skip] {name}: could not load checkpoint ({e})")
             continue
-        embed_fn = make_embed_fn(to_device(model, device), device=device)
+        embed_fn = make_embed_fn(to_device(model, device), device=device,
+                                 mesh=mesh)
         acc_row, auc_row = {"model": name}, {"model": name}
         for bench in benchmarks:
             try:
@@ -186,19 +214,22 @@ def run_batch_evaluation(checkpoint_dir: str, eval_data_path: str,
             rates = {}
             if fars:
                 res, rates = res
-            print(f"{name} on {bench}: {res}")
+            if writer:
+                print(f"{name} on {bench}: {res}")
             acc_row[bench] = res.mean_accuracy
             acc_row[f"{bench}_std"] = res.std_accuracy
             auc_row[bench] = res.mean_auc
             auc_row[f"{bench}_std"] = res.std_auc
             for far, tpr in rates.items():
-                print(f"  {bench} TPR@FAR={far:g}: {tpr * 100:.3f}%")
+                if writer:
+                    print(f"  {bench} TPR@FAR={far:g}: {tpr * 100:.3f}%")
                 acc_row[f"{bench}_tpr@far={far:g}"] = tpr * 100.0
         acc_rows.append(acc_row)
         auc_rows.append(auc_row)
 
-    os.makedirs(output_dir, exist_ok=True)
-    _write_tables(acc_rows, auc_rows, output_dir)
+    if writer:
+        os.makedirs(output_dir, exist_ok=True)
+        _write_tables(acc_rows, auc_rows, output_dir)
     return 0
 
 

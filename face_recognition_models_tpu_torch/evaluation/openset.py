@@ -1,7 +1,7 @@
 """Open-set and at-scale recognition metrics: TPR@FAR and 1:N
-identification. Port of face_recognition_models_tpu/evaluation/openset.py
-(one device; the JAX package's sharded gallery waits for the multi-GPU
-port).
+identification. Port of face_recognition_models_tpu/evaluation/openset.py,
+the gallery sharded over the ranks of a world included
+(`pooled_scores_device(shard=True)`).
 
 - **TPR@FAR** (1:1 verification at fixed false-accept rates, e.g. 1e-3):
   the operating point a deployed system runs at, where one accuracy number
@@ -27,6 +27,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from face_recognition_models_tpu_torch.utils.device import resolve_device
 
@@ -92,7 +93,8 @@ def _true_fp32_matmul():
 
 def pooled_scores_device(gallery_emb: np.ndarray, gallery_ids: np.ndarray,
                          probe_emb: np.ndarray, chunk: int = 256,
-                         device: Device = None
+                         device: Device = None,
+                         shard: Optional[bool] = None
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """[P, U] identity-pooled probe-gallery cosines computed on `device`
     (the card unless 'cpu'). The gallery, sorted by identity, goes to the
@@ -101,15 +103,34 @@ def pooled_scores_device(gallery_emb: np.ndarray, gallery_ids: np.ndarray,
     each identity's columns (scatter_reduce amax from -inf), copied to the
     host before the next chunk, so a million-image gallery never
     materialises a [P, G] matrix. Returns (pooled [P, U] on the host,
-    unique_ids)."""
+    unique_ids).
+
+    In a world of more than one rank (shard=None: whenever the process
+    group has more than one rank; shard=True asks for it), every rank
+    calls it with the same arguments and holds 1/n of the sorted gallery's
+    rows (padded rows pool into a dummy segment, dropped): it pools its
+    rows into the global [chunk, U] matrix, where identities it lacks stay
+    -inf, and an all-reduce MAX over the ranks combines them."""
     device = resolve_device(device)
     gallery_ids = np.asarray(gallery_ids)
     order = np.argsort(gallery_ids, kind="stable")
     uniq = np.unique(gallery_ids)
-    seg = torch.from_numpy(np.searchsorted(uniq, gallery_ids[order])).to(
-        device)
-    gal = torch.from_numpy(np.ascontiguousarray(
-        np.asarray(gallery_emb, np.float32)[order])).to(device)
+    n_seg = len(uniq)
+    gal_np = np.ascontiguousarray(np.asarray(gallery_emb, np.float32)[order])
+    seg_np = np.searchsorted(uniq, gallery_ids[order])
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    shard = world > 1 if shard is None else (shard and world > 1)
+    if shard:
+        pad = (-len(gal_np)) % world
+        gal_np = np.concatenate(
+            [gal_np, np.zeros((pad, gal_np.shape[1]), np.float32)])
+        seg_np = np.concatenate([seg_np, np.full(pad, n_seg, seg_np.dtype)])
+        rows = len(gal_np) // world
+        part = slice(dist.get_rank() * rows, (dist.get_rank() + 1) * rows)
+        gal_np, seg_np = gal_np[part], seg_np[part]
+    seg = torch.from_numpy(seg_np).to(device)
+    gal = torch.from_numpy(np.ascontiguousarray(gal_np)).to(device)
     p = np.asarray(probe_emb, np.float32)
     n = p.shape[0]
     out = np.empty((n, len(uniq)), np.float32)
@@ -122,10 +143,13 @@ def pooled_scores_device(gallery_emb: np.ndarray, gallery_ids: np.ndarray,
             block.zero_()
             block[:hi - lo].copy_(torch.from_numpy(p[lo:hi]))
             scores = block @ gal.T                              # [chunk, G]
-            pooled = torch.full((chunk, len(uniq)), float("-inf"),
+            pooled = torch.full((chunk, n_seg + shard), float("-inf"),
                                 device=device)
             pooled.scatter_reduce_(1, index, scores, "amax")
             del scores
+            if shard:
+                pooled = pooled[:, :n_seg].contiguous()
+                dist.all_reduce(pooled, op=dist.ReduceOp.MAX)
             out[lo:hi] = pooled[:hi - lo].cpu().numpy()
     return out, uniq
 

@@ -11,6 +11,12 @@ scale is the feature norm, whose gradient the kernels return as dscale. The
 memory-blended heads (MEM_FUSED_HEADS) also update their memory and hand the
 blend to `fused_margin_ce_mem` as (memn [D, C], lam [C]).
 
+Under a mesh (`fused_apply(..., mesh=)`) the rows are the rank's and, with
+a model axis, the kernel and the head memories are the rank's class shard:
+the target columns are gathered from their owning shard, the batch
+statistics of the row parameters are the global batch's (heads/margins.py)
+and the kernels run per shard (parallel/sharded_fused.py).
+
 subcenter_arcface and adacos have no fused path, in the JAX package either.
 `use_fused(name, head_path)` is the port's rule for `train --head-path`:
 'auto' takes the kernels for every head in FUSED_HEADS.
@@ -24,7 +30,6 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from face_recognition_models_tpu_torch.heads import margins as m
-from face_recognition_models_tpu_torch.heads.base import take_columns
 from face_recognition_models_tpu_torch.ops.fused_head import (
     MODE_CURRICULAR,
     MODE_IDENTITY,
@@ -35,6 +40,12 @@ from face_recognition_models_tpu_torch.ops.fused_head import (
 from face_recognition_models_tpu_torch.ops.normalize import (
     feature_norms,
     l2_normalize,
+)
+from face_recognition_models_tpu_torch.parallel import collectives as coll
+from face_recognition_models_tpu_torch.parallel.sharded_fused import (
+    sharded_fused_margin_ce,
+    take_class_values,
+    take_target_columns,
 )
 
 # Heads whose non-target cosine blends a per-class memory product; they use
@@ -152,7 +163,7 @@ def _row_params(cfg, tcos_raw, norms, state, rng=None) -> _RowParams:
         threshold = math.cos(math.pi - cfg.m)
         mm = math.sin(math.pi - cfg.m) * cfg.m
         t = torch.where(tcos > threshold, ctm, tcos - mm)
-        new_t = (tcos.mean() * cfg.momentum
+        new_t = (coll.batch_mean(tcos) * cfg.momentum
                  + (1.0 - cfg.momentum) * state.t).detach()
         # b is the new t, the same for every row
         ab = torch.stack([ctm, new_t.expand(n)], 1)
@@ -206,7 +217,7 @@ def _mem_row_params(cfg, kernel, xn, feats, labels, tcos_raw, state,
         # lam = 0 reproduces the `where(use_mem, blended, cos_w)` select
         lam = torch.where(use_mem, cfg.lamda * (new_life > 0).float(), 0.0)
         # target column: blend toward 1.0 (criterion.py:724-726)
-        lam_t = lam.index_select(0, target)
+        lam_t = take_class_values(lam, target, coll.active())
         cosine2 = (1.0 - lam_t) * tcos_raw + lam_t * 1.0
     elif cfg.name == "qaface":
         minput = feats if minput is None else minput.to(torch.float32)
@@ -216,7 +227,8 @@ def _mem_row_params(cfg, kernel, xn, feats, labels, tcos_raw, state,
         lam = torch.where(use_mem, (new_state.life > 0).float(), 0.0)
         # target: cosine against the RAW weight column + the injection
         # (:1479-1482); the gradient reaches `kernel` through this gather
-        target_w = take_columns(kernel.to(torch.float32), target).T
+        target_w = take_target_columns(kernel.to(torch.float32), target,
+                                       coll.active())
         cosine2 = torch.where(
             use_mem,
             (xn * l2_normalize(target_w + injection, dim=1)).sum(1),
@@ -230,27 +242,43 @@ def _mem_row_params(cfg, kernel, xn, feats, labels, tcos_raw, state,
 
 
 def fused_apply(cfg, kernel, feats, labels, state=None, rng=None,
-                minput=None) -> FusedApplyOut:
+                minput=None, mesh=None) -> FusedApplyOut:
     """Fused-path equivalent of head.apply + CE + top-k metrics.
 
     kernel [D, C]; feats [N, D]; labels [N], all in [0, C). The elastic
     heads draw their margins from the generator `rng`; QAFace takes the
-    degraded view's features through `minput`.
+    degraded view's features through `minput`. With `mesh`, feats and
+    labels are the rank's rows, kernel [D, C/mp] and the memories the
+    rank's class shard; the loss and metrics are the means over the rank's
+    rows of the global statistics.
     """
+    with coll.using(coll.active() if mesh is None else mesh):
+        return _fused_apply(cfg, kernel, feats, labels, state, rng, minput,
+                            mesh)
+
+
+def _fused_apply(cfg, kernel, feats, labels, state, rng, minput, mesh):
     feats = feats.to(torch.float32)
     xn = l2_normalize(feats, dim=1)
     wn = l2_normalize(kernel, dim=0)
     norms = feature_norms(feats)
     # target cosine: a row gather of W columns, O(N * D), whose gradient
     # adds repeated labels in a fixed order
-    tcos_raw = (xn * take_columns(wn, labels).T).sum(1)
+    tcos_raw = (xn * take_target_columns(wn, labels, mesh)).sum(1)
+    memn = lam = None
     if cfg.name in MEM_FUSED_HEADS:
         rp, memn, lam = _mem_row_params(cfg, kernel, xn, feats, labels,
                                         tcos_raw, state, minput)
+    else:
+        rp = _row_params(cfg, tcos_raw, norms, state, rng)
+    if coll.model_size(mesh) > 1:
+        out = sharded_fused_margin_ce(mesh, xn, wn, labels, rp.t, rp.tcos,
+                                      rp.scale, rp.ab, rp.mode, rp.clamp_eps,
+                                      memn=memn, lam=lam)
+    elif memn is not None:
         out = fused_margin_ce_mem(xn, wn, memn, lam, labels, rp.t, rp.tcos,
                                   rp.scale, rp.ab, rp.mode, rp.clamp_eps)
     else:
-        rp = _row_params(cfg, tcos_raw, norms, state, rng)
         out = fused_margin_ce(xn, wn, labels, rp.t, rp.tcos, rp.scale, rp.ab,
                               rp.mode, rp.clamp_eps)
     loss_id = (out.lse - out.target_logit).mean()

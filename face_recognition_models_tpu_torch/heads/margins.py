@@ -9,6 +9,13 @@ apply (the JAX package's state pytrees); the train step detaches it before
 keeping it. A label of -1 (ignore) takes no margin: its one-hot row is zero.
 The elastic heads draw their per-sample margins from the `rng` generator
 the step passes (`_normal_noise`, one draw a step).
+
+Under an active mesh (parallel/collectives.using) the batch statistics are
+the global batch's, as GSPMD makes them in the JAX step: CurricularFace's t,
+AdaFace's norm mean and std, QAFace's magnitude mean and std (with their
+gradient), AdaCos's B_avg and median angle; the elastic margins are drawn
+and ranked over the global batch; the memory heads update their (class-
+sharded) memories from the global batch's features and labels.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from face_recognition_models_tpu_torch.ops.normalize import (
     feature_norms,
     l2_normalize,
 )
+from face_recognition_models_tpu_torch.parallel import collectives as coll
 
 
 def _xavier_uniform_kernel(cfg, generator: torch.Generator,
@@ -95,10 +103,19 @@ def _memory_step(cfg, values, labels, state):
     """The memory update both heads share: class means of `values` (without
     gradient), kept only while the state trains and the batch has a valid
     label. Returns (new_mem, new_life, use_mem); use_mem is a 0-d device
-    tensor, so the step needs no host sync."""
-    new_mem, new_life, any_valid = _class_mean_update(
-        values.detach(), labels, labels >= 0, state.mem, state.life,
-        cfg.delta)
+    tensor, so the step needs no host sync. Under an active mesh the means
+    are the global batch's, written into the rank's shard of the classes
+    when the memory is one."""
+    values = coll.gather_rows(values.detach())
+    labels = coll.gather_rows(labels)
+    any_valid = (labels >= 0).any()
+    c_local = state.mem.shape[0]
+    if c_local < cfg.num_classes:
+        offset, _ = coll.class_range(c_local)
+        labels = labels - offset
+        labels = torch.where((labels >= 0) & (labels < c_local), labels, -1)
+    new_mem, new_life, _ = _class_mean_update(
+        values, labels, labels >= 0, state.mem, state.life, cfg.delta)
     use_mem = state.training_flag & any_valid
     return (torch.where(use_mem, new_mem, state.mem),
             torch.where(use_mem, new_life, state.life), use_mem)
@@ -303,7 +320,7 @@ def _curricularface_apply(cfg, kernel, feats, labels,
     final_target = torch.where(t_cos > threshold, ctm, t_cos - mm)
     # t moves BEFORE the hard negatives are scaled, and the new t scales
     # them (criterion.py:569-575)
-    new_t = (t_cos.mean() * cfg.momentum
+    new_t = (coll.batch_mean(t_cos) * cfg.momentum
              + (1.0 - cfg.momentum) * state.t).detach()
     cos = torch.where(mask, cos * (new_t + cos), cos)
     cos = one_hot * final_target + (1.0 - one_hot) * cos
@@ -387,8 +404,8 @@ def _adaface_scaler(cfg, norms, state: AdaFaceState):
     torch's .std(); the EMA leans toward the current batch, as the
     reference's does."""
     safe_norms = norms.clamp(0.001, 100.0).detach()
-    mean = safe_norms.mean()
-    std = safe_norms.std(correction=1)
+    mean = coll.batch_mean(safe_norms)
+    std = torch.sqrt(coll.batch_var(safe_norms, 1))
     new_mean = mean * cfg.t_alpha + (1.0 - cfg.t_alpha) * state.batch_mean
     new_std = std * cfg.t_alpha + (1.0 - cfg.t_alpha) * state.batch_std
     scaler = ((safe_norms - new_mean) / (new_std + cfg.eps) * cfg.h).clamp(
@@ -445,12 +462,14 @@ def _elastic_margin(rng, t_cos, valid, m: float, std: float, plus: bool):
     sorted margins are laid out by the rank of the target cosine
     (criterion.py:1003-1012), with stable sorts as jnp's. 0 where not
     valid."""
-    margin = m + std * _normal_noise(rng, t_cos.shape[0], t_cos.device)
+    n_all = coll.global_rows(t_cos.shape[0])
+    margin = m + std * _normal_noise(rng, n_all, t_cos.device)
     margin = margin.clamp(m - std, m + std)
     if plus:
-        rank = torch.argsort(-t_cos.detach(), stable=True)
+        t_all = coll.gather_rows(t_cos.detach())
+        rank = torch.argsort(-t_all, stable=True)
         margin = torch.sort(margin, stable=True).values[rank]
-    return torch.where(valid, margin, 0.0)
+    return torch.where(valid, coll.local_rows(margin), 0.0)
 
 
 def _elastic_apply(cfg, kernel, feats, labels, rng, arc: bool) -> HeadOutput:
@@ -565,11 +584,11 @@ def _qaface_step(cfg, minput, labels, state: QAFaceState):
     magnitudes (criterion.py:1438-1469). Gradients flow through the
     injection and the magnitude statistics, as in the JAX package."""
     mag = feature_norms(minput)                           # [N, 1]
-    mag_mean = mag.mean()
+    mag_mean = coll.batch_mean(mag)
     # torch .std() semantics (ddof=1) with a finite gradient at zero
     # variance: sqrt'(0) = inf would NaN the backward when every magnitude
     # in the batch is equal. The inner where keeps sqrt away from 0.
-    var = mag.var(correction=1)
+    var = coll.batch_var(mag, 1)
     mag_std = torch.where(var > 0, torch.sqrt(torch.where(var > 0, var, 1.0)),
                           0.0)
     first = state.muy == 0.0
@@ -725,8 +744,10 @@ def _adacos_apply(cfg, kernel, feats, labels, state: AdaCosState, rng=None,
     one_hot = _one_hot(labels, cfg.num_classes)
     if cfg.dynamic:
         theta = torch.acos(_target_cos(cos, one_hot)[:, 0])
-        b_avg = ((1.0 - one_hot) * torch.exp(state.s * cos)).sum(1).mean()
-        theta_med = _median(theta).clamp(0.0, cfg.theta_clip)
+        b_avg = coll.batch_mean(
+            ((1.0 - one_hot) * torch.exp(state.s * cos)).sum(1))
+        theta_med = _median(coll.gather_rows(theta.detach())).clamp(
+            0.0, cfg.theta_clip)
         s_new = (torch.log(b_avg.clamp_min(1e-12))
                  / torch.cos(theta_med)).detach().reshape(1)
         new_state = AdaCosState(s_new)

@@ -6,7 +6,9 @@ run and a CUDA graph of K steps (which registers that generator) draw what
 an uninterrupted eager run draws. The laws are flax's: `nn.Dropout` keeps
 each element with probability keep = 1 - rate and scales it by 1 / keep;
 EfficientNet's stochastic depth keeps each row's residual branch the same
-way (face_recognition_models_tpu/models/efficientnet.py:87-91).
+way (face_recognition_models_tpu/models/efficientnet.py:87-91). Under an
+active mesh a mask is drawn for the global batch and each rank keeps its
+rows, as the JAX step draws it at global shape.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from face_recognition_models_tpu_torch.parallel import collectives as coll
+
 
 def _keep_mask(shape, keep: float, rng: Optional[torch.Generator],
                device) -> torch.Tensor:
@@ -22,7 +26,9 @@ def _keep_mask(shape, keep: float, rng: Optional[torch.Generator],
         raise ValueError(
             "a train-mode forward with dropout needs the step's generator: "
             "call the backbone with rng=<torch.Generator>")
-    return torch.rand(shape, generator=rng, device=device) < keep
+    shape = (coll.global_rows(shape[0]),) + tuple(shape[1:])
+    return coll.local_rows(torch.rand(shape, generator=rng,
+                                      device=device)) < keep
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator],

@@ -22,6 +22,13 @@ numerically the same conv.
 downsample's included) is the identity, and a train-mode forward raises.
 Its weights come from `models/folding.fold_resnet_bn`.
 
+Under an active mesh with a data axis (parallel/collectives.using), a
+train-mode BatchNorm takes its mean and variance over the global batch: the
+sums go over the data group in the forward and in the backward
+(`_SyncedBatchNorm`), as flax's BatchNorm does over a batch sharded by GSPMD,
+so the running averages are the same on every rank. Without one the path is
+the one-process one, bit for bit.
+
 `running_stats_frozen(model)` runs train-mode forwards (batch statistics)
 that leave the running buffers as they are: the JAX train step runs QAFace's
 degraded view in train mode and drops the statistics it mutates.
@@ -33,8 +40,11 @@ import contextlib
 from typing import Iterator, Optional, Sequence, Type
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from face_recognition_models_tpu_torch.parallel import collectives as coll
 
 
 # the compute dtypes a trunk runs its convolutions and Dense layers in
@@ -46,6 +56,56 @@ def stats_dtype(x: torch.Tensor) -> torch.dtype:
     """The dtype of a normalisation's statistics: fp32, or fp64 for fp64
     input (flax promotes the statistics' dtype to at least fp32)."""
     return torch.promote_types(x.dtype, torch.float32)
+
+
+def _stat_shape(x: torch.Tensor):
+    return (1, -1) if x.dim() == 2 else (1, -1, 1, 1)
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalisation with the statistics of the global
+    batch: (y, mean, biased var) of x, whose rows are the rank's. The
+    forward sums over the data group twice (the mean, then the squared
+    deviations); the backward once (the sums of dy and dy * xhat). The
+    affine gradients are the rank's own sums, which the train step averages
+    with the other gradients."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group, n_all):
+        dims = (0,) if x.dim() == 2 else (0, 2, 3)
+        shape = _stat_shape(x)
+        xf = x.to(stats_dtype(x))
+        total = xf.sum(dims)
+        dist.all_reduce(total, group=group)
+        mean = total / n_all
+        xc = xf - mean.view(shape)
+        sq = (xc * xc).sum(dims)
+        dist.all_reduce(sq, group=group)
+        var = sq / n_all
+        invstd = torch.rsqrt(var + eps)
+        y = (xc * invstd.view(shape) * weight.view(shape)
+             + bias.view(shape))
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.n_all = group, n_all
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dims = (0,) if x.dim() == 2 else (0, 2, 3)
+        shape = _stat_shape(x)
+        xhat = (x.to(dy.dtype) - mean.view(shape)) * invstd.view(shape)
+        sums = torch.stack([dy.sum(dims), (dy * xhat).sum(dims)])
+        g_weight, g_bias = sums[1].clone(), sums[0].clone()
+        dist.all_reduce(sums, group=ctx.group)
+        dx = (weight * invstd).view(shape) * (
+            dy - (sums[0] / ctx.n_all).view(shape)
+            - xhat * (sums[1] / ctx.n_all).view(shape))
+        return (dx.to(x.dtype),
+                g_weight if ctx.needs_input_grad[1] else None,
+                g_bias if ctx.needs_input_grad[2] else None,
+                None, None, None)
 
 
 class BatchNorm(nn.Module):
@@ -84,6 +144,9 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(self.dtype)
+        mesh = coll.active()
+        if mesh is not None and mesh.data > 1:
+            return self._synced(x, mesh)
         if self.update_stats:
             with torch.no_grad():
                 dims = (0,) if x.dim() == 2 else (0, 2, 3)
@@ -94,6 +157,20 @@ class BatchNorm(nn.Module):
                 self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps).to(self.dtype)
+
+    def _synced(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        n_all = x.numel() // x.shape[1] * mesh.data
+        y, mean, var = _SyncedBatchNorm.apply(
+            x, self.weight.to(stats_dtype(x)), self.bias.to(stats_dtype(x)),
+            self.eps, mesh.data_group, n_all)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(
+                    mean, alpha=1 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(
+                    var, alpha=1 - self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y.to(self.dtype)
 
 
 @contextlib.contextmanager

@@ -24,6 +24,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from face_recognition_models_tpu_torch.parallel import collectives as coll
+
 
 def normalization_constants(mean: Sequence[float] = (0.5, 0.5, 0.5),
                             std: Sequence[float] = (0.5, 0.5, 0.5),
@@ -170,17 +172,24 @@ def apply_augmentations(gen: Optional[torch.Generator], images: torch.Tensor,
     """The train-time chain on normalised NHWC float images, in the JAX
     order: flip -> shift-crop -> jitter -> erasing, with parameters drawn
     from `gen` on the card. A disabled op draws nothing, so the default
-    recipe leaves the batch and the generator as they are."""
+    recipe leaves the batch and the generator as they are. Under an active
+    mesh the draws are the global batch's and each rank keeps its rows
+    (parallel/collectives.py)."""
     n, h, w, _ = images.shape
-    dev = images.device
+    n_all, dev = coll.global_rows(n), images.device
+
+    def rows(*draws):
+        return tuple(coll.local_rows(d) for d in draws)
+
     if horizontal_flip:
-        images = apply_flip(images, draw_flip(gen, n, dev))
+        images = apply_flip(images, *rows(draw_flip(gen, n_all, dev)))
     if crop_pad > 0:
-        images = apply_shift(images, *draw_shift(gen, n, crop_pad, dev))
+        images = apply_shift(images, *rows(*draw_shift(gen, n_all, crop_pad,
+                                                       dev)))
     if color_jitter > 0.0:
-        images = apply_jitter(images, *draw_jitter(gen, n, color_jitter,
-                                                   dev))
+        images = apply_jitter(images, *rows(*draw_jitter(
+            gen, n_all, color_jitter, dev)))
     if erasing > 0.0:
-        images = apply_erasing(images, *draw_erasing(gen, n, h, w, erasing,
-                                                     dev))
+        images = apply_erasing(images, *rows(*draw_erasing(
+            gen, n_all, h, w, erasing, dev)))
     return images

@@ -2,7 +2,22 @@
 loop.py, with checkpoints and resume, the optimizer factory, clipping,
 gradient accumulation, the model EMA, the frozen trunk, the augmentations,
 distillation and Partial-FC (`cfg.partial_fc`, train/partial_fc.py, with
-the JAX loop's checks and its dense fallback); without the mesh.
+the JAX loop's checks and its dense fallback), and the ('data', 'model')
+mesh.
+
+Under a world of more than one rank (parallel/dist.initialize) `fit` builds
+the mesh of `cfg.mesh` by itself, as the JAX `fit` does with more than one
+device: the loader gives the rank's rows (a shard of cfg.batch_size //
+data per step, by the rank's data coordinate), the state is sharded by the
+rules of parallel/sharding.py, the step averages the gradients over the
+data group, and with a model axis the fused head (or, with
+`cfg.partial_fc`, train/partial_fc_sharded.py) runs per class shard. The
+losses are the global batch's on every rank; rank 0 alone prints and
+writes the checkpoints, and every rank takes the same stop decision: the
+ranks vote on a signal at `print_freq` steps and at each epoch's end, so a
+preempted world stops at the first of those after the signal.
+`scan_steps` K > 1 runs a chunk's K steps one at a time (gloo collectives
+cannot be captured in a CUDA graph); the results are the same.
 
 Metrics stay on the device and are read (which waits for the card) only at
 `print_freq` steps and at the end of each epoch. Heads that need a second
@@ -38,6 +53,8 @@ from face_recognition_models_tpu_torch import config as cfg_lib
 from face_recognition_models_tpu_torch.models import get_backbone
 from face_recognition_models_tpu_torch.models.backbones import to_device
 from face_recognition_models_tpu_torch.ops.image_ops import degrade_images
+from face_recognition_models_tpu_torch.parallel import collectives as coll
+from face_recognition_models_tpu_torch.parallel import dist as pdist
 from face_recognition_models_tpu_torch.train.graphed import (
     ChunkRunner,
     make_chunk_fn,
@@ -45,6 +62,9 @@ from face_recognition_models_tpu_torch.train.graphed import (
 from face_recognition_models_tpu_torch.train.partial_fc import (
     make_partial_fc_train_step,
     num_sampled_classes,
+)
+from face_recognition_models_tpu_torch.train.partial_fc_sharded import (
+    make_sharded_partial_fc_train_step,
 )
 from face_recognition_models_tpu_torch.train.schedules import get_schedule
 from face_recognition_models_tpu_torch.train.state import create_train_state
@@ -222,10 +242,13 @@ def _prepare_teacher(cfg: cfg_lib.TrainConfig, head_cfg, teacher,
     return teacher
 
 
-def partial_fc_classes(cfg: cfg_lib.TrainConfig, head_cfg) -> int:
+def partial_fc_classes(cfg: cfg_lib.TrainConfig, head_cfg,
+                       model: int = 1) -> int:
     """The Partial-FC sample size C_s of cfg, or 0 for the dense path: the
     JAX loop's refusals (train/loop.py:126-130, 181-185, 211-216,
-    228-242) and its dense fallback (:243-258), on one device."""
+    228-242) and its dense fallback (:243-258). With a model axis of
+    `model` > 1 the size is per class shard, and the fallback is judged on
+    the shard's C / model classes."""
     ratio = float(cfg.partial_fc)
     if ratio <= 0.0:
         return 0
@@ -255,24 +278,27 @@ def partial_fc_classes(cfg: cfg_lib.TrainConfig, head_cfg) -> int:
             "sampled classifier columns bypass the optimizer); "
             "use --clip-grad-norm 0 or --partial-fc 0")
     num_classes = head_cfg.num_classes
-    n_sampled = num_sampled_classes(num_classes, ratio, cfg.batch_size)
-    if cfg.batch_size >= num_classes or n_sampled >= num_classes:
+    c_min = num_classes // max(model, 1)
+    n_sampled = num_sampled_classes(c_min, ratio, cfg.batch_size)
+    if cfg.batch_size >= c_min or n_sampled >= c_min:
         # sampling cannot beat dense when the sample must cover (almost)
         # every class
-        print(f"[partial_fc] C={num_classes} too small for batch "
+        shard = "" if model <= 1 else f" (per-shard {c_min})"
+        print(f"[partial_fc] C={num_classes}{shard} too small for batch "
               f"{cfg.batch_size} / ratio {ratio} — using the dense path")
         return 0
     return n_sampled
 
 
 def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
-                schedule=None, teacher=None, warm_start=None):
+                schedule=None, teacher=None, warm_start=None, mesh=None):
     """(head, state, step) of cfg's recipe on `device`: the train state
     (optimizer, accumulation, EMA) and the train step with the schedule,
     augmentations, teacher (given, or loaded from cfg.distill) and frozen
     trunk cfg names, or Partial-FC's step (partial_fc_classes). `warm_start`,
     a backbone state_dict, replaces the initial backbone (and the EMA's copy
-    of it), as the JAX `fit`'s warm_start does."""
+    of it), as the JAX `fit`'s warm_start does. `mesh` makes them one
+    rank's (module docstring)."""
     if cfg.backbone.lower() == "inception_v3":
         raise ValueError(
             "fit cannot train inception_v3: its dropout would need the "
@@ -282,13 +308,19 @@ def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
             "generator. inception_v3 embeds, exports and serves; the "
             "triplet path trains it (`facenet --backbone inception_v3`, "
             "triplet/train.py)")
-    n_sampled = partial_fc_classes(cfg, head_cfg)
+    model = 1 if mesh is None else mesh.model
+    if model > 1 and cfg.optimizer.clip_grad_norm > 0.0:
+        raise ValueError(
+            "clip_grad_norm with a class-sharded kernel (mesh model > 1) is "
+            "not supported: the global norm would need the kernel shards' "
+            "squares summed over the model axis; use --mesh-model 1 or "
+            "--clip-grad-norm 0")
+    n_sampled = partial_fc_classes(cfg, head_cfg, model)
     teacher = _prepare_teacher(cfg, head_cfg, teacher, device)
-    if n_sampled:
-        _, head, state = create_train_state(cfg, head_cfg, device,
-                                            partial_fc=True)
-    else:
-        _, head, state = create_train_state(cfg, head_cfg, device)
+    kw = {"partial_fc": True} if n_sampled else {}
+    if mesh is not None:
+        kw["mesh"] = mesh
+    _, head, state = create_train_state(cfg, head_cfg, device, **kw)
     if warm_start is not None:
         state.backbone.load_state_dict(warm_start)
         if state.ema is not None:
@@ -301,19 +333,25 @@ def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
                    random_erasing=data.random_erasing)
     if n_sampled:
         opt = cfg.optimizer
-        step_fn = make_partial_fc_train_step(
-            head, head_cfg, n_sampled, lr_schedule=schedule,
-            momentum=opt.momentum, weight_decay=opt.weight_decay,
-            nesterov=opt.nesterov, lambda_g=cfg.lambda_g,
-            logq_correction=cfg.partial_fc_logq, model_ema=cfg.model_ema,
-            **augment)
+        common = dict(
+            lr_schedule=schedule, momentum=opt.momentum,
+            weight_decay=opt.weight_decay, nesterov=opt.nesterov,
+            lambda_g=cfg.lambda_g, logq_correction=cfg.partial_fc_logq,
+            model_ema=cfg.model_ema, **augment)
+        if model > 1:
+            step_fn = make_sharded_partial_fc_train_step(
+                head, head_cfg, n_sampled, mesh, **common)
+        else:
+            step_fn = make_partial_fc_train_step(head, head_cfg, n_sampled,
+                                                 mesh=mesh, **common)
         return head, state, step_fn
     step_fn = make_train_step(
         head, head_cfg, lr_schedule=schedule,
         use_fused_head=cfg.use_fused_head, lambda_g=cfg.lambda_g,
         teacher=teacher, distill_weight=cfg.distill.weight,
         distill_mode=cfg.distill.mode, freeze_backbone=cfg.freeze_backbone,
-        grad_accum=cfg.grad_accum, model_ema=cfg.model_ema, **augment)
+        grad_accum=cfg.grad_accum, model_ema=cfg.model_ema, mesh=mesh,
+        **augment)
     return head, state, step_fn
 
 
@@ -321,7 +359,7 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
         head_cfg=None, checkpoint_manager: Optional[Any] = None,
         teacher: Optional[torch.nn.Module] = None,
         hooks: Optional[Callable] = None,
-        warm_start: Optional[dict] = None) -> FitResult:
+        warm_start: Optional[dict] = None, mesh=None) -> FitResult:
     """Train for cfg.epochs over `loader` (any object with steps_per_epoch()
     and epoch(i) -> iterator of (uint8 NHWC images, int labels)).
 
@@ -331,10 +369,16 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     `teacher` (a backbone module; needs cfg.distill.weight > 0) is the
     in-memory alternative to cfg.distill.checkpoint_dir. `hooks` is
     called at each epoch's end (module docstring). `warm_start` is a
-    backbone state_dict to start from (make_recipe).
+    backbone state_dict to start from (make_recipe). `mesh`
+    (parallel/mesh.Mesh) defaults to make_mesh(cfg.mesh) in a world of
+    more than one rank; `loader` then yields the rank's rows.
     Runs on the card unless device='cpu' is passed; raises without one.
     """
     device = resolve_device(device)
+    if mesh is None and pdist.world_size() > 1:
+        from face_recognition_models_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(cfg.mesh)
+    writer = coll.is_writer(mesh)
     if head_cfg is None:
         head_cfg = cfg_lib.make_head_config(cfg.head,
                                             num_classes=cfg.num_classes)
@@ -342,10 +386,15 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     if steps_per_epoch <= 0:
         raise ValueError("loader yields no full batches")
     scan_k = max(1, int(cfg.scan_steps))
+    if mesh is not None and scan_k > 1:
+        if writer:
+            print(f"[mesh] scan_steps {scan_k}: a chunk's steps run one at "
+                  "a time (no CUDA graph of collectives under a mesh)")
+        scan_k = 1
     schedule = get_schedule(cfg.schedule, cfg.optimizer.learning_rate,
                             steps_per_epoch, cfg.epochs, device=device)
     head, state, step_fn = make_recipe(cfg, head_cfg, device, schedule,
-                                       teacher, warm_start)
+                                       teacher, warm_start, mesh)
     runner = (ChunkRunner(make_chunk_fn(step_fn, head.requires_minput),
                           scan_k, device) if scan_k > 1 else None)
 
@@ -353,21 +402,23 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     start_epoch = 1
     if checkpoint_manager is not None:
         if cfg.continue_train is None:
-            checkpoint_manager.reset()
+            checkpoint_manager.reset(mesh=mesh)
         else:
             restored, start_epoch, loss = checkpoint_manager.restore(
-                state, mode=cfg.continue_train)
+                state, mode=cfg.continue_train, mesh=mesh)
             if restored is not None:
                 # a non-finite saved loss must not block every later best
                 min_train_loss = loss if np.isfinite(loss) else float("inf")
-                print(f"### Resuming from epoch {start_epoch - 1} "
-                      f"(train_loss={loss:.6f}) ###")
+                if writer:
+                    print(f"### Resuming from epoch {start_epoch - 1} "
+                          f"(train_loss={loss:.6f}) ###")
 
     stage = HostStaging(device, buffers=2 * scan_k)
     preempted = {"set": False}
     previous = (_install_preemption_handlers(preempted)
                 if checkpoint_manager is not None else {})
     last_epoch = cfg.epochs + start_epoch - 1
+    data = coll.data_size(mesh)   # images_per_sec counts the global batch
     all_losses, step_seconds = [], []
     total_images = steps_run = 0
     t_start = end = time.perf_counter()
@@ -386,19 +437,30 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
         runner.fill(stage, batches)
         return runner.run(state)
 
+    def stop_now(vote_here):
+        """Whether to stop after this step. Without a mesh, once a signal
+        has come; under one, the ranks vote only where `vote_here` is true
+        on every rank alike (print steps and the epoch's end), so each
+        stops at the same step without a host sync every step."""
+        if mesh is None or checkpoint_manager is None:
+            return preempted["set"]
+        return vote_here and coll.any_rank(preempted["set"], mesh)
+
     try:
         for epoch in range(start_epoch, last_epoch + 1):
             losses = []   # per-step 0-d tensors and [K] chunk vectors
             i = 0         # steps done this epoch
+            stop = False
             for work in _chunks(loader.epoch(epoch), scan_k):
                 n = len(work)
                 metrics = (run_chunk(work) if runner is not None
                            and n == scan_k else run_single(*work[0]))
                 losses.append(metrics["loss"])
                 first, i = i, i + n
-                total_images += sum(len(b[0]) for b in work)
+                total_images += sum(len(b[0]) for b in work) * data
                 steps_run += n
-                if first % cfg.print_freq < n:
+                print_step = first % cfg.print_freq < n
+                if writer and print_step:
                     m = {k: float(v.reshape(-1)[-1])
                          for k, v in metrics.items()}
                     print(f"Epoch: [{epoch}/{last_epoch}][{i}/"
@@ -409,25 +471,31 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
                 now = time.perf_counter()
                 step_seconds += [(now - end) / n] * n
                 end = now
-                if preempted["set"]:
+                stop = stop_now(print_step)
+                if stop:
                     break
+            stop = stop or stop_now(True)
+            preempted["set"] = preempted["set"] or stop
             epoch_losses = [float(x) for v in losses
                             for x in v.reshape(-1).tolist()]
             all_losses += epoch_losses
             train_loss = float(np.mean(epoch_losses))
-            if preempted["set"]:
-                checkpoint_manager.save(state, epoch - 1, train_loss)
-                print(f"### Preemption: saved checkpoint at epoch "
-                      f"{epoch - 1} step {i} — resume with "
-                      f"continue_train='latest' ###", flush=True)
+            if stop:
+                checkpoint_manager.save(state, epoch - 1, train_loss,
+                                        mesh=mesh)
+                if writer:
+                    print(f"### Preemption: saved checkpoint at epoch "
+                          f"{epoch - 1} step {i} — resume with "
+                          f"continue_train='latest' ###", flush=True)
                 break
             if checkpoint_manager is not None:
                 if train_loss < min_train_loss:
                     min_train_loss = train_loss
                     checkpoint_manager.save(state, epoch, train_loss,
-                                            is_best=True)
-                    print(f"New best model saved: {train_loss:.6f}")
-                checkpoint_manager.save(state, epoch, train_loss)
+                                            is_best=True, mesh=mesh)
+                    if writer:
+                        print(f"New best model saved: {train_loss:.6f}")
+                checkpoint_manager.save(state, epoch, train_loss, mesh=mesh)
             else:
                 min_train_loss = min(min_train_loss, train_loss)
             if hooks is not None:

@@ -1,6 +1,6 @@
 """Partial-FC sampled-classifier training. Port of
-face_recognition_models_tpu/train/partial_fc.py, without the class-sharded
-step.
+face_recognition_models_tpu/train/partial_fc.py; the class-sharded step is
+train/partial_fc_sharded.py.
 
 At production identity counts the classifier dominates the step. Partial FC
 (An et al., "Partial FC: Training 10 Million Identities on a Single
@@ -37,7 +37,10 @@ runs eagerly and inside a CUDA graph of K steps (`--scan-steps`):
 Supported heads: the ten without per-class memories, sub-centers or a
 full-softmax statistic (UNSUPPORTED_HEADS says why for the other four).
 The head is always the eager head of heads/margins.py at C_s columns,
-whatever the run's head path, as in the JAX package.
+whatever the run's head path, as in the JAX package. Over a data-only mesh
+(`mesh=`) every rank samples from the global batch's labels with the same
+draws, and the sampled columns' and the backbone's gradients are averaged
+over the data group.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from face_recognition_models_tpu_torch.ops.image_ops import (
     apply_augmentations,
     normalization_constants,
 )
+from face_recognition_models_tpu_torch.parallel import collectives as coll
 from face_recognition_models_tpu_torch.train.losses import mean_cross_entropy
 from face_recognition_models_tpu_torch.train.metrics import topk_accuracy
 from face_recognition_models_tpu_torch.train.state import TrainState
@@ -197,9 +201,10 @@ def make_partial_fc_train_step(
         horizontal_flip: bool = False, crop_pad: int = 0,
         color_jitter: float = 0.0, random_erasing: float = 0.0,
         logq_correction: bool = True, model_ema: float = 0.0,
-        device=None) -> Callable:
+        device=None, mesh=None) -> Callable:
     """Build step(state, images, labels, minput_images=None)
-    -> (state, metrics), the sampled-classifier train step.
+    -> (state, metrics), the sampled-classifier train step (one rank's of
+    a data-only `mesh`: module docstring).
 
     `state.optimizer` updates the backbone alone; `state.kernel_w` [D, C]
     and `state.kernel_mom` (init_partial_fc_opt_state) follow the manual
@@ -225,16 +230,25 @@ def make_partial_fc_train_step(
 
     def train_step(state: TrainState, images, labels, minput_images=None):
         del minput_images  # the memory heads (its users) are unsupported
+        if mesh is None:
+            return one_step(state, images, labels)
+        with coll.using(mesh):
+            state, metrics = one_step(state, images, labels)
+            return state, coll.average_metrics(metrics, mesh)
+
+    def one_step(state, images, labels):
         images = torch.as_tensor(images).to(device, non_blocking=True)
         if images.dtype == torch.uint8:
             images = images.to(torch.float32) * scale + bias
         images = apply_augmentations(state.rng, images, horizontal_flip,
                                      crop_pad, color_jitter, random_erasing)
         labels = torch.as_tensor(labels).to(device, non_blocking=True)
-        kernel, n = state.kernel_w, labels.shape[0]
+        labels_all = coll.gather_rows(labels)
+        kernel, n = state.kernel_w, labels_all.shape[0]
         num_classes = kernel.shape[1]
         classes, col_valid, target = sample_classes(
-            state.rng, labels, num_classes, num_sampled)
+            state.rng, labels_all, num_classes, num_sampled)
+        target = coll.local_rows(target)
         # a padded positive slot takes slot 0's column (always a valid
         # positive) for its gather and its write-back
         cols = torch.where(col_valid, classes, classes[:1])
@@ -264,6 +278,7 @@ def make_partial_fc_train_step(
             lr = lr_schedule(state.count)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        coll.average_gradients([*state.backbone.parameters(), w_s], mesh)
         with torch.no_grad():
             state.lr.copy_(lr)
             state.optimizer.step(state.lr)

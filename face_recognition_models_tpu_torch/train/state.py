@@ -30,6 +30,7 @@ from face_recognition_models_tpu_torch.heads import get_head
 from face_recognition_models_tpu_torch.models import get_backbone
 from face_recognition_models_tpu_torch.models.backbones import to_device
 from face_recognition_models_tpu_torch.models.resnet import init_weights
+from face_recognition_models_tpu_torch.parallel import sharding
 from face_recognition_models_tpu_torch.train.accum import MultiSteps
 from face_recognition_models_tpu_torch.train.optim import get_optimizer
 from face_recognition_models_tpu_torch.utils.pretrained import (
@@ -127,7 +128,7 @@ def build_backbone(cfg: TrainConfig, head_cfg) -> nn.Module:
 
 
 def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device,
-                       partial_fc: bool = False):
+                       partial_fc: bool = False, mesh=None):
     """Initialise (backbone, head, TrainState) from cfg.seed on `device`;
     with cfg.pretrained_path the backbone then takes that state_dict, on
     the CPU, before it moves to `device`. The optimizer is cfg.optimizer's
@@ -136,7 +137,10 @@ def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device,
     cfg.grad_accum > 1; with cfg.model_ema > 0 the EMA starts as a copy of
     the initial parameters. With `partial_fc` the optimizer holds the
     backbone alone and `kernel_mom` starts at zero (Partial-FC's manual
-    update of kernel_w)."""
+    update of kernel_w). With `mesh` every rank makes the whole state from
+    the seed and keeps its class shard of the kernel and of the head
+    memories (parallel/sharding.py); the optimizer, the EMA and kernel_mom
+    follow the shard."""
     gen = torch.Generator().manual_seed(cfg.seed)
     backbone = build_backbone(cfg, head_cfg)
     init_weights(backbone, gen)
@@ -144,7 +148,11 @@ def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device,
         load_pretrained_backbone(cfg.pretrained_path, cfg.backbone, backbone)
     backbone = to_device(backbone, device)
     head = get_head(cfg.head)
-    kernel_w = nn.Parameter(head.init_kernel(head_cfg, gen, device))
+    kernel = head.init_kernel(head_cfg, gen, device)
+    if mesh is not None and mesh.model > 1:
+        kernel = sharding.shard(kernel, sharding.spec_for(
+            "kernel_w", kernel.shape, head_cfg.num_classes), mesh)
+    kernel_w = nn.Parameter(kernel)
     opt = cfg.optimizer
     trained = [*backbone.parameters()] + ([] if partial_fc else [kernel_w])
     optimizer = get_optimizer(opt.name, trained,
@@ -156,7 +164,9 @@ def create_train_state(cfg: TrainConfig, head_cfg, device: torch.device,
         optimizer = MultiSteps(optimizer, cfg.grad_accum)
     state = TrainState(backbone=backbone, kernel_w=kernel_w,
                        optimizer=optimizer,
-                       head_state=head.init_state(head_cfg, device),
+                       head_state=sharding.shard_head_state(
+                           head.init_state(head_cfg, device),
+                           head_cfg.num_classes, mesh),
                        rng=torch.Generator(device=device).manual_seed(
                            cfg.seed))
     if partial_fc:

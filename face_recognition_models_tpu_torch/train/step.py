@@ -25,6 +25,16 @@ So the same function runs eagerly and inside a CUDA graph of K steps
 (train/graphed.py). Under grad_accum = K the update's lr is the schedule's
 at the start of the micro-step's K-cycle, schedule((count // K) * K), and
 the metric `lr` the schedule's at the count, as in the JAX package.
+
+With `mesh` (parallel/mesh.Mesh) the step is one rank's share of the global
+step: the batch is the rank's rows, the kernel and the head memories its
+class shard. The step runs under `collectives.using(mesh)`, so BatchNorm,
+the heads' batch statistics and every per-row draw are the global batch's;
+the fused head combines its class shards over the model group
+(parallel/sharded_fused.py); the eager head gathers the whole kernel and
+head state first (its [N, C] logits then take the memory the fused head
+saves); the gradients are averaged over the data group before the update,
+and the metrics are the global batch's means on every rank.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ from face_recognition_models_tpu_torch.ops.image_ops import (
     apply_augmentations,
     normalization_constants,
 )
+from face_recognition_models_tpu_torch.parallel import collectives as coll
+from face_recognition_models_tpu_torch.parallel import sharding
 from face_recognition_models_tpu_torch.train.losses import mean_cross_entropy
 from face_recognition_models_tpu_torch.train.metrics import topk_accuracy
 from face_recognition_models_tpu_torch.train.state import TrainState
@@ -77,7 +89,7 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
                     distill_weight: float = 0.0,
                     distill_mode: str = "cosine",
                     freeze_backbone: bool = False, grad_accum: int = 1,
-                    model_ema: float = 0.0) -> Callable:
+                    model_ema: float = 0.0, mesh=None) -> Callable:
     """Build step(state, images, labels, minput_images=None)
     -> (state, metrics).
 
@@ -94,7 +106,8 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
     state's generator in its train-mode forwards (`rng=`): the dropout and
     stochastic depth of mobilenet_v2 and efficientnet_b0 draw their masks
     from it, as the JAX step gives those two trunks its dropout key. Runs
-    on the card unless device='cpu' is passed.
+    on the card unless device='cpu' is passed. `mesh` makes it a rank's
+    step of a multi-process run (module docstring).
     """
     device = resolve_device(device)
     if use_fused_head and not fused_supported(head_cfg.name):
@@ -129,6 +142,29 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
         return state.backbone(images, **kw).to(torch.float32)
 
     def train_step(state: TrainState, images, labels, minput_images=None):
+        if mesh is None:
+            return one_step(state, images, labels, minput_images)
+        with coll.using(mesh):
+            state, metrics = one_step(state, images, labels, minput_images)
+            return state, coll.average_metrics(metrics, mesh)
+
+    def eager_head(state, feats, labels, rng, minput_feats):
+        """The eager head; with a model axis over the whole kernel and
+        head state gathered from the shards, its new state sliced back."""
+        if coll.model_size(mesh) == 1:
+            return head.apply(head_cfg, state.kernel_w, feats, labels,
+                              state.head_state, rng=rng,
+                              minput=minput_feats)
+        c = head_cfg.num_classes
+        out = head.apply(
+            head_cfg, coll.gather_classes(state.kernel_w, 1, mesh, grad=True),
+            feats, labels,
+            sharding.gather_head_state(state.head_state, c, mesh), rng=rng,
+            minput=minput_feats)
+        return out._replace(state=sharding.shard_head_state(out.state, c,
+                                                            mesh))
+
+    def one_step(state: TrainState, images, labels, minput_images=None):
         images = apply_augmentations(state.rng, prepare(images),
                                      horizontal_flip, crop_pad, color_jitter,
                                      random_erasing)
@@ -145,11 +181,11 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
         rng = state.rng if head.requires_rng else None
         if use_fused_head:
             out = fused_apply(head_cfg, state.kernel_w, feats, labels,
-                              state.head_state, rng=rng, minput=minput_feats)
+                              state.head_state, rng=rng, minput=minput_feats,
+                              mesh=mesh)
             loss_id, acc1, acc5 = out.loss_id, out.acc1, out.acc5
         else:
-            out = head.apply(head_cfg, state.kernel_w, feats, labels,
-                             state.head_state, rng=rng, minput=minput_feats)
+            out = eager_head(state, feats, labels, rng, minput_feats)
             loss_id = mean_cross_entropy(out.logits, labels)
             acc1, acc5 = topk_accuracy(out.pre_logits, labels)
         loss_mag = lambda_g * out.loss_g
@@ -171,6 +207,7 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
                                                rounding_mode="floor") * k))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        coll.average_gradients(state.params(), mesh)
         with torch.no_grad():
             state.lr.copy_(lr_update)
             state.optimizer.step(state.lr)

@@ -1,5 +1,5 @@
 """FaceNet triplet training. Port of
-face_recognition_models_tpu/triplet/train.py, without the mesh.
+face_recognition_models_tpu/triplet/train.py.
 
 PK batches (P identities x K images) -> the embedding trunk in train mode
 -> L2 normalisation -> on-device semi-hard mining -> triplet loss -> SGD,
@@ -15,6 +15,14 @@ read. Every trunk that draws dropout masks gets the state's generator
 trunk its dropout key (JAX triplet/train.py:67-70); the mining's Gumbel
 noise comes from the same generator. Checkpoints go through the port's
 CheckpointManager: rotating epoch files, best-by-train-loss, resume.
+
+With `mesh=` the step is data-parallel over the mesh's 'data' axis: each
+rank runs the trunk on its rows of the PK batch (BatchNorm over the global
+batch), the embeddings are gathered over the data group before the mining
+(the gather is differentiable), so the semi-hard mask stays a global-batch
+computation as in the JAX step, and the gradients are averaged over the
+group; the state is replicated. `train_facenet(mesh=)` gives each rank its
+rows of every global PK batch; rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from face_recognition_models_tpu_torch.ops.image_ops import (
 )
 from face_recognition_models_tpu_torch.ops.mining import mined_triplet_loss
 from face_recognition_models_tpu_torch.ops.normalize import l2_normalize
+from face_recognition_models_tpu_torch.parallel import collectives as coll
 from face_recognition_models_tpu_torch.train.optim import get_optimizer
 from face_recognition_models_tpu_torch.utils.device import resolve_device
 
@@ -72,12 +81,14 @@ class TripletTrainState:
 
 
 def make_triplet_train_step(margin: float, mean=(0.5, 0.5, 0.5),
-                            std=(0.5, 0.5, 0.5), device=None) -> Callable:
+                            std=(0.5, 0.5, 0.5), device=None,
+                            mesh=None) -> Callable:
     """step(state, images, labels) -> (state, metrics): one triplet step
     over `state.backbone` (a trunk; an already-normalising module works
     too). It updates `state` in place; the metrics, `loss` and `triplets`
-    (the mined valid anchor-positive pairs), stay on the device. Runs on
-    the card unless device='cpu' is passed."""
+    (the mined valid anchor-positive pairs), stay on the device. With
+    `mesh`, images and labels are the rank's rows (module docstring). Runs
+    on the card unless device='cpu' is passed."""
     device = resolve_device(device)
     if device.type == "cuda":
         # the mining's pairwise product stays IEEE fp32 (no TF32)
@@ -85,6 +96,10 @@ def make_triplet_train_step(margin: float, mean=(0.5, 0.5, 0.5),
     scale, bias = normalization_constants(mean, std, device=device)
 
     def train_step(state: TripletTrainState, images, labels):
+        with coll.using(mesh):
+            return one_step(state, images, labels)
+
+    def one_step(state, images, labels):
         images = torch.as_tensor(images).to(device, non_blocking=True)
         if images.dtype == torch.uint8:
             images = images.to(torch.float32) * scale + bias
@@ -93,10 +108,12 @@ def make_triplet_train_step(margin: float, mean=(0.5, 0.5, 0.5),
         kw = ({"rng": state.rng}
               if getattr(state.backbone, "takes_rng", False) else {})
         feats = state.backbone(images, **kw).to(torch.float32)
-        emb = l2_normalize(feats, dim=1)
-        loss, mined = mined_triplet_loss(emb, labels, margin, state.rng)
+        emb = coll.gather_rows(l2_normalize(feats, dim=1))
+        loss, mined = mined_triplet_loss(emb, coll.gather_rows(labels),
+                                         margin, state.rng)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        coll.average_gradients(list(state.backbone.parameters()))
         state.optimizer.step()
         with torch.no_grad():
             state.count.add_(1)
@@ -146,7 +163,7 @@ def train_facenet(cfg: FaceNetConfig, images: Optional[np.ndarray] = None,
                   model_name: Optional[str] = None,
                   resume: bool = False, keep: int = 3,
                   dtype: torch.dtype = torch.bfloat16,
-                  device=None) -> TripletFitResult:
+                  device=None, mesh=None) -> TripletFitResult:
     """Train the embedding trunk with PK sampling (the train_one_epoch flow
     of FaceNet/main.py:133-146).
 
@@ -157,9 +174,16 @@ def train_facenet(cfg: FaceNetConfig, images: Optional[np.ndarray] = None,
     generator is seeded `seed + 1`. `checkpoint_dir` turns on rotating
     per-epoch checkpoints, best-by-train-loss, resume (`resume=True`
     continues from the latest epoch) and the final `<model>_final`, the
-    backbone's state_dict. Losses are read once an epoch. Runs on the card
-    unless device='cpu' is passed."""
+    backbone's state_dict. Losses are read once an epoch. `mesh` makes the
+    step data-parallel (module docstring): p * k must divide over the mesh
+    'data' axis. Runs on the card unless device='cpu' is passed."""
     device = resolve_device(device)
+    if mesh is not None and (cfg.p * cfg.k) % mesh.data:
+        raise ValueError(
+            f"PK batch {cfg.p}*{cfg.k} must divide the mesh data axis "
+            f"({mesh.data})")
+    writer = coll.is_writer(mesh)
+    verbose = verbose and writer
     if loader is None:
         if images is None or labels is None:
             raise ValueError("provide (images, labels) arrays or loader=")
@@ -185,22 +209,27 @@ def train_facenet(cfg: FaceNetConfig, images: Optional[np.ndarray] = None,
                                 model_name or f"facenet_{cfg.backbone}",
                                 keep=keep)
         if resume:
-            restored, start_epoch, best_loss = mgr.restore(state, "latest")
+            restored, start_epoch, best_loss = mgr.restore(state, "latest",
+                                                           mesh=mesh)
             if restored is not None and verbose:
                 print(f"facenet resume: epoch {start_epoch} "
                       f"(best loss {best_loss:.4f})")
         else:
-            mgr.reset()
+            mgr.reset(mesh=mesh)
 
-    step = make_triplet_train_step(cfg.margin, device=device)
+    step = make_triplet_train_step(cfg.margin, device=device, mesh=mesh)
+    rows = slice(None)
+    if mesh is not None:
+        n = cfg.p * cfg.k // mesh.data
+        rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
     losses, triplets = [], []
     total = 0
     t0 = time.time()
     for epoch in range(start_epoch, epochs + 1):
         metrics = []
         for batch_images, batch_labels in loader.epoch(epoch - 1):
-            state, m = step(state, batch_images,
-                            np.asarray(batch_labels, np.int32))
+            state, m = step(state, batch_images[rows],
+                            np.asarray(batch_labels, np.int32)[rows])
             # kept on the device: reading each step would wait for the card
             metrics.append(m)
             total += len(batch_labels)
@@ -211,12 +240,12 @@ def train_facenet(cfg: FaceNetConfig, images: Optional[np.ndarray] = None,
         if verbose:
             print(f"facenet epoch {epoch}/{epochs}: loss {epoch_loss:.4f}")
         if mgr is not None:
-            mgr.save(state, epoch, epoch_loss)
+            mgr.save(state, epoch, epoch_loss, mesh=mesh)
             if epoch_loss < best_loss:
                 best_loss = epoch_loss
-                mgr.save(state, epoch, epoch_loss, is_best=True)
+                mgr.save(state, epoch, epoch_loss, is_best=True, mesh=mesh)
     wall = max(time.time() - t0, 1e-9)
-    if mgr is not None:
+    if mgr is not None and writer:
         mgr.save_final(state.backbone.state_dict())
     return TripletFitResult(state=state, model=model, losses=losses,
                             images_per_sec=total / wall,
