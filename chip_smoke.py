@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--only partial_fc,facenet,mesh]
+    python3 chip_smoke.py [--only partial_fc,facenet,mesh,detect]
 
 (`--only` runs just those phases after the device line: no build, no
 kernels line and no result line.) Phases, one JSON line each; any failure ends the run with a non-zero exit
@@ -173,6 +173,28 @@ and no result line:
              <model>_best_acc, which `eval --which best_acc` reads; `fit`
              with scan_steps=4 and the hook equals the same run without
              it bit for bit.
+13b. detect - the MTCNN cascade (detection/) at its published widths with
+             seeded random weights written as facenet_pytorch-layout .pt
+             files and loaded back by `preprocess`'s build_detector, at the
+             published thresholds (0.5, 0.7, 0.7); DETECT_CLS_SCALE says
+             how the random weights are shaped so faces come out): P-Net,
+             R-Net and O-Net on the card against the same
+             nets on the CPU (TF32 off, max abs <= 1e-5); `detect` on a
+             250 x 250 (CASIA-WebFace's raw size) and a 640 x 480 noise
+             photo on the card against the CPU (the same box count, boxes
+             and landmarks within 1e-3, probs within 1e-5), ms per detect
+             (median of 3 after a warm-up) split into the card's share
+             (CUDA events around the pyramid + P-Net and each R-/O-Net
+             batch, copies included) and the host's, the boxes at each
+             stage; `preprocess` on the card over 2 x 2 photos (img/s); an
+             EmbedService with the detector in front of the serve phase's
+             bf16 ResNet-50 artifact: 10 PNG requests each to /detect (the
+             detector's boxes) and /embed (aligned, within 2e-3 of the
+             artifact's embedding of the extracted face) on one kept-alive
+             connection, p50 / p99 ms; api.ArcFaceNet('resnet50').embed of a
+             b64 batch against the eval step on the same module. Each line
+             carries nvidia-smi's name and power limit; no kernel of the
+             port launches.
 14. backbones - the other trunks of the registry at full width: 3 `fit`
              steps of each of efficientnet_b0, mobilenet_v2, mobilefacenet,
              iresnet18 / 50 / 100 and vit_t / s / b (ArcFace, C=10,575,
@@ -267,7 +289,7 @@ ArcFace and VPL-ArcFace runs, whose replays the host's counters do not see:
 the launches one replay captured times the replays, plus the real ones;
 the fp32 head kernels' also the recipe, backbones, mesh and convergence
 runs, the _mem kernels' the mesh phase's VPL-ArcFace head: each rank's
-launches; the partial_fc and facenet phases launch none),
+launches; the partial_fc, facenet and detect phases launch none),
 the last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -3486,7 +3508,8 @@ def serve_periodic(root):
 
 def phase_serve(root, bench_embed_img_per_s):
     """Serving at full width: export, the HTTP service, identification at a
-    million images, and periodic evaluation (see the module docstring)."""
+    million images, and periodic evaluation (see the module docstring).
+    Returns the bf16 artifact's path (the detect phase serves it)."""
     import torch
 
     artifact, _ = serve_export(root, bench_embed_img_per_s)
@@ -3495,6 +3518,353 @@ def phase_serve(root, bench_embed_img_per_s):
     serve_identify()
     torch.cuda.empty_cache()
     serve_periodic(root)
+    return artifact
+
+
+# the detect phase: the MTCNN cascade (detection/) at its published widths
+# and thresholds (0.5, 0.7, 0.7), built as `preprocess` and `serve --align`
+# build it (data/preprocess.build_detector), with seeded random weights
+# saved as facenet_pytorch-layout .pt files, so the loading path runs.
+# Plain random weights put every P-Net probability near 0.5, where the last
+# bits of the card's and the CPU's sums could flip a threshold, let half the
+# windows through P-Net, reject every candidate at R-Net and throw the boxes
+# far with their regressions. So the face-probability layers' weights are
+# scaled by DETECT_CLS_SCALE, the box-regression layers' by
+# DETECT_REG_SCALE, and the face logit of P-Net and R-Net moved by
+# DETECT_FACE_BIAS: about 1% of the windows pass P-Net, a fifth of those
+# R-Net, and faces come out of every photo (17 and 54 on the CPU).
+DETECT_IMAGES = (("casia_raw_250x250", (250, 250), 2),   # (label, shape,
+                 ("photo_640x480", (480, 640), 1))       # image seed)
+DETECT_CLS_SCALE, DETECT_REG_SCALE = 8.0, 0.1
+DETECT_FACE_BIAS = {"conv4_1": -0.94, "dense5_1": 1.45}
+DETECT_TIMED = 3        # timed detects an image, after one warm-up
+DETECT_REQUESTS = 10    # /detect and aligned /embed requests, kept alive
+DETECT_TREE = (2, 2)    # preprocess: identities x 250 x 250 photos
+# a net on the card against the same net on the CPU (TF32 off): max abs;
+# detect on the card against the CPU: boxes and landmarks, probs
+TOL_DETECT_NET, TOL_DETECT_BOX, TOL_DETECT_PROB = 1e-5, 1e-3, 1e-5
+
+
+def detector_weights(directory):
+    """The detect phase's seeded weights (see DETECT_CLS_SCALE) as
+    pnet.pt / rnet.pt / onet.pt in `directory`: numpy draws (the same on
+    any torch; torch's own initialisers draw differently from one version
+    to the next), lecun-normal conv and dense weights, zero biases, PReLU
+    0.25."""
+    import torch
+
+    from face_recognition_models_tpu_torch.detection.mtcnn import NETS
+
+    rs = np.random.RandomState(0)
+    scale = {"conv4_1": DETECT_CLS_SCALE, "dense5_1": DETECT_CLS_SCALE,
+             "dense6_1": DETECT_CLS_SCALE, "conv4_2": DETECT_REG_SCALE,
+             "dense5_2": DETECT_REG_SCALE, "dense6_2": DETECT_REG_SCALE}
+    os.makedirs(directory, exist_ok=True)
+    for net, module in NETS.items():
+        sd = module().state_dict()
+        for key, t in sd.items():
+            layer, kind = key.split(".")
+            if layer.startswith("prelu"):
+                value = np.full(t.shape, 0.25)
+            elif kind == "bias":
+                value = np.zeros(t.shape)
+                if layer in DETECT_FACE_BIAS:   # (no face, face) logits
+                    b = DETECT_FACE_BIAS[layer]
+                    value[:] = (-b, b)
+            else:
+                fan_in = int(np.prod(t.shape[1:]))
+                value = (rs.standard_normal(t.shape) / np.sqrt(fan_in)
+                         * scale.get(layer, 1.0))
+            sd[key] = torch.from_numpy(value.astype(np.float32))
+        torch.save(sd, os.path.join(directory, f"{net}.pt"))
+    return directory
+
+
+def detect_nets(card, cpu):
+    """Each net of the `card` detector against the same net of the `cpu`
+    one on seeded inputs at the shapes detect gives them (P-Net at the
+    640 x 480 photo's first pyramid scale, R-Net and O-Net at crop batches
+    of 256 and 64), TF32 off on the card."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    shapes = {"pnet": (1, 3, 288, 384), "rnet": (256, 3, 24, 24),
+              "onet": (64, 3, 48, 48)}
+    out = {}
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        for name, shape in shapes.items():
+            x = torch.randn(shape, generator=gen)
+            want = getattr(cpu, name)(x)
+            got = getattr(card, name)(x.cuda())
+            err = max(float((g.cpu() - w).abs().max())
+                      for g, w in zip(got, want))
+            if not err <= TOL_DETECT_NET:
+                raise AssertionError(f"detect: {name} on the card vs the CPU:"
+                                     f" max abs err {err} > {TOL_DETECT_NET}")
+            out[name] = {"input": list(shape), "max_abs_err": err}
+    return out
+
+
+def instrument_detector(det):
+    """Record CUDA events around `det`'s device stages (the pyramid with
+    P-Net, and each R-Net / O-Net batch, their copies to and from the card
+    included); returns the list of (stage, batch, start, end) they go to."""
+    import torch
+
+    log = []
+    for name in ("_pnet_maps", "_run"):
+        fn = getattr(det, name)
+
+        def timed(*args, fn=fn, name=name):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            stage = ("pyramid+pnet" if name == "_pnet_maps"
+                     else type(args[0]).__name__.lower())
+            log.append((stage, len(args[1]), start, end))
+            return out
+
+        setattr(det, name, timed)
+    return log
+
+
+def timed_detects(det, log, img):
+    """(result of det.detect(img), numbers): ms per detect (host clock,
+    median of DETECT_TIMED after a warm-up), the card's share (the device
+    stages' CUDA events) and the host's (the rest: box generation, NMS,
+    crops), the box counts at each stage."""
+    import torch
+
+    det.detect(img)
+    total, card = [], []
+    for _ in range(DETECT_TIMED):
+        log.clear()
+        t0 = time.perf_counter()
+        result = det.detect(img)
+        total.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        card.append(sum(s.elapsed_time(e) for _, _, s, e in log))
+    batches = {stage: n for stage, n, _, _ in log}
+    return result, {
+        "ms_per_detect": float(np.median(total)),
+        "card_ms": float(np.median(card)),
+        "host_ms": float(np.median(np.subtract(total, card))),
+        "all_ms": total, "scales": batches["pyramid+pnet"],
+        "boxes": {"pnet_candidates": batches.get("rnet", 0),
+                  "rnet_kept": batches.get("onet", 0),
+                  "out": len(result[0])}}
+
+
+def same_detections(label, got, want):
+    """Raise unless two detect results have the same box count and boxes,
+    landmarks within TOL_DETECT_BOX and probs within TOL_DETECT_PROB."""
+    counts = [len(r[0]) for r in (got, want)]
+    errs = {}
+    if counts[0] == counts[1] and counts[0]:
+        errs = {k: float(np.abs(np.asarray(g) - np.asarray(w)).max())
+                for k, g, w in zip(("boxes", "probs", "landmarks"), got,
+                                   want)}
+    if (counts[0] != counts[1] or not counts[0]
+            or errs["boxes"] > TOL_DETECT_BOX
+            or errs["landmarks"] > TOL_DETECT_BOX
+            or errs["probs"] > TOL_DETECT_PROB):
+        raise AssertionError(f"detect: {label} on the card vs the CPU: box "
+                             f"counts {counts}, max abs errors {errs}")
+    return {"boxes": counts[0], **{f"{k}_max_abs_err": v
+                                   for k, v in errs.items()}}
+
+
+def detect_preprocess(root, weights):
+    """`preprocess` (crop mode) on the card over a tree of DETECT_TREE
+    seeded 250 x 250 PNG photos: images/s, the counts; every output there,
+    aligned ones 112 x 112, copied ones the source."""
+    from PIL import Image
+
+    from face_recognition_models_tpu_torch.data.preprocess import (
+        preprocess_dataset)
+
+    raw, out = os.path.join(root, "detect_raw"), os.path.join(root, "aligned")
+    rs = np.random.RandomState(9)
+    names = []
+    for i in range(DETECT_TREE[0]):
+        os.makedirs(os.path.join(raw, f"id_{i}"))
+        for j in range(DETECT_TREE[1]):
+            names.append(os.path.join(f"id_{i}", f"{j}.png"))
+            Image.fromarray(rs.randint(0, 256, (250, 250, 3), np.uint8)).save(
+                os.path.join(raw, names[-1]))
+    t0 = time.perf_counter()
+    stats = preprocess_dataset(raw, out, image_size=112,
+                               mtcnn_weights=weights)
+    seconds = time.perf_counter() - t0
+    for name in names:
+        with open(os.path.join(raw, name), "rb") as f:
+            src = f.read()
+        with open(os.path.join(out, name), "rb") as f:
+            dst = f.read()
+        with Image.open(os.path.join(out, name)) as im:
+            size = im.size
+        if dst != src and size != (112, 112):
+            raise AssertionError(f"detect: preprocess wrote {name} at {size}")
+    if stats["fallback"] or stats["aligned"] + stats["copied"] != len(names):
+        raise AssertionError(f"detect: preprocess counts {stats}")
+    return {"images": len(names), **stats, "seconds": seconds,
+            "img_per_s": len(names) / seconds}
+
+
+def detect_serve(artifact, det, photo):
+    """An EmbedService with `det` in front of the bf16 ResNet-50 artifact
+    on 127.0.0.1: DETECT_REQUESTS PNG requests to /detect and then to
+    /embed on one kept-alive connection; /detect's boxes those of
+    det.detect (2 decimals), /embed aligned and within TOL_HTTP of the
+    artifact's embedding of det.extract; p50 / p99 ms of each route."""
+    import http.client
+    import threading
+
+    from face_recognition_models_tpu_torch.serving.export import (
+        load_embedder)
+    from face_recognition_models_tpu_torch.serving.server import (
+        EmbedService, make_server)
+
+    art = load_embedder(artifact)
+    service = EmbedService(art.fn, 112, batch_size=8,
+                           max_wait_ms=SERVE_WAIT_MS, detector=det)
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address
+    body = _png(photo)
+    boxes = det.detect(photo)[0]
+    direct = art.fn(det.extract(photo)[None])[0]
+    direct = direct / np.linalg.norm(direct)
+    out = {}
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=120)
+        for route in ("/detect", "/embed"):
+            lat = []
+            t_route = time.perf_counter()
+            for _ in range(DETECT_REQUESTS):
+                t0 = time.perf_counter()
+                conn.request("POST", route, body=body,
+                             headers={"Content-Type": "image/png"})
+                resp = conn.getresponse()
+                data = json.loads(resp.read())
+                lat.append(time.perf_counter() - t0)
+                if resp.status != 200:
+                    raise AssertionError(f"detect: {route} {resp.status}: "
+                                         f"{data}")
+            out[route] = _latency(lat, time.perf_counter() - t_route)
+            if route == "/detect":
+                got = np.asarray(data["boxes"])
+                if got.shape != boxes.shape or np.abs(
+                        got - boxes).max() > 0.011:
+                    raise AssertionError("detect: /detect's boxes are not "
+                                         "det.detect's")
+                out[route]["faces"] = len(got)
+            else:
+                err = float(np.abs(np.asarray(data["embedding"])
+                                   - direct).max())
+                if data.get("aligned") is not True or err > TOL_HTTP:
+                    raise AssertionError(
+                        f"detect: aligned /embed: aligned "
+                        f"{data.get('aligned')}, max abs err {err} vs the "
+                        f"artifact's embedding of the extracted face")
+                out[route]["max_abs_err_vs_direct"] = err
+        conn.close()
+        health = service.health()
+        if not health["align"]:
+            raise AssertionError("detect: /healthz align is not true")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    return {"requests_per_route": DETECT_REQUESTS, "connection": "kept alive",
+            "photo": list(photo.shape), "routes": out}
+
+
+def detect_api():
+    """api.ArcFaceNet('resnet50') on the card: one b64 batch's embed
+    against the eval step (train/step.make_eval_step) on the same module."""
+    import torch
+
+    from face_recognition_models_tpu_torch import api
+    from face_recognition_models_tpu_torch.train.step import make_eval_step
+
+    model = api.ArcFaceNet(num_classes=C_MAIN, backbone="resnet50")
+    model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    images = torch.randint(0, 256, (64, 112, 112, 3), generator=g,
+                           dtype=torch.uint8, device="cuda")
+    got = model.embed(images)
+    want = make_eval_step(model.backbone, device="cuda")(images)
+    err = float((got - want).abs().max())
+    if got.shape != (64, 512) or not err <= 1e-6 * float(want.abs().max()):
+        raise AssertionError(f"detect: api embed vs the eval step: shape "
+                             f"{tuple(got.shape)}, max abs err {err}")
+    return {"backbone": "resnet50", "num_classes": C_MAIN, "batch": 64,
+            "max_abs_err": err, "bitwise": bool(torch.equal(got, want))}
+
+
+def phase_detect(root, artifact=None):
+    """The MTCNN cascade on the card (see DETECT_CLS_SCALE): its nets
+    against the CPU's, `detect` on the card against the CPU on a 250 x 250
+    and a 640 x 480 photo (timed, split into the card's and the host's
+    share), `preprocess` over a small tree, an EmbedService with the
+    detector in front of `artifact` (the serve phase's bf16 ResNet-50;
+    with --only detect made here as that phase makes it) answering /detect
+    and aligned /embed, and api.ArcFaceNet's embed. No kernel of the port
+    launches."""
+    import torch
+
+    from face_recognition_models_tpu_torch.data.preprocess import (
+        build_detector)
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+
+    smi = nvidia_smi()
+    reset_kernel_counts()
+    weights = detector_weights(os.path.join(root, "mtcnn"))
+    t0 = time.perf_counter()
+    card = build_detector(112, weights, device="cuda")
+    load_s = time.perf_counter() - t0
+    cpu = build_detector(112, weights, device="cpu")
+    emit({"phase": "detect", "part": "nets", "nvidia_smi": smi,
+          "weights_load_s": load_s, "nets": detect_nets(card, cpu),
+          "tolerance": TOL_DETECT_NET, "ok": True})
+    log = instrument_detector(card)
+    photos = {}
+    for label, shape, seed in DETECT_IMAGES:
+        photo = np.random.RandomState(seed).randint(0, 256, shape + (3,),
+                                                    np.uint8)
+        photos[label] = photo
+        got, numbers = timed_detects(card, log, photo)
+        check = same_detections(label, got, cpu.detect(photo))
+        emit({"phase": "detect", "part": "detect", "image": label,
+              "shape": list(shape), "thresholds": list(card.thresholds),
+              "nvidia_smi": smi, **numbers, "vs_cpu": check,
+              "tolerance": {"boxes_landmarks": TOL_DETECT_BOX,
+                            "probs": TOL_DETECT_PROB},
+              "timer": "host clock around detect; card share by CUDA "
+                       "events around the device stages", "ok": True})
+    emit({"phase": "detect", "part": "preprocess", "nvidia_smi": smi,
+          **detect_preprocess(root, weights), "ok": True})
+    if artifact is None:
+        from face_recognition_models_tpu_torch.scripts import bench_embed
+        from face_recognition_models_tpu_torch.serving.export import (
+            export_embedder)
+        model = move_bn_statistics(bench_embed.build_model(
+            "resnet50", "bfloat16", 0, torch.device("cuda")))
+        artifact = os.path.join(root, "detect_bf16.frte")
+        export_embedder(model, model.state_dict(), artifact,
+                        meta={"backbone": "resnet50"})
+        del model
+    emit({"phase": "detect", "part": "serve", "nvidia_smi": smi,
+          **detect_serve(artifact, card, photos["casia_raw_250x250"]),
+          "ok": True})
+    emit({"phase": "detect", "part": "api", "nvidia_smi": smi,
+          **detect_api(), "ok": True})
+    no_kernel_launched("detect")
 
 
 # the backbones phase: each trainable trunk of the registry beyond the
@@ -5236,7 +5606,7 @@ def phase_mesh(root):
 
 
 ONLY_PHASES = {"partial_fc": phase_partial_fc, "facenet": phase_facenet,
-               "mesh": phase_mesh}
+               "mesh": phase_mesh, "detect": phase_detect}
 
 
 def main(argv=None) -> int:
@@ -5314,7 +5684,9 @@ def main(argv=None) -> int:
     embed_img_per_s = phase_bench_embed()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
-        phase_serve(root, embed_img_per_s)
+        artifact = phase_serve(root, embed_img_per_s)
+        torch.cuda.empty_cache()
+        phase_detect(root, artifact)
     torch.cuda.empty_cache()
     for name, count in phase_backbones().items():
         launches[name] += count

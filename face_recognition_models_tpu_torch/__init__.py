@@ -7,4 +7,6 @@ in `csrc/`. Entry points run on the card (`device="cuda"`)
 unless the caller passes `device="cpu"`, and raise when no card is present.
 """
 
-__version__ = "0.1.0"
+from face_recognition_models_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -1,6 +1,8 @@
-"""Command line of the port. Port of the `train`, `facenet`, `eval`,
-`pack`, `export`, `embed`, `serve`, `identify` and `list` subcommands of
-face_recognition_models_tpu/cli/main.py; flag names and defaults follow it.
+"""Command line of the port. Port of face_recognition_models_tpu/cli/
+main.py: the `train`, `facenet`, `eval`, `preprocess`, `pack`, `export`,
+`embed`, `serve`, `identify` and `list` subcommands and the global
+`--debug-nans` and `--compile-cache DIR`; flag names and defaults follow
+it.
 
     python -m face_recognition_models_tpu_torch.cli train \
         --dataset-path P | --synthetic [--head NAME] \
@@ -13,10 +15,14 @@ face_recognition_models_tpu/cli/main.py; flag names and defaults follow it.
         [--color-jitter S] [--random-erasing P] [--distill-dir DIR \
         --distill-weight W] [--working-path W] [--continue_train latest] \
         [--eval-every N | --eval-after] [--eval-data-path E] \
-        [--benchmarks lfw,...] [--eval-flip] [--device cpu] ...
+        [--benchmarks lfw,...] [--eval-flip] [--wandb-project P] \
+        [--device cpu] ...
     python -m face_recognition_models_tpu_torch.cli facenet \
         --dataset-path TREE_OR_REC | --synthetic [--backbone resnet50] \
         [--embed-dim 128] [--p 16 --k 4] [--margin 0.2] [--resume] ...
+    python -m face_recognition_models_tpu_torch.cli preprocess \
+        --input RAW_TREE --output ALIGNED_TREE [--image-size 112] \
+        [--mtcnn-weights DIR] [--align-mode crop|warp] [--device cpu]
     python -m face_recognition_models_tpu_torch.cli pack \
         --dataset-path P --output DIR [--image-size 112] [--backend auto]
     python -m face_recognition_models_tpu_torch.cli eval \
@@ -27,7 +33,8 @@ face_recognition_models_tpu/cli/main.py; flag names and defaults follow it.
     python -m face_recognition_models_tpu_torch.cli embed --input TREE \
         --output F.npz --model F.frte | --checkpoint-dir DIR
     python -m face_recognition_models_tpu_torch.cli serve \
-        --model F.frte | --checkpoint-dir DIR [--gallery G.npz] [--port P]
+        --model F.frte | --checkpoint-dir DIR [--gallery G.npz] [--port P] \
+        [--align --mtcnn-weights DIR [--align-mode crop|warp]]
     python -m face_recognition_models_tpu_torch.cli identify \
         --gallery G.npz --probes P.npz [--device cpu]
     python -m face_recognition_models_tpu_torch.cli list
@@ -39,12 +46,14 @@ prefix, or a dir holding `train.rec`) or an identity tree
 writes its checkpoints under <working>/checkpoints/<model> (with
 --model-ema also <model>_final_ema, the averaged backbone; with
 --eval-every also <model>_best_acc) and tees its output to
-<working>/log/<model>.txt; `eval`, `export` and `embed` read them, and
+<working>/log/<model>.txt, its metrics to <working>/log/<model>.metrics.jsonl
+(or W&B, utils/experiment.py); `eval`, `export` and `embed` read them, and
 `facenet`'s <working>/checkpoints/<model-name> (facenet_<backbone> by
-default) with `--embed-dim 128`. `embed`
-and `serve` decode images with PIL. Every subcommand that runs a model,
-and `identify`'s scoring, runs on the card unless `--device cpu` is given,
-and fails without one.
+default) with `--embed-dim 128`. `preprocess` aligns a raw tree with the
+MTCNN cascade (detection/), `serve --align` the requests' photos. `embed`,
+`preprocess` and `serve` decode images with PIL. Every subcommand that runs
+a model, and `identify`'s scoring, runs on the card unless `--device cpu`
+is given, and fails without one.
 """
 
 from __future__ import annotations
@@ -63,6 +72,10 @@ from face_recognition_models_tpu_torch.heads.fused_adapter import (
     use_fused,
 )
 from face_recognition_models_tpu_torch.models import BACKBONES
+from face_recognition_models_tpu_torch.utils.experiment import (
+    ExperimentLogger,
+)
+from face_recognition_models_tpu_torch.utils.logging import Tee
 from face_recognition_models_tpu_torch.utils.pretrained import PORTED
 
 
@@ -186,6 +199,9 @@ def _add_train_parser(sub):
                         "adacos), 'eager' the [N, C] PyTorch head, 'auto' "
                         "(default) the kernels for every head that has "
                         "them and the eager head for the other two")
+    p.add_argument("--use-pallas-head", action="store_true",
+                   help="the JAX package's name for --head-path fused "
+                        "(deprecated there, kept as an alias)")
     p.add_argument("--bn-dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="BatchNorm output dtype (its statistics and math "
@@ -238,23 +254,11 @@ def _add_train_parser(sub):
                    help="flip-sum TTA for --eval-after / --eval-every "
                         "embeddings (the insightface convention)")
     p.add_argument("--benchmarks", default=",".join(cfg_lib.EVAL_BENCHMARKS))
+    p.add_argument("--wandb-project", default="face-recognition-training",
+                   help="W&B project of the run's metrics when wandb is "
+                        "installed and WANDB_API_KEY is set; otherwise "
+                        "they go to <working>/log/<model>.metrics.jsonl")
     return p
-
-
-class Tee:
-    """A write-only stream that writes to several streams."""
-
-    def __init__(self, *streams):
-        self.streams = streams
-
-    def write(self, text):
-        for s in self.streams:
-            s.write(text)
-        return len(text)
-
-    def flush(self):
-        for s in self.streams:
-            s.flush()
 
 
 class UsageError(Exception):
@@ -317,7 +321,8 @@ def cmd_train(args) -> int:
     model_name = args.head
     head_kw.update(cfg_lib.parse_head_overrides(head, args.head_arg))
     try:
-        fused = use_fused(head, args.head_path)
+        fused = use_fused(head, "fused" if args.use_pallas_head
+                          else args.head_path)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -373,13 +378,18 @@ def cmd_train(args) -> int:
     if mesh is not None and mesh.rank != 0:
         # the other ranks train in step with rank 0 and keep quiet
         return _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
-                      False)
+                      None)
     log_dir = os.path.join(args.working_path, "log")
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, f"{model_name}.txt"), "a") as logfile, \
             contextlib.redirect_stdout(Tee(sys.stdout, logfile)):
-        return _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
-                      True)
+        logger = ExperimentLogger(args.wandb_project, model_name,
+                                  config=vars(args), log_dir=log_dir)
+        try:
+            return _train(args, cfg, head_cfg, model_name, fused, loader,
+                          mesh, logger)
+        finally:
+            logger.finish()
 
 
 def _mesh(mesh_cfg):
@@ -388,10 +398,11 @@ def _mesh(mesh_cfg):
 
 
 def _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
-           writer: bool) -> int:
+           logger) -> int:
     """The rest of `train` once the loader is open: fit, the final
     artifacts and --eval-after; under --multihost every rank runs it and
-    rank 0 (the `writer`) alone prints and writes."""
+    rank 0 (the writer, which alone has the `logger`) alone prints and
+    writes."""
     from face_recognition_models_tpu_torch.checkpoint import (
         CheckpointManager)
     from face_recognition_models_tpu_torch.evaluation.periodic import (
@@ -399,6 +410,8 @@ def _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
     from face_recognition_models_tpu_torch.train.loop import fit
     from face_recognition_models_tpu_torch.train.state import (
         build_backbone, ema_state_dict)
+
+    writer = logger is not None
 
     def say(*a):
         if writer:
@@ -425,12 +438,13 @@ def _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
                 build_backbone(cfg, head_cfg), args.eval_data_path,
                 args.benchmarks.split(","), every=args.eval_every,
                 image_size=cfg.data.image_size, total_epochs=cfg.epochs,
-                checkpoint_manager=mgr, model_name=model_name,
-                use_ema=cfg.model_ema > 0.0, flip=args.eval_flip,
-                device=args.device)
+                logger=logger, checkpoint_manager=mgr,
+                model_name=model_name, use_ema=cfg.model_ema > 0.0,
+                flip=args.eval_flip, device=args.device)
     t0 = time.time()
-    result = fit(cfg, loader, device=args.device, head_cfg=head_cfg,
-                 checkpoint_manager=mgr, hooks=eval_hook, mesh=mesh)
+    result = fit(cfg, loader, logger=logger, device=args.device,
+                 head_cfg=head_cfg, checkpoint_manager=mgr, hooks=eval_hook,
+                 mesh=mesh)
     if result.preempted:
         return 143
     if eval_hook is not None and eval_hook.best_epoch > 0:
@@ -448,6 +462,14 @@ def _train(args, cfg, head_cfg, model_name, fused, loader, mesh,
         if writer:
             mgr.save_final(eval_weights,
                            filename=f"{model_name}_final_ema")
+    if writer:
+        # record the checkpoint artifacts (the reference's end-of-training
+        # wandb.save)
+        for artifact in (f"{model_name}_final", f"{model_name}_final_ema",
+                         f"{model_name}_best_acc", "min_loss"):
+            apath = os.path.join(mgr.directory, artifact)
+            if os.path.exists(apath):
+                logger.save_artifact(apath)
     say(f"Done in {time.time() - t0:.0f}s - min train loss "
         f"{result.min_train_loss:.6f}, "
         f"{result.images_per_sec:.0f} img/s")
@@ -663,6 +685,40 @@ def cmd_eval(args) -> int:
     )
 
 
+def _add_preprocess_parser(sub):
+    p = sub.add_parser("preprocess",
+                       help="offline face alignment to 112x112 (MTCNN "
+                            "cascade; WITHOUT weights it degrades to "
+                            "center-crop+resize, no detection)")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--image-size", type=int, default=112)
+    p.add_argument("--mtcnn-weights", default=None, metavar="DIR",
+                   help="directory holding facenet_pytorch's "
+                        "pnet.pt/rnet.pt/onet.pt (enables real detection "
+                        "through the port's cascade)")
+    p.add_argument("--align-mode", choices=("crop", "warp"), default="crop",
+                   help="'crop' = box crop + resize (the reference's "
+                        "preprocess); 'warp' = 5-landmark similarity warp "
+                        "onto the ArcFace template (the insightface "
+                        "recipe)")
+    p.add_argument("--device", default=None,
+                   help="torch device of the detector (default: cuda)")
+    return p
+
+
+def cmd_preprocess(args) -> int:
+    from face_recognition_models_tpu_torch.data.preprocess import (
+        preprocess_dataset)
+    stats = preprocess_dataset(args.input, args.output,
+                               image_size=args.image_size,
+                               mtcnn_weights=args.mtcnn_weights,
+                               align_mode=args.align_mode,
+                               device=args.device)
+    print(f"preprocess done: {stats}")
+    return 0
+
+
 def _add_pack_parser(sub):
     p = sub.add_parser("pack",
                        help="decode a dataset once into a uint8 memmap "
@@ -855,6 +911,18 @@ def _add_serve_parser(sub):
                    help="max time to wait for co-arriving requests")
     p.add_argument("--gallery", default=None, metavar="GALLERY.npz",
                    help="`embed` output enabling POST /identify")
+    p.add_argument("--align", action="store_true",
+                   help="detect + align full photos before embedding "
+                        "(MTCNN cascade on --device; enables POST /detect; "
+                        "no-face requests fall back to a center crop with "
+                        "aligned=false in the response)")
+    p.add_argument("--mtcnn-weights", default=None, metavar="DIR",
+                   help="facenet_pytorch pnet.pt/rnet.pt/onet.pt dir "
+                        "for --align")
+    p.add_argument("--align-mode", choices=("crop", "warp"), default="crop",
+                   help="with --align: 'crop' = box crop + resize; 'warp' = "
+                        "5-landmark similarity warp onto the ArcFace "
+                        "template (detection/align.py)")
     return p
 
 
@@ -866,8 +934,10 @@ def cmd_serve(args) -> int:
         backbone=args.backbone, which=args.which,
         image_size=args.image_size, host=args.host, port=args.port,
         micro_batch=args.micro_batch, max_wait_ms=args.max_wait_ms,
-        gallery=args.gallery, bn_dtype=args.bn_dtype,
-        embed_dim=args.embed_dim, device=args.device)
+        gallery=args.gallery, align=args.align,
+        mtcnn_weights=args.mtcnn_weights, align_mode=args.align_mode,
+        bn_dtype=args.bn_dtype, embed_dim=args.embed_dim,
+        device=args.device)
 
 
 def _add_identify_parser(sub):
@@ -931,10 +1001,21 @@ def main(argv=None) -> int:
              "one process a card, NCCL on the card and gloo with --device "
              "cpu; `train` then runs over the --mesh-data x --mesh-model "
              "mesh, `facenet --use-mesh` and `eval` data-parallel")
+    parser.add_argument(
+        "--debug-nans", action="store_true",
+        help="raise at the first module output or gradient that is not "
+             "finite, naming it (utils/debug.py; much slower; refuses "
+             "train --scan-steps > 1)")
+    parser.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="build the CUDA kernels and the native decoder into DIR "
+             "instead of build/: a later process given the same DIR loads "
+             "them without compiling (utils/compile_cache.py)")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_train_parser(sub)
     _add_facenet_parser(sub)
     _add_eval_parser(sub)
+    _add_preprocess_parser(sub)
     _add_pack_parser(sub)
     _add_export_parser(sub)
     _add_embed_parser(sub)
@@ -943,19 +1024,31 @@ def main(argv=None) -> int:
     sub.add_parser("list", help="list the heads and backbones")
     args = parser.parse_args(argv)
     commands = {"train": cmd_train, "facenet": cmd_facenet,
-                "eval": cmd_eval, "pack": cmd_pack,
-                "export": cmd_export, "embed": cmd_embed,
+                "eval": cmd_eval, "preprocess": cmd_preprocess,
+                "pack": cmd_pack, "export": cmd_export, "embed": cmd_embed,
                 "identify": cmd_identify, "serve": cmd_serve,
                 "list": cmd_list}
-    if not args.multihost:
-        return commands[args.command](args)
-    if args.command not in ("train", "facenet", "eval"):
+    if args.multihost and args.command not in ("train", "facenet", "eval"):
         print(f"error: --multihost runs train, facenet and eval, not "
               f"{args.command}", file=sys.stderr)
         return 2
-    from face_recognition_models_tpu_torch.parallel import dist as pdist
-    args.device = str(pdist.initialize(device=args.device))
-    try:
+    if args.debug_nans and getattr(args, "scan_steps", 1) > 1:
+        print("error: --debug-nans checks each module as it runs, which a "
+              "CUDA graph of --scan-steps K > 1 steps cannot; use "
+              "--scan-steps 1", file=sys.stderr)
+        return 2
+    if args.compile_cache:
+        from face_recognition_models_tpu_torch.utils.compile_cache import (
+            enable_compilation_cache)
+        enable_compilation_cache(args.compile_cache)
+    with contextlib.ExitStack() as stack:
+        if args.debug_nans:
+            from face_recognition_models_tpu_torch.utils.debug import (
+                enable_nan_checks)
+            stack.callback(enable_nan_checks().remove)
+        if not args.multihost:
+            return commands[args.command](args)
+        from face_recognition_models_tpu_torch.parallel import dist as pdist
+        args.device = str(pdist.initialize(device=args.device))
+        stack.callback(pdist.shutdown)
         return commands[args.command](args)
-    finally:
-        pdist.shutdown()

@@ -1,6 +1,5 @@
 """`serve`: an online embedding and identification HTTP service. Port of
-face_recognition_models_tpu/serving/server.py, without detection and
-alignment (they come with the detector's port).
+face_recognition_models_tpu/serving/server.py.
 
 A long-lived process holds the model (and optionally a gallery) and answers
 per-image requests. Concurrent requests are coalesced into one micro-batch
@@ -13,8 +12,14 @@ Endpoints (JSON out):
   POST /embed              body = JPEG/PNG bytes -> {embedding, norm, quality}
   POST /identify[?top_k=K] body = image bytes -> adds the top-K gallery
                            matches
-  POST /detect             409: no detector is loaded
-The gallery is an `embed` .npz (L2-normalised rows + paths).
+  POST /detect             body = a photo -> {boxes, probs, landmarks} of
+                           every face (409 without a detector)
+The gallery is an `embed` .npz (L2-normalised rows + paths). With a
+detector (`serve --align`, data/preprocess.build_detector) requests carry
+whole photos: /embed and /identify embed the best face, detected and
+aligned, and answer `aligned: true`, or a centre crop with `aligned: false`
+when no face is found; without one, inputs are taken as aligned faces
+(resized only) and the answers have no `aligned` key.
 
 Python standard library only (ThreadingHTTPServer); the model is the
 `embed_fn` of serving/embed.load_embed_fn (an artifact or a checkpoint),
@@ -132,12 +137,18 @@ class MicroBatcher:
 
 class EmbedService:
     """Model + optional gallery behind the HTTP handlers (also usable
-    directly in-process). Inputs are pre-aligned faces (resized only)."""
+    directly in-process)."""
 
     def __init__(self, embed_fn: Callable, image_size: int,
                  batch_size: int = 8, max_wait_ms: float = 5.0,
-                 gallery_path: Optional[str] = None):
+                 gallery_path: Optional[str] = None,
+                 detector=None):
+        """`detector`: an optional detect / extract object
+        (data/preprocess.build_detector); requests then carry full photos
+        and the service detects and aligns before embedding. Without it,
+        inputs are taken as aligned (resized only)."""
         self.image_size = int(image_size)
+        self.detector = detector
         # warm up at startup, at the exact serving shape
         probe = np.zeros((batch_size, image_size, image_size, 3), np.uint8)
         self.embed_dim = int(np.asarray(embed_fn(probe)).shape[-1])
@@ -153,26 +164,57 @@ class EmbedService:
                     f"gallery dim {self.gallery_emb.shape[1]} != model "
                     f"embed dim {self.embed_dim}")
 
-    def decode(self, data: bytes) -> np.ndarray:
-        """Image bytes -> uint8 [S, S, 3] (PIL; resized to the model's
-        size)."""
+    def decode(self, data: bytes, full: bool = False) -> np.ndarray:
+        """Image bytes -> uint8 [H, W, 3] (PIL): resized to the model's
+        size, or the whole photo with `full`."""
         from PIL import Image
         with Image.open(io.BytesIO(data)) as im:
             im = im.convert("RGB")
-            if im.size != (self.image_size, self.image_size):
+            if not full and im.size != (self.image_size, self.image_size):
                 im = im.resize((self.image_size, self.image_size))
             return np.asarray(im, np.uint8)
 
+    def _align(self, data: bytes):
+        """(aligned uint8 [S, S, 3], aligned?: bool or None). With a
+        detector, the best face of the full photo; no face -> a centre
+        crop resized to the model's size, flagged False in the answer (the
+        offline preprocess's fallback). Without one, (decode(data), None)."""
+        if self.detector is None:
+            return self.decode(data), None
+        img = self.decode(data, full=True)
+        face = self.detector.extract(img)
+        if face is not None:
+            return np.asarray(face, np.uint8), True
+        h, w = img.shape[:2]
+        s = min(h, w)
+        top, left = (h - s) // 2, (w - s) // 2
+        crop = img[top:top + s, left:left + s]
+        from PIL import Image
+        crop = np.asarray(Image.fromarray(crop).resize(
+            (self.image_size, self.image_size)), np.uint8)
+        return crop, False
+
     def embed_bytes(self, data: bytes) -> dict:
-        raw = self.batcher.submit(self.decode(data))
+        img, aligned = self._align(data)
+        raw = self.batcher.submit(img)
         norm = float(np.linalg.norm(raw))
         unit = raw / max(norm, 1e-12)
-        return {"embedding": [float(x) for x in unit],
-                "norm": norm,
-                "quality": float(norm_quality(np.asarray([norm]))[0])}
+        out = {"embedding": [float(x) for x in unit],
+               "norm": norm,
+               "quality": float(norm_quality(np.asarray([norm]))[0])}
+        if aligned is not None:
+            out["aligned"] = aligned
+        return out
 
     def detect_bytes(self, data: bytes) -> dict:
-        raise LookupError("no detector loaded (detection is not ported)")
+        """All faces in a full photo: boxes, probs, 5-point landmarks."""
+        if self.detector is None:
+            raise LookupError("no detector loaded (start with --align)")
+        img = self.decode(data, full=True)
+        boxes, probs, landmarks = self.detector.detect(img)
+        return {"boxes": np.asarray(boxes).round(2).tolist(),
+                "probs": np.asarray(probs).round(4).tolist(),
+                "landmarks": np.asarray(landmarks).round(2).tolist()}
 
     def identify_bytes(self, data: bytes, top_k: int = 5) -> dict:
         if self.gallery_emb is None:
@@ -189,7 +231,8 @@ class EmbedService:
 
     def health(self) -> dict:
         return {"status": "ok", "image_size": self.image_size,
-                "embed_dim": self.embed_dim, "align": False,
+                "embed_dim": self.embed_dim,
+                "align": self.detector is not None,
                 "gallery_size": (0 if self.gallery_emb is None
                                  else len(self.gallery_emb)),
                 **self.batcher.stats()}
@@ -277,9 +320,13 @@ def run_serve_cli(model_path: Optional[str] = None,
                   port: int = 8000, micro_batch: int = 8,
                   max_wait_ms: float = 5.0,
                   gallery: Optional[str] = None,
+                  align: bool = False,
+                  mtcnn_weights: Optional[str] = None,
+                  align_mode: str = "crop",
                   bn_dtype: str = "bfloat16", embed_dim: int = 512,
                   device=None) -> int:
-    """Load the model as `embed` does, then serve until interrupted."""
+    """Load the model as `embed` does (and with `align` the detector, on
+    the same device), then serve until interrupted."""
     from face_recognition_models_tpu_torch.serving.embed import load_embed_fn
     try:
         embed_fn, image_size = load_embed_fn(
@@ -289,13 +336,26 @@ def run_serve_cli(model_path: Optional[str] = None,
         print(f"error: {e}")
         return 2
 
+    detector = None
+    if align:
+        from face_recognition_models_tpu_torch.data.preprocess import (
+            build_detector)
+        detector = build_detector(image_size, weights_dir=mtcnn_weights,
+                                  align_mode=align_mode, device=device)
+        if detector is None:
+            print("WARNING: --align requested but no MTCNN weights are "
+                  "available — serving WITHOUT detection (inputs treated "
+                  "as pre-aligned; /detect disabled). Provide "
+                  "--mtcnn-weights <dir with pnet.pt/rnet.pt/onet.pt> or "
+                  "install facenet_pytorch.", flush=True)
     service = EmbedService(embed_fn, image_size, micro_batch, max_wait_ms,
-                           gallery_path=gallery)
+                           gallery_path=gallery, detector=detector)
     server = make_server(service, host, port)
     h = service.health()
     print(f"serving on http://{server.server_address[0]}:"
           f"{server.server_address[1]} — {h['embed_dim']}-d embeddings, "
           f"micro-batch {micro_batch} (wait {max_wait_ms} ms), "
+          f"align {'on' if h['align'] else 'off'}, "
           f"gallery {h['gallery_size']} images", flush=True)
     try:
         server.serve_forever()

@@ -51,6 +51,10 @@ class MultiSteps:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.inner.zero_grad(set_to_none=set_to_none)
 
+    def shard_norm(self, params: List[torch.Tensor], group) -> None:
+        """The inner rule's shard_norm: the clipping of the means."""
+        self.inner.shard_norm(params, group)
+
     def tensors(self) -> List[torch.Tensor]:
         """Every tensor a micro-step changes in place besides the
         parameters: the inner optimizer's, `mini_step` and the means."""

@@ -20,7 +20,11 @@ preempted world stops at the first of those after the signal.
 cannot be captured in a CUDA graph); the results are the same.
 
 Metrics stay on the device and are read (which waits for the card) only at
-`print_freq` steps and at the end of each epoch. Heads that need a second
+`print_freq` steps and at the end of each epoch. A print step prints the
+JAX loop's line (utils/logging.MetricTracker over TRAIN_COLUMNS: step time,
+data time, img/s and the step's metrics, each with its running average
+over the epoch's print steps) and hands the step's metrics and the epoch to
+`logger.log` (utils/experiment.ExperimentLogger) at the global step. Heads that need a second
 view of the batch (QAFace) get `degrade_images` of it, made on the device.
 
 With `cfg.scan_steps` = K > 1 the loop gathers K loader batches and trains
@@ -70,6 +74,10 @@ from face_recognition_models_tpu_torch.train.schedules import get_schedule
 from face_recognition_models_tpu_torch.train.state import create_train_state
 from face_recognition_models_tpu_torch.train.step import make_train_step
 from face_recognition_models_tpu_torch.utils.device import resolve_device
+from face_recognition_models_tpu_torch.utils.logging import (
+    TRAIN_COLUMNS,
+    MetricTracker,
+)
 
 
 @dataclass
@@ -309,12 +317,6 @@ def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
             "triplet path trains it (`facenet --backbone inception_v3`, "
             "triplet/train.py)")
     model = 1 if mesh is None else mesh.model
-    if model > 1 and cfg.optimizer.clip_grad_norm > 0.0:
-        raise ValueError(
-            "clip_grad_norm with a class-sharded kernel (mesh model > 1) is "
-            "not supported: the global norm would need the kernel shards' "
-            "squares summed over the model axis; use --mesh-model 1 or "
-            "--clip-grad-norm 0")
     n_sampled = partial_fc_classes(cfg, head_cfg, model)
     teacher = _prepare_teacher(cfg, head_cfg, teacher, device)
     kw = {"partial_fc": True} if n_sampled else {}
@@ -355,13 +357,16 @@ def make_recipe(cfg: cfg_lib.TrainConfig, head_cfg, device: torch.device,
     return head, state, step_fn
 
 
-def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
+def fit(cfg: cfg_lib.TrainConfig, loader, logger=None, device=None,
         head_cfg=None, checkpoint_manager: Optional[Any] = None,
         teacher: Optional[torch.nn.Module] = None,
         hooks: Optional[Callable] = None,
         warm_start: Optional[dict] = None, mesh=None) -> FitResult:
     """Train for cfg.epochs over `loader` (any object with steps_per_epoch()
     and epoch(i) -> iterator of (uint8 NHWC images, int labels)).
+
+    `logger` (anything with log(metrics, step=)) gets each print step's
+    metrics, as the module docstring says.
 
     With `checkpoint_manager` (checkpoint/manager.CheckpointManager) the
     run saves and resumes as the module docstring says; a resumed run
@@ -421,6 +426,7 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
     data = coll.data_size(mesh)   # images_per_sec counts the global batch
     all_losses, step_seconds = [], []
     total_images = steps_run = 0
+    global_step = (start_epoch - 1) * steps_per_epoch
     t_start = end = time.perf_counter()
 
     def run_single(images, labels):
@@ -448,26 +454,37 @@ def fit(cfg: cfg_lib.TrainConfig, loader, device=None,
 
     try:
         for epoch in range(start_epoch, last_epoch + 1):
+            tracker = MetricTracker(
+                steps_per_epoch, TRAIN_COLUMNS,
+                prefix=f"Epoch: [{epoch}/{last_epoch}]")
             losses = []   # per-step 0-d tensors and [K] chunk vectors
             i = 0         # steps done this epoch
             stop = False
             for work in _chunks(loader.epoch(epoch), scan_k):
                 n = len(work)
+                data_t = time.perf_counter() - end
                 metrics = (run_chunk(work) if runner is not None
                            and n == scan_k else run_single(*work[0]))
+                step_t = time.perf_counter() - end
                 losses.append(metrics["loss"])
                 first, i = i, i + n
-                total_images += sum(len(b[0]) for b in work) * data
+                global_step += n
+                batch = len(work[0][0])
+                total_images += batch * n * data
                 steps_run += n
                 print_step = first % cfg.print_freq < n
                 if writer and print_step:
+                    # reading the metrics waits for the card
                     m = {k: float(v.reshape(-1)[-1])
                          for k, v in metrics.items()}
-                    print(f"Epoch: [{epoch}/{last_epoch}][{i}/"
-                          f"{steps_per_epoch}] loss {m['loss']:.4f} "
-                          f"acc1 {m['acc1']:.2f} acc5 {m['acc5']:.2f} "
-                          f"lr {m['lr']:.5f} feat_norm {m['feat_norm']:.3f}",
-                          flush=True)
+                    tracker.observe({"batch_time": step_t / n,
+                                     "data_time": data_t / n,
+                                     "throughput": batch * n
+                                     / max(step_t, 1e-9)})
+                    tracker.observe(m, weight=batch)
+                    print(tracker.line(i - 1), flush=True)
+                    if logger is not None:
+                        logger.log({**m, "epoch": epoch}, step=global_step)
                 now = time.perf_counter()
                 step_seconds += [(now - end) / n] * n
                 end = now

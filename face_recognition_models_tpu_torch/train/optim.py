@@ -39,6 +39,7 @@ from __future__ import annotations
 from typing import Iterable, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 from torch.optim import sgd as _sgd
 
 # Default hyperparameters of each rule (the JAX package's OPTIMIZER_CONFIGS)
@@ -60,13 +61,29 @@ OPTIMIZER_DICT = {i + 1: name for i, name in enumerate(OPTIMIZER_CONFIGS)}
 _F32 = torch.float32
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        shards: Optional[List[bool]] = None, group=None
                         ) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: new gradients, unchanged where the global
     norm of `grads` is below `max_norm`, else (g / norm) * max_norm. The
     choice is a device `where` of the divisor and the factor (g / 1 * 1 is
-    g), never a host branch; no epsilon is added to the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    g), never a host branch; no epsilon is added to the norm.
+
+    With a process `group`, the gradients `shards` marks are this rank's
+    shards of tensors split over the group (the class-sharded kernel over
+    the mesh's model axis): their squares are summed over the group in one
+    all-reduce and added to those of the others, which every rank holds
+    whole, so the norm is that of the whole tensors, as optax takes it of a
+    sharded array."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(shards, dtype=torch.bool, device=norms.device)
+        squares = norms.square()
+        sharded = torch.where(mask, squares, 0.0).sum()
+        dist.all_reduce(sharded, group=group)
+        norm = (torch.where(mask, 0.0, squares).sum() + sharded).sqrt()
     keep = norm < max_norm
     out = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
     torch._foreach_mul_(out, torch.where(keep, 1.0, max_norm))
@@ -83,6 +100,7 @@ class _Update:
 
     def _setup(self, clip_grad_norm: float, count: bool) -> None:
         self.clip_grad_norm = float(clip_grad_norm or 0.0)
+        self.norm_shards = None
         self._params = [p for g in self.param_groups for p in g["params"]]
         device = self._params[0].device
         self.count = (torch.zeros((), dtype=torch.int32, device=device)
@@ -100,6 +118,12 @@ class _Update:
             "clip_grad_norm", "_params", "count", "slot_names")
             if k in self.__dict__})
         return state
+
+    def shard_norm(self, params: List[torch.Tensor], group) -> None:
+        """Declare `params` this rank's shards of tensors split over the
+        process `group`: the clipping norm sums their squares over it
+        (clip_by_global_norm)."""
+        self.norm_shards = ({id(p) for p in params}, group)
 
     def tensors(self) -> List[torch.Tensor]:
         """Every tensor an update changes in place besides the parameters:
@@ -130,7 +154,12 @@ class _Update:
         the 0-d bool tensor `emit`, committed only where it is true."""
         lr = self._lr(lr)
         if self.clip_grad_norm > 0.0:
-            grads = clip_by_global_norm(grads, self.clip_grad_norm)
+            shards, group = None, None
+            if getattr(self, "norm_shards", None) is not None:
+                ids, group = self.norm_shards
+                shards = [id(p) in ids for p in params]
+            grads = clip_by_global_norm(grads, self.clip_grad_norm, shards,
+                                        group)
         slots = [[self.state[p][name] for p in params]
                  for name in self.slot_names]
         if emit is None:

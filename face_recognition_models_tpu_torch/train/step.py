@@ -208,6 +208,10 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         coll.average_gradients(state.params(), mesh)
+        if coll.model_size(mesh) > 1:
+            # the kernel is split over the model group: a clipping norm
+            # adds its shards' squares over the group
+            state.optimizer.shard_norm([state.kernel_w], mesh.model_group)
         with torch.no_grad():
             state.lr.copy_(lr_update)
             state.optimizer.step(state.lr)

@@ -224,3 +224,25 @@ def head_state_from_jax(name: str, state: Any, device="cpu") -> Any:
             device=device, dtype=None if keep else torch.float32)
 
     return cls(*(leaf(f) for f in cls._fields))
+
+
+def mtcnn_from_jax(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The MTCNN nets' state_dicts in facenet_pytorch's layout (what
+    detection/mtcnn.MTCNN loads) from the JAX detector's param trees
+    {'pnet': ..., 'rnet': ..., 'onet': ...}: the inverse of the JAX
+    package's facenet_pytorch converter. Conv kernels [H, W, I, O] become
+    [O, I, H, W], Dense kernels [in, out] become [out, in], PReLU's alpha
+    becomes `prelu*.weight`."""
+    out = {}
+    for net, tree in params.items():
+        sd = {}
+        for name, leaf in tree.items():
+            if "alpha" in leaf:
+                sd[f"{name}.weight"] = _t(leaf["alpha"])
+                continue
+            k = np.asarray(leaf["kernel"], np.float32)
+            sd[f"{name}.weight"] = _t(k.transpose(3, 2, 0, 1) if k.ndim == 4
+                                      else k.T)
+            sd[f"{name}.bias"] = _t(leaf["bias"])
+        out[net] = sd
+    return out

@@ -334,6 +334,6 @@ def test_cli_trains_mem_head_on_cpu(name, extra, tmp_path):
         cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    losses = [float(x) for x in re.findall(r"\] loss (\S+)", proc.stdout)]
+    losses = [float(x) for x in re.findall(r"\tLoss (\S+) \(", proc.stdout)]
     assert len(losses) == 2 and np.all(np.isfinite(losses)), proc.stdout
     assert f"Training {name}" in proc.stdout

@@ -174,3 +174,94 @@ def test_world_step_equals_one_process_step(worlds, name, fused, data,
                                        atol=2e-3)
         for n, v in r["sd"].items():
             np.testing.assert_array_equal(v, out[0]["sd"][n])
+
+
+
+# clipping that binds; the kernel starts at KERNEL_SCALE of its JAX init,
+# which makes its gradient (ArcFace's cosine is 1 / |w| steep) most of the
+# global norm, so a norm over one rank's shard is off by some 40%
+CLIP = 0.5
+KERNEL_SCALE = 1e-2
+
+
+def _jax_step(clip):
+    """((sd, kernel) at the start, (sd, kernel) after, loss) of one JAX
+    global-batch ArcFace step, SGD momentum 0.9 with no weight decay,
+    clipped at `clip` (0: off), from KERNEL_SCALE x the kernel's init, on
+    the tiny ResNet with the Pallas kernels in interpret mode."""
+    cfg = jcfg.make_head_config("arcface", feature_dim=D, num_classes=C)
+    head = jget_head("arcface")
+    backbone = JResNet(stage_sizes=STAGES, block=JBasic, embed_dim=D,
+                       num_filters=WIDTH, dtype=jnp.float32)
+    rng = jax.random.PRNGKey(42)
+    variables = backbone.init(rng, jnp.zeros((1, IMAGE, IMAGE, 3)),
+                              train=False)
+    params = {"backbone": variables["params"],
+              "kernel_w": KERNEL_SCALE * head.init_kernel(rng, cfg)}
+    tx = jget_optimizer("sgd", LR, momentum=0.9, weight_decay=0.0,
+                        clip_grad_norm=clip)
+    state = JTrainState(step=jnp.int32(0),
+                        params=jax.tree.map(jnp.copy, params),
+                        batch_stats=variables["batch_stats"],
+                        head_state=head.init_state(cfg),
+                        opt_state=tx.init(params), rng=jax.random.PRNGKey(7))
+    step = jax.jit(jmake_step(backbone, head, cfg, tx, use_fused_head=True))
+    host = lambda t: jax.tree.map(np.asarray, jax.device_get(t))
+    start = from_jax(host(state.params), host(state.batch_stats))
+    images, labels = _batches(1)[0]
+    state, m = step(state, jnp.asarray(images),
+                    jnp.asarray(labels.astype(np.int32)))
+    after = from_jax(host(state.params), host(state.batch_stats))
+    return start, after, float(m["loss"])
+
+
+def _update(sd, kernel, start):
+    """{name: after - start} of every float tensor and of the kernel."""
+    sd0, kernel0 = start
+    out = {n: np.asarray(v, np.float64) - sd0[n].numpy()
+           for n, v in sd.items() if sd0[n].dtype.is_floating_point}
+    out["kernel"] = np.asarray(kernel, np.float64) - kernel0.numpy()
+    return out
+
+
+def test_clipped_world_step_equals_one_process_and_jax_step(
+        worlds, interpret_fused):
+    """--clip-grad-norm under a class-sharded kernel: one step of a 2 x 2
+    world (each rank a [32, 48] kernel shard) with clipping at CLIP, which
+    binds, against the port's one-process step and the JAX global step
+    (optax.clip_by_global_norm of the whole kernel and backbone). The
+    states at this file's bounds (rtol 5e-3, atol 2e-3), the loss at 1e-4
+    relative, and, since a clipped update is ~1e-3 of the weights, each
+    tensor's update (after - before) at rtol 5e-3 with an atol of 2e-3 x
+    that update's largest element plus two fp32 steps of the tensor's
+    largest weight (the rounding of after - before): a norm over the
+    rank's shard alone scales the update by another factor and fails it."""
+    start, (jsd, jkernel), jloss = _jax_step(CLIP)
+    _, (usd, ukernel), _ = _jax_step(0.0)
+    sd, kernel = start
+    args = (STAGES, WIDTH, sd, kernel.numpy(), _batches(1), LR)
+    opt_kw = {"weight_decay": 0.0, "clip_grad_norm": CLIP}
+    one = jobs.train_steps("arcface", 0, 0, *args, opt_kw=opt_kw)
+    out = worlds(4).run("train_steps", "arcface", 2, 2, *args, opt_kw=opt_kw)
+    jax_update = _update({n: v.numpy() for n, v in jsd.items()},
+                         jkernel.numpy(), start)
+    free = _update({n: v.numpy() for n, v in usd.items()}, ukernel.numpy(),
+                   start)
+    # the clip binds: the update is a small fraction of the unclipped one
+    assert (np.abs(jax_update["kernel"]).max()
+            < 0.01 * np.abs(free["kernel"]).max())
+    one_update = _update(one["sd"], one["kernel"], start)
+    for r in [one] + out:
+        assert abs(r["losses"][0] - jloss) <= 1e-4 * max(1.0, abs(jloss))
+        _assert_state_close(r, jsd, jkernel.numpy(), counts=False)
+        got = _update(r["sd"], r["kernel"], start)
+        for want in (jax_update, one_update):
+            for n, u in want.items():
+                w0 = kernel if n == "kernel" else sd[n]
+                ulp = 2.0 ** -22 * max(1.0, float(w0.abs().max()))
+                np.testing.assert_allclose(
+                    got[n], u, rtol=5e-3,
+                    atol=2e-3 * np.abs(u).max() + ulp, err_msg=n)
+    for r in out:
+        for n, v in r["sd"].items():
+            np.testing.assert_array_equal(v, out[0]["sd"][n])

@@ -231,7 +231,7 @@ def test_pack_from_loader_over_arrays(tmp_path):
 # --- the CLI ---------------------------------------------------------------
 
 def _losses(text):
-    return [float(x) for x in re.findall(r"\] loss (\S+)", text)]
+    return [float(x) for x in re.findall(r"\tLoss (\S+) \(", text)]
 
 
 def _train(path, work, *extra):

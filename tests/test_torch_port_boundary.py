@@ -83,6 +83,6 @@ def test_cli_train_synthetic_on_cpu(tmp_path):
                  "--print_freq", "1", "--device", "cpu",
                  "--working-path", str(tmp_path / "work")])
     assert proc.returncode == 0, proc.stderr
-    losses = [float(x) for x in re.findall(r"\] loss (\S+)", proc.stdout)]
+    losses = [float(x) for x in re.findall(r"\tLoss (\S+) \(", proc.stdout)]
     assert len(losses) == 1 and np.isfinite(losses[0]), proc.stdout
     assert "min train loss" in proc.stdout

@@ -431,7 +431,7 @@ def test_cli_train_and_pack_from_a_rec(tmp_path, capsys):
                 "--image-size", "16", "--num-workers", "2",
                 "--print_freq", "1"]) == 0
     losses = [float(x) for x in
-              re.findall(r"\] loss (\S+)", capsys.readouterr().out)]
+              re.findall(r"\tLoss (\S+) \(", capsys.readouterr().out)]
     assert len(losses) == 3 and np.all(np.isfinite(losses))
     assert cli(["train", "--dataset-path", str(tmp_path), "--device", "cpu",
                 "--working-path", str(tmp_path / "w"), "--num-classes",

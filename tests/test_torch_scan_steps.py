@@ -308,11 +308,11 @@ def test_fit_scan_steps_equals_single_steps(name, capsys):
     package's test_scan_steps_driver_e2e runs it."""
     chunked = _fit(name, 2)
     # a chunk prints its last step when it crosses a print_freq step, a
-    # leftover step its own
-    printed = [ln.split(" loss")[0] for ln in
+    # leftover step its own (0-based, as the JAX loop's MetricTracker line)
+    printed = [ln.split("\t")[0] for ln in
                capsys.readouterr().out.splitlines() if ln.startswith("Epoch")]
-    assert printed == ["Epoch: [1/2][2/3]", "Epoch: [1/2][3/3]",
-                       "Epoch: [2/2][2/3]", "Epoch: [2/2][3/3]"]
+    assert printed == ["Epoch: [1/2][1/3]", "Epoch: [1/2][2/3]",
+                       "Epoch: [2/2][1/3]", "Epoch: [2/2][2/3]"]
     single = _fit(name, 1)
     assert len(chunked.losses) == 6
     assert chunked.losses == single.losses

@@ -8,6 +8,8 @@ float32 tensor on the count's device; JAX traces its schedule in float32
 too. Tolerance rtol 1e-6 (the two libraries' float32 pow and cos).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -124,7 +126,8 @@ def test_schedule_reads_nothing_back_to_the_host(monkeypatch):
 def test_train_scheduler_flag_reaches_each_schedule(tmp_path, name,
                                                     monkeypatch, capsys):
     """`train --scheduler NAME` builds that schedule for the run, with
-    `fit`'s num_epochs and --warmup-epochs, and its steps print its lr."""
+    `fit`'s num_epochs and --warmup-epochs, and its steps log its lr (the
+    metrics JSONL; the printed line has the JAX loop's columns, no lr)."""
     built = []
 
     def recording(cfg, learning_rate, steps_per_epoch, num_epochs=None,
@@ -144,6 +147,12 @@ def test_train_scheduler_flag_reaches_each_schedule(tmp_path, name,
     (cfg, num_epochs, sched), = built
     assert (cfg.name, cfg.warmup_epochs, num_epochs) == (name, 1, 2)
     # one step an epoch: the steps train at the lr of counts 0 and 1
-    printed = [ln.split(" lr ")[1].split()[0] for ln in
-               capsys.readouterr().out.splitlines() if ln.startswith("Epoch")]
-    assert printed == [f"{float(sched(torch.tensor(c))):.5f}" for c in (0, 1)]
+    with open(tmp_path / "log" / "arcface.metrics.jsonl") as f:
+        logged = [x for x in map(json.loads, f.read().splitlines())
+                  if "lr" in x]
+    assert [x["step"] for x in logged] == [1, 2]
+    assert ([f"{x['lr']:.5f}" for x in logged]
+            == [f"{float(sched(torch.tensor(c))):.5f}" for c in (0, 1)])
+    printed = [ln for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("Epoch")]
+    assert len(printed) == 2

@@ -1,6 +1,7 @@
 """The port's `serve` (serving/server.py) on the CPU: the cases of the JAX
-package's tests/test_server.py other than detection and alignment, which
-the port does not have yet, plus one `serve` CLI run in a subprocess.
+package's tests/test_server.py other than detection and alignment (those
+are in tests/test_torch_server_align.py), plus one `serve` CLI run in a
+subprocess.
 
 The HTTP embedding of a PNG is held to the direct embedding of the same
 pixels within atol 2e-3, as in the JAX test (a padded micro-batch against

@@ -101,10 +101,11 @@ def tiny_resnet(stages, width, d):
 
 
 def train_steps(name, data, model, stages, width, sd, kernel, batches, lr,
-                use_fused=True, step_kw=None, seed=7):
+                use_fused=True, step_kw=None, seed=7, opt_kw=None):
     """`len(batches)` train steps of the port's step from the backbone
     state_dict `sd` and the whole `kernel`, on the rank's rows and shard
-    of a data x model mesh (data = model = 0: one process, no mesh).
+    of a data x model mesh (data = model = 0: one process, no mesh), with
+    SGD (momentum 0.9, weight decay 5e-4, or `opt_kw`'s overrides).
     Returns the global losses and the whole state after the steps."""
     mesh = (make_mesh(tcfg.MeshConfig(data=data, model=model))
             if data else None)
@@ -115,7 +116,8 @@ def train_steps(name, data, model, stages, width, sd, kernel, batches, lr,
         torch.tensor(kernel), sharding.spec_for("kernel_w", kernel.shape,
                                                    c), mesh))
     opt = get_optimizer("sgd", [*backbone.parameters(), k], lr,
-                        momentum=0.9, weight_decay=5e-4)
+                        **{"momentum": 0.9, "weight_decay": 5e-4,
+                           **(opt_kw or {})})
     cfg = tcfg.make_head_config(name, feature_dim=kernel.shape[0],
                                 num_classes=c)
     head = get_head(name)
