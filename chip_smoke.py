@@ -266,7 +266,18 @@ and no result line:
              for ArcFace (K1 / K2) and VPL-ArcFace (K4), each twice a rank
              (the second call timed), and each kernel's output on the
              rank's own shard inputs against its plain version (the
-             kernels phase's tolerances);
+             kernels phase's tolerances); the eager head on the rank's
+             class shard (`train/step.eager_apply`, a `--head-path eager`
+             step's head, CE and top-k) for AdaCos (dynamic), sub-center
+             ArcFace (K = 3) and ArcFace at C = 1,048,576 against the
+             one-process eager head from the same kernel (the ranks take
+             turns on it, a barrier between them; sub-center at C =
+             851,968, `MESH_EAGER_CLASSES` says why): the loss, dx and the
+             rank's dw slice within the fused head's bounds, AdaCos's new
+             scale within 1e-6 relative, no gather of the class axis, and
+             each rank's peak allocated GB at most 0.6 of the one-process
+             head's (both printed, with ms of a second, warm forward +
+             backward);
              the sharded Partial-FC's `fit` at C = 1,048,576 for 5 steps
              (finite losses, step 1 writes exactly each shard's sampled
              columns of kernel_w and kernel_mom), its state saved by the
@@ -298,6 +309,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -4870,6 +4882,19 @@ MESH_FAULTS = ("batchnorm_local", "gradients_summed")
 # order differs)
 MESH_HEAD_TOL = {"loss": dict(rtol=2e-5, atol=2e-5),
                  "grads": dict(rtol=5e-4, atol=1e-6)}
+# the class-sharded eager head (train/step.eager_apply) over model=2 by
+# head, with its C. The one-process reference of each runs beside the other
+# rank and the smoke's main process, which still reserves ~14 GB after the
+# earlier phases. Sub-center ArcFace's at C = 1,048,576 (K = 3: a [512,
+# 3,145,728] kernel, 45.5 GiB at its peak, ~54 GiB reserved) ran out of
+# memory there on an H100 (80 GB), where about 51 GiB was left to it; at
+# 13 x 65,536 classes it needs ~44 GiB.
+MESH_EAGER_CLASSES = {"adacos": 1_048_576, "subcenter_arcface": 851_968,
+                      "arcface": 1_048_576}
+# a rank's peak allocated memory over the one-process head's: every
+# [N, C] tensor, the kernel and its gradient are halved
+MESH_EAGER_PEAK_RATIO = 0.6
+MESH_ADACOS_SCALE_RTOL = 1e-6
 # the calls probed on CUDA tensors over gloo, in a group of their own with
 # a short timeout (a call one rank refuses leaves the other waiting).
 # dist.barrier and send / recv are not among them: under gloo with a CUDA
@@ -5159,6 +5184,35 @@ def _check_recorded(calls, mem):
     return errs, flips
 
 
+def mesh_head_inputs(device, gen):
+    """(feats, warm, labels) of the mesh head parts: ResNet-50's fp32
+    embeddings (trunk initialised from `gen`, train mode, no gradient) of
+    two b512 batches of seeded 112 px images, and 2 x 512 labels in
+    [0, PFC_CLASSES). Leaves TF32 off for the heads' products."""
+    import torch
+
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.models.backbones import to_device
+    from face_recognition_models_tpu_torch.models.resnet import init_weights
+
+    trunk = get_backbone(MESH_BACKBONE, embed_dim=512,
+                         image_size=MESH_IMAGE)
+    init_weights(trunk, gen)
+    trunk = to_device(trunk, device).train()
+    rs = np.random.RandomState(12)
+    images = rs.randint(0, 256, (2 * N_MAIN, MESH_IMAGE, MESH_IMAGE, 3),
+                        np.uint8)
+    labels = rs.randint(0, PFC_CLASSES, 2 * N_MAIN)
+    x = torch.as_tensor(images, device=device).float() / 127.5 - 1.0
+    y = torch.as_tensor(labels, device=device)
+    with torch.no_grad():
+        feats = trunk(x[:N_MAIN]).float()
+        warm = trunk(x[N_MAIN:]).float()
+    del trunk, x
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return feats, warm, y
+
+
 def mesh_head_case(name, mesh, device):
     """(2) The class-sharded fused head at C = PFC_CLASSES (the rank's
     [512, C/2] shard) on ResNet-50's b512 features, forward and backward,
@@ -5175,9 +5229,6 @@ def mesh_head_case(name, mesh, device):
     from face_recognition_models_tpu_torch.heads import get_head
     from face_recognition_models_tpu_torch.heads.fused_adapter import (
         fused_apply)
-    from face_recognition_models_tpu_torch.models import get_backbone
-    from face_recognition_models_tpu_torch.models.backbones import to_device
-    from face_recognition_models_tpu_torch.models.resnet import init_weights
     from face_recognition_models_tpu_torch.ops import fused_head as fh
     from face_recognition_models_tpu_torch.parallel import sharding
 
@@ -5185,21 +5236,7 @@ def mesh_head_case(name, mesh, device):
     cfg = cfg_lib.make_head_config(name, num_classes=c)
     head = get_head(name)
     gen = torch.Generator().manual_seed(5)
-    trunk = get_backbone(MESH_BACKBONE, embed_dim=512,
-                         image_size=MESH_IMAGE)
-    init_weights(trunk, gen)
-    trunk = to_device(trunk, device).train()
-    rs = np.random.RandomState(12)
-    images = rs.randint(0, 256, (2 * N_MAIN, MESH_IMAGE, MESH_IMAGE, 3),
-                        np.uint8)
-    labels = rs.randint(0, c, 2 * N_MAIN)
-    x = torch.as_tensor(images, device=device).float() / 127.5 - 1.0
-    y = torch.as_tensor(labels, device=device)
-    with torch.no_grad():
-        feats = trunk(x[:N_MAIN]).float()
-        warm = trunk(x[N_MAIN:]).float()
-    del trunk, x
-    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, warm, y = mesh_head_inputs(device, gen)
     kernel = head.init_kernel(cfg, gen, device)
     state = head.init_state(cfg, device)
     if state is not None:
@@ -5259,6 +5296,150 @@ def mesh_head_case(name, mesh, device):
                                   **tol["grads"]),
             "ms_fwd_bwd": ms, "ms_fwd_bwd_one_process": ms_1,
             "launches": launches}
+
+
+@contextlib.contextmanager
+def count_calls(targets):
+    """{name: calls} of each (module, name) in `targets` inside the
+    block."""
+    counts, kept = {}, {}
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for module, name in targets:
+        counts[name], kept[(module, name)] = 0, getattr(module, name)
+        setattr(module, name, wrap(name, kept[(module, name)]))
+    try:
+        yield counts
+    finally:
+        for (module, name), fn in kept.items():
+            setattr(module, name, fn)
+
+
+def mesh_eager_case(name, mesh, device, feats, labels):
+    """(5) The eager head of a `--head-path eager` step
+    (train/step.eager_apply: head.apply, the mean CE and top-k) on the
+    rank's class shard over the model=2 mesh `mesh` at C =
+    MESH_EAGER_CLASSES[name], forward and backward on ResNet-50's b512
+    features (row 7 labelled -1), against the one-process eager head from
+    the same kernel (xavier-uniform, drawn on the card from a seed) and
+    state: the loss, dx and the rank's slice of dw within MESH_HEAD_TOL,
+    top-1 / top-5, and AdaCos's new scale within MESH_ADACOS_SCALE_RTOL
+    relative. The ranks take turns on the one-process head, a barrier
+    between turns. Each head is called twice, the second call timed; its
+    peak allocated GB counts from before its kernel was made (the
+    sharded run's whole kernel, cut to the shard before the run, not
+    counted). The sharded run may make no call of gather_classes or
+    gather_head_state, and its peak may be at most MESH_EAGER_PEAK_RATIO
+    of the one-process one."""
+    import torch
+
+    from face_recognition_models_tpu_torch import config as cfg_lib
+    from face_recognition_models_tpu_torch.heads import get_head
+    from face_recognition_models_tpu_torch.parallel import collectives as coll
+    from face_recognition_models_tpu_torch.parallel import sharding
+    from face_recognition_models_tpu_torch.train.step import eager_apply
+
+    t_case = time.perf_counter()
+    c = MESH_EAGER_CLASSES[name]
+    cfg = cfg_lib.make_head_config(name, num_classes=c)
+    head = get_head(name)
+    width = c * getattr(cfg, "k", 1)
+    y = labels[:N_MAIN] % c
+    y[7] = -1
+
+    def whole_kernel():
+        g = torch.Generator(device=device).manual_seed(9)
+        bound = math.sqrt(6.0 / (feats.shape[1] + width))
+        return torch.empty((feats.shape[1], width), device=device).uniform_(
+            -bound, bound, generator=g)
+
+    def run(kernel, m, base):
+        """(loss, dx, dw, new state, acc, ms, peak GB above `base`)."""
+        k = torch.nn.Parameter(kernel)
+        del kernel
+        state = head.init_state(cfg, device)
+        for _ in range(2):
+            k.grad = None
+            f = feats.clone().requires_grad_()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out, loss, acc1, acc5 = eager_apply(head, cfg, k, f, y, state,
+                                                mesh=m)
+            loss.backward()
+            torch.cuda.synchronize(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+        return (loss.detach(), f.grad, k.grad, out.state,
+                [float(acc1), float(acc5)], ms, peak)
+
+    n = width // mesh.model
+    cols = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
+    one = None
+    for turn in range(mesh.model):
+        if turn == mesh.model_index:
+            gc.collect()
+            torch.cuda.empty_cache()
+            free_gb = torch.cuda.mem_get_info(device)[0] / 1e9
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            loss, dx, dw, st, acc, ms, peak = run(whole_kernel(), None, base)
+            one = (loss, dx, dw[:, cols].clone(), st, acc, ms, peak)
+            del dw
+            torch.cuda.empty_cache()
+        coll.barrier(mesh)
+    loss_1, dx_1, dw_1, st_1, acc_1, ms_1, peak_1 = one
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    whole = whole_kernel()
+    shard = sharding.shard(whole, sharding.spec_for("kernel_w", whole.shape,
+                                                    c), mesh)
+    del whole
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    with count_calls([(coll, "gather_classes"),
+                      (sharding, "gather_head_state")]) as gathers:
+        loss, dx, dw, st, acc, ms, peak = run(shard, mesh, base)
+    del shard
+    tol = MESH_HEAD_TOL
+    out = {"head": name, "num_classes": c, "shard": [feats.shape[1], n],
+           "loss": float(loss), "loss_one_process": float(loss_1),
+           "loss_err": close(f"mesh eager {name} loss", loss, loss_1,
+                             **tol["loss"]),
+           "dx_err": close(f"mesh eager {name} dx", dx, dx_1,
+                           **tol["grads"]),
+           "dw_shard_err": close(f"mesh eager {name} dw", dw, dw_1,
+                                 **tol["grads"]),
+           "acc": acc, "acc_one_process": acc_1,
+           "ms_fwd_bwd": ms, "ms_fwd_bwd_one_process": ms_1,
+           "peak_gb": peak, "peak_gb_one_process": peak_1,
+           "peak_ratio": peak / peak_1, "gather_calls": gathers,
+           "device_free_gb_before_one_process": free_gb}
+    del dx, dw, dx_1, dw_1
+    torch.cuda.empty_cache()
+    if st is not None:
+        rel = float(((st.s - st_1.s).abs() / st_1.s.abs()).max())
+        out["scale"], out["scale_one_process"] = float(st.s), float(st_1.s)
+        out["scale_rel_err"] = rel
+        if not rel <= MESH_ADACOS_SCALE_RTOL:
+            raise AssertionError(f"mesh eager {name}: new scale {out['scale']}"
+                                 f" against {out['scale_one_process']}")
+    if acc != acc_1:
+        raise AssertionError(f"mesh eager {name}: top-1 / top-5 {acc} "
+                             f"against {acc_1}")
+    if any(gathers.values()):
+        raise AssertionError(f"mesh eager {name}: class axis gathered "
+                             f"{gathers}")
+    if not peak <= MESH_EAGER_PEAK_RATIO * peak_1:
+        raise AssertionError(f"mesh eager {name}: peak {peak:.3f} GB over "
+                             f"{MESH_EAGER_PEAK_RATIO} x the one-process "
+                             f"{peak_1:.3f} GB")
+    out["seconds"] = time.perf_counter() - t_case
+    return out
 
 
 def mesh_pfc_run(mesh, device, root):
@@ -5383,6 +5564,17 @@ def mesh_rank_main(rank, world, port, root, backend):
         head_mesh = make_mesh(MeshConfig(data=1, model=world))
         out["head"] = [mesh_head_case(name, head_mesh, device)
                        for name in ("arcface", "vpl_arcface")]
+        torch.cuda.empty_cache()
+        feats, _, labels = mesh_head_inputs(device,
+                                            torch.Generator().manual_seed(5))
+        if backend == "gloo":
+            # the ranks' rows must be the same features
+            torch.distributed.broadcast(feats, src=0)
+        out["eager"] = [mesh_eager_case(name, head_mesh, device, feats,
+                                        labels)
+                        for name in MESH_EAGER_CLASSES]
+        del feats, labels
+        torch.cuda.empty_cache()
         if backend == "gloo":
             out["pfc"] = mesh_pfc_run(head_mesh, device, root)
     finally:
@@ -5420,8 +5612,9 @@ def mesh_world(root, backend, entry=None):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
+    for log in logs:
         sys.stderr.write(log[-6000:])
+    for r, p in enumerate(procs):
         if p.returncode != 0:
             raise AssertionError(f"mesh rank {r} ({backend}) exited "
                                  f"{p.returncode}")
@@ -5565,6 +5758,16 @@ def phase_mesh(root):
     _build.build()
     init = mesh_initial_params()
     ref = {dtype: mesh_dp_reference(dtype) for dtype in MESH_TOL}
+    # the ranks share the card with this process: free what earlier phases
+    # left to the collector (CUDA graphs' pools, states in cycles) and the
+    # cache, and record what stays
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "mesh", "part": "main_process_memory",
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+          "device_free_gb": free / 1e9, "device_total_gb": total / 1e9})
     ranks = mesh_world(root, "gloo")
     note = ("two ranks share one card over gloo: times and memory are not "
             "a scaling figure")
@@ -5586,6 +5789,12 @@ def phase_mesh(root):
               "mesh": [1, MESH_WORLD], "tolerance": MESH_HEAD_TOL,
               "kernel_vs_plain_tolerance": TOLERANCE,
               "by_rank": [r["head"][i] for r in ranks], "note": note})
+    for i, name in enumerate(MESH_EAGER_CLASSES):
+        emit({"phase": "mesh", "part": f"head_eager_{name}",
+              "mesh": [1, MESH_WORLD], "tolerance": MESH_HEAD_TOL,
+              "peak_ratio_bound": MESH_EAGER_PEAK_RATIO,
+              "by_rank": [r["eager"][i] for r in ranks],
+              "nvidia_smi": nvidia_smi(), "note": note})
     restore = mesh_check_restore(ranks, root)
     emit({"phase": "mesh", "part": "partial_fc", "mesh": [1, MESH_WORLD],
           "by_rank": [r["pfc"] for r in ranks], "checkpoint": restore,

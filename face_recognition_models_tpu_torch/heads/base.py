@@ -21,6 +21,8 @@ from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
+from face_recognition_models_tpu_torch.parallel import collectives as coll
+
 
 class HeadOutput(NamedTuple):
     pre_logits: torch.Tensor  # margin-free scaled logits [N, C] (accuracy)
@@ -38,6 +40,16 @@ def one_hot(labels: torch.Tensor, num_classes: int,
     the metrics' target selection."""
     cols = torch.arange(num_classes, device=labels.device)
     return (labels.long()[:, None] == cols[None, :]).to(dtype)
+
+
+def shard_one_hot(labels: torch.Tensor, num_local: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """[N, num_local] one-hot over the rank's class shard [offset, offset +
+    num_local) of the active model axis (collectives.class_range): a label
+    in another shard, or -1, gives a zero row. Without a model axis,
+    one_hot(labels, num_local)."""
+    offset, _ = coll.class_range(num_local)
+    return one_hot(labels.long() - offset, num_local, dtype)
 
 
 class _TakeColumns(torch.autograd.Function):

@@ -16,6 +16,18 @@ AdaFace's norm mean and std, QAFace's magnitude mean and std (with their
 gradient), AdaCos's B_avg and median angle; the elastic margins are drawn
 and ranked over the global batch; the memory heads update their (class-
 sharded) memories from the global batch's features and labels.
+
+With a model axis every head runs on the rank's class shard, as the JAX
+heads do under the kernel's P(None, 'model') layout: the kernel is the
+rank's [D, C/m] columns ([D, C k/m] for sub-center, whole classes
+together), the head memories its rows, and the logits [N, C/m]. The
+one-hot covers the shard's range (`shard_one_hot`); the class-wide values
+are combined over the model group: the target cosine is the owning shard's
+(`_target_cos`), AdaCos's non-target mass a sum over the shards. A row
+value that feeds the shard's [N, C/m] work (the normalised features, the
+target cosine, SphereFace's norm, MagFace's margin, QAFace's target
+cosine) enters it through `copy_to_model`, so its gradient adds every
+shard's share; a value used by the row alone (MagFace's loss_g) does not.
 """
 
 from __future__ import annotations
@@ -29,15 +41,17 @@ from face_recognition_models_tpu_torch.heads.base import (
     Head,
     HeadOutput,
     register_head,
-    take_columns,
 )
 from face_recognition_models_tpu_torch.heads.base import one_hot as _one_hot
+from face_recognition_models_tpu_torch.heads.base import shard_one_hot
 from face_recognition_models_tpu_torch.ops.normalize import (
-    cosine_logits,
     feature_norms,
     l2_normalize,
 )
 from face_recognition_models_tpu_torch.parallel import collectives as coll
+from face_recognition_models_tpu_torch.parallel.sharded_fused import (
+    take_target_columns,
+)
 
 
 def _xavier_uniform_kernel(cfg, generator: torch.Generator,
@@ -133,10 +147,22 @@ def _arc_margin(cos, one_hot, m: float, easy_margin: bool, s: float):
     return (one_hot * phi + (1.0 - one_hot) * cos) * s
 
 
+def _cosine(feats, kernel):
+    """(cos [N, C_local], xn [N, D], norms [N, 1]) for feats [N, D] and the
+    rank's class shard [D, C_local] of the kernel (all of it without a
+    model axis); xn reaches the product through `copy_to_model`."""
+    xn = l2_normalize(feats, dim=1)
+    wn = l2_normalize(kernel, dim=0)
+    return coll.copy_to_model(xn) @ wn, xn, feature_norms(feats)
+
+
 def _target_cos(cos, one_hot):
     """Per-row target cosine [N, 1], a reduction through the one-hot (0 for
-    an ignore label)."""
-    return (cos * one_hot).sum(1, keepdim=True)
+    an ignore label). Under a model axis the owning shard's value, summed
+    over the group, for every shard's work: its gradient adds the shards'
+    shares."""
+    return coll.copy_to_model(coll.reduce_from_model(
+        (cos * one_hot).sum(1, keepdim=True)))
 
 
 def _zero(feats):
@@ -183,15 +209,16 @@ def _sphere_phi(cos, m: int):
 
 def _sphereface_apply(cfg, kernel, feats, labels, state: SphereFaceState,
                       rng=None, minput=None) -> HeadOutput:
-    cos, _, norms = cosine_logits(feats, kernel)
+    cos, _, norms = _cosine(feats, kernel)
     cos = cos.clamp(-1.0, 1.0)
     new_iter = state.iter + 1
     lamb = _sphere_lambda(cfg, new_iter)
     phi = _sphere_phi(cos, cfg.m)
-    one_hot = _one_hot(labels, cfg.num_classes)
+    one_hot = shard_one_hot(labels, cos.shape[1])
     # the annealed blend, scaled by the FEATURE NORM (criterion.py:104-105)
-    logits = (one_hot * (phi - cos) / (1.0 + lamb) + cos) * norms
-    return HeadOutput(cos * norms, logits, norms, _zero(feats), one_hot,
+    scale = coll.copy_to_model(norms)
+    logits = (one_hot * (phi - cos) / (1.0 + lamb) + cos) * scale
+    return HeadOutput(cos * scale, logits, norms, _zero(feats), one_hot,
                       SphereFaceState(new_iter))
 
 
@@ -211,9 +238,9 @@ register_head(Head(
 
 def _cosface_apply(cfg, kernel, feats, labels, state=None, rng=None,
                    minput=None) -> HeadOutput:
-    cos, _, norms = cosine_logits(feats, kernel)
+    cos, _, norms = _cosine(feats, kernel)
     cos = cos.clamp(-1.0 + cfg.eps, 1.0 - cfg.eps)      # criterion.py:177
-    one_hot = _one_hot(labels, cfg.num_classes)
+    one_hot = shard_one_hot(labels, cos.shape[1])
     logits = (cos - one_hot * cfg.m) * cfg.s            # criterion.py:186-189
     return HeadOutput(cos * cfg.s, logits, norms, _zero(feats), one_hot,
                       state)
@@ -234,8 +261,8 @@ register_head(Head(
 
 def _arcface_apply(cfg, kernel, feats, labels, state=None, rng=None,
                    minput=None) -> HeadOutput:
-    cos, _, norms = cosine_logits(feats, kernel)  # no clamp (criterion.py:267)
-    one_hot = _one_hot(labels, cfg.num_classes)  # -1: an all-zero row
+    cos, _, norms = _cosine(feats, kernel)  # no clamp (criterion.py:267)
+    one_hot = shard_one_hot(labels, cos.shape[1])  # -1: a zero row
     logits = _arc_margin(cos, one_hot, cfg.m, cfg.easy_margin, cfg.s)
     return HeadOutput(cos * cfg.s, logits, norms,
                       _zero(feats), one_hot, state)
@@ -256,10 +283,10 @@ register_head(Head(
 
 def _mv_softmax_apply(cfg, kernel, feats, labels, state=None, rng=None,
                       minput=None) -> HeadOutput:
-    cos, _, norms = cosine_logits(feats, kernel)
+    cos, _, norms = _cosine(feats, kernel)
     cos = cos.clamp(-1.0 + cfg.eps, 1.0 - cfg.eps)      # criterion.py:413
     pre = cos * cfg.s
-    one_hot = _one_hot(labels, cfg.num_classes)
+    one_hot = shard_one_hot(labels, cos.shape[1])
     t_cos = _target_cos(cos, one_hot)                   # [N, 1]
     if cfg.margin_type == "am":                         # criterion.py:420-424
         final_target = torch.where(t_cos > cfg.m, t_cos - cfg.m, t_cos)
@@ -308,10 +335,10 @@ def _curricular_ctm(t_cos, m: float):
 def _curricularface_apply(cfg, kernel, feats, labels,
                           state: CurricularFaceState, rng=None,
                           minput=None) -> HeadOutput:
-    cos, _, norms = cosine_logits(feats, kernel)
+    cos, _, norms = _cosine(feats, kernel)
     cos = cos.clamp(-1.0, 1.0)                          # criterion.py:546
     pre = cos * cfg.s
-    one_hot = _one_hot(labels, cfg.num_classes)
+    one_hot = shard_one_hot(labels, cos.shape[1])
     t_cos = _target_cos(cos, one_hot)
     ctm = _curricular_ctm(t_cos, cfg.m)
     threshold = math.cos(math.pi - cfg.m)
@@ -351,12 +378,12 @@ class VPLArcFaceState(NamedTuple):
 def _vpl_arcface_apply(cfg, kernel, feats, labels, state: VPLArcFaceState,
                        rng=None, minput=None) -> HeadOutput:
     feats = feats.to(torch.float32)
-    cos_w, xn, norms = cosine_logits(feats, kernel)
-    one_hot = _one_hot(labels, cfg.num_classes)
+    cos_w, xn, norms = _cosine(feats, kernel)
+    one_hot = shard_one_hot(labels, cos_w.shape[1])
 
     new_mem, new_life, use_mem = _memory_step(cfg, feats, labels, state)
     active = (new_life > 0).to(torch.float32)[None, :]    # [1, C]
-    cos_mem = xn @ l2_normalize(new_mem, dim=1).T
+    cos_mem = coll.copy_to_model(xn) @ l2_normalize(new_mem, dim=1).T
     lam = cfg.lamda
     # non-target: blend toward the memory cosine; target: toward 1.0
     # (criterion.py:724-726)
@@ -415,11 +442,11 @@ def _adaface_scaler(cfg, norms, state: AdaFaceState):
 
 def _adaface_apply(cfg, kernel, feats, labels, state: AdaFaceState, rng=None,
                    minput=None) -> HeadOutput:
-    cos, _, norms = cosine_logits(feats, kernel)
+    cos, _, norms = _cosine(feats, kernel)
     cos = cos.clamp(-1.0 + cfg.eps, 1.0 - cfg.eps)      # eps = 1e-3, :872
     pre = cos * cfg.s
     scaler, new_state = _adaface_scaler(cfg, norms, state)
-    one_hot = _one_hot(labels, cfg.num_classes)
+    one_hot = shard_one_hot(labels, cos.shape[1])
     # angular: cos(theta - m * scaler) on the target column (:893-896)
     m_arc = one_hot * (cfg.m * scaler * -1.0)
     theta_m = (torch.acos(cos) + m_arc).clamp(cfg.eps, math.pi - cfg.eps)
@@ -473,10 +500,10 @@ def _elastic_margin(rng, t_cos, valid, m: float, std: float, plus: bool):
 
 
 def _elastic_apply(cfg, kernel, feats, labels, rng, arc: bool) -> HeadOutput:
-    cos, _, norms = cosine_logits(feats, kernel)
+    cos, _, norms = _cosine(feats, kernel)
     cos = cos.clamp(-1.0 + cfg.eps, 1.0 - cfg.eps)
     pre = cos * cfg.s
-    one_hot = _one_hot(labels, cfg.num_classes)
+    one_hot = shard_one_hot(labels, cos.shape[1])
     valid = labels >= 0
     t_cos = _target_cos(cos, one_hot)[:, 0]
     margin = _elastic_margin(rng, t_cos, valid, cfg.m, cfg.std, cfg.plus)
@@ -548,11 +575,11 @@ def _magface_ctm(cfg, cos, ada_m):
 
 def _magface_apply(cfg, kernel, feats, labels, state=None, rng=None,
                    minput=None) -> HeadOutput:
-    cos, _, norms = cosine_logits(feats, kernel)
+    cos, _, norms = _cosine(feats, kernel)
     x_norm, loss_g, ada_m = _magface_margin(cfg, norms)
     cos = cos.clamp(-1.0 + cfg.eps, 1.0 - cfg.eps)
-    ctm = _magface_ctm(cfg, cos, ada_m)
-    one_hot = _one_hot(labels, cfg.num_classes)
+    ctm = _magface_ctm(cfg, cos, coll.copy_to_model(ada_m))
+    one_hot = shard_one_hot(labels, cos.shape[1])
     logits = (one_hot * ctm + (1.0 - one_hot) * cos) * cfg.s
     # the reference returns the CLAMPED norm as `norms` (:1290)
     return HeadOutput(cos * cfg.s, logits, x_norm, loss_g, one_hot, state)
@@ -612,18 +639,21 @@ def _qaface_apply(cfg, kernel, feats, labels, state: QAFaceState, rng=None,
     the head uses `feats`."""
     feats = feats.to(torch.float32)
     minput = feats if minput is None else minput.to(torch.float32)
-    cos_w, xn, norms = cosine_logits(feats, kernel)
-    one_hot = _one_hot(labels, cfg.num_classes)
+    cos_w, xn, norms = _cosine(feats, kernel)
+    one_hot = shard_one_hot(labels, cos_w.shape[1])
     injection, use_mem, new_state = _qaface_step(cfg, minput, labels, state)
 
     active = (new_state.life > 0).to(torch.float32)[None, :]
-    cos_mem = xn @ l2_normalize(new_state.mem, dim=1).T
+    cos_mem = coll.copy_to_model(xn) @ l2_normalize(new_state.mem, dim=1).T
     # non-target: full memory replacement where active (:1476)
     cosine1 = (1.0 - active) * cos_w + active * cos_mem
-    # target: cosine against (raw class weight + injection) (:1479-1482)
-    target_w = take_columns(kernel.to(torch.float32),
-                            torch.where(labels >= 0, labels, 0)).T + injection
-    cosine2 = (xn * l2_normalize(target_w, dim=1)).sum(1, keepdim=True)
+    # target: cosine against (raw class weight + injection) (:1479-1482),
+    # the class weight from its owning shard
+    target_w = take_target_columns(kernel.to(torch.float32),
+                                   torch.where(labels >= 0, labels, 0),
+                                   coll.active()) + injection
+    cosine2 = coll.copy_to_model(
+        (xn * l2_normalize(target_w, dim=1)).sum(1, keepdim=True))
     blended = one_hot * cosine2 + (1.0 - one_hot) * cosine1
     cosine = torch.where(use_mem, blended, cos_w)
 
@@ -667,8 +697,8 @@ def _combined_margin_apply(cfg, kernel, feats, labels, state=None, rng=None,
                            minput=None) -> HeadOutput:
     """Target-column margin cos(m1 theta + m2) - m3, scaled by s; the
     other columns' cosines stay unclamped."""
-    cos, _, norms = cosine_logits(feats, kernel)
-    one_hot = _one_hot(labels, cfg.num_classes)
+    cos, _, norms = _cosine(feats, kernel)
+    one_hot = shard_one_hot(labels, cos.shape[1])
     t_cos = _target_cos(cos, one_hot).clamp(-1.0 + cfg.eps, 1.0 - cfg.eps)
     phi = _combined_t(cfg, t_cos)
     logits = (one_hot * phi + (1.0 - one_hot) * cos) * cfg.s
@@ -693,10 +723,12 @@ def _subcenter_arcface_apply(cfg, kernel, feats, labels, state=None,
                              rng=None, minput=None) -> HeadOutput:
     """ArcFace over each class's cosine max-pooled across its k sub-center
     columns (class-major [D, C k] kernel); the gradient reaches the winning
-    sub-center (split evenly on a tie, as jnp.max's)."""
-    cos_all, _, norms = cosine_logits(feats, kernel)    # [N, C k]
-    cos = cos_all.reshape(cos_all.shape[0], cfg.num_classes, cfg.k).amax(2)
-    one_hot = _one_hot(labels, cfg.num_classes)
+    sub-center (split evenly on a tie, as jnp.max's). Under a model axis
+    the kernel is the rank's whole classes, C/m of them."""
+    cos_all, _, norms = _cosine(feats, kernel)    # [N, C k]
+    c_local = cos_all.shape[1] // cfg.k
+    cos = cos_all.reshape(cos_all.shape[0], c_local, cfg.k).amax(2)
+    one_hot = shard_one_hot(labels, c_local)
     logits = _arc_margin(cos, one_hot, cfg.m, cfg.easy_margin, cfg.s)
     return HeadOutput(cos * cfg.s, logits, norms, _zero(feats), one_hot,
                       state)
@@ -738,14 +770,16 @@ def _adacos_apply(cfg, kernel, feats, labels, state: AdaCosState, rng=None,
     12-13): B_avg the batch mean of the non-target exp(s_prev cos) mass,
     theta_med the median target angle (clipped to theta_clip), s_new =
     ln(B_avg) / cos(theta_med), without gradient; the batch's logits take
-    s_new. Fixed: the state's scale."""
-    cos, _, norms = cosine_logits(feats, kernel)
+    s_new. Fixed: the state's scale. Under a model axis B_avg's class sum
+    and the target angle are the model group's, so every rank takes the
+    same s_new."""
+    cos, _, norms = _cosine(feats, kernel)
     cos = cos.clamp(-1.0 + 1e-7, 1.0 - 1e-7)
-    one_hot = _one_hot(labels, cfg.num_classes)
+    one_hot = shard_one_hot(labels, cos.shape[1])
     if cfg.dynamic:
         theta = torch.acos(_target_cos(cos, one_hot)[:, 0])
-        b_avg = coll.batch_mean(
-            ((1.0 - one_hot) * torch.exp(state.s * cos)).sum(1))
+        b_avg = coll.batch_mean(coll.reduce_from_model(
+            ((1.0 - one_hot) * torch.exp(state.s * cos)).sum(1).detach()))
         theta_med = _median(coll.gather_rows(theta.detach())).clamp(
             0.0, cfg.theta_clip)
         s_new = (torch.log(b_avg.clamp_min(1e-12))

@@ -1,8 +1,10 @@
-"""L2 normalisation and normalised cosine logits, in true fp32.
+"""L2 normalisation and feature norms, in true fp32.
 
-Port of face_recognition_models_tpu/ops/normalize.py. The cosine product
-runs in IEEE fp32: the acos-based margins downstream need full-precision
-cosines, so callers on the card keep TF32 off for float32 products
+Port of face_recognition_models_tpu/ops/normalize.py; the heads' cosine
+product of normalised features and columns is heads/margins._cosine (on
+the rank's class shard under a model axis). It runs in IEEE fp32: the
+acos-based margins downstream need full-precision cosines, so callers on
+the card keep TF32 off for float32 products
 (`torch.backends.cuda.matmul.allow_tf32 = False`).
 """
 
@@ -25,11 +27,3 @@ def feature_norms(feats: torch.Tensor) -> torch.Tensor:
     """Per-row L2 norms, shape [N, 1], in fp32."""
     return torch.linalg.vector_norm(feats.to(torch.float32), dim=1,
                                     keepdim=True)
-
-
-def cosine_logits(feats: torch.Tensor, kernel: torch.Tensor):
-    """(cos [N, C], feats_norm [N, D], norms [N, 1]) for feats [N, D] and a
-    [D, C] class-prototype kernel."""
-    xn = l2_normalize(feats, dim=1)
-    wn = l2_normalize(kernel, dim=0)
-    return xn @ wn, xn, feature_norms(feats)

@@ -31,10 +31,12 @@ step: the batch is the rank's rows, the kernel and the head memories its
 class shard. The step runs under `collectives.using(mesh)`, so BatchNorm,
 the heads' batch statistics and every per-row draw are the global batch's;
 the fused head combines its class shards over the model group
-(parallel/sharded_fused.py); the eager head gathers the whole kernel and
-head state first (its [N, C] logits then take the memory the fused head
-saves); the gradients are averaged over the data group before the update,
-and the metrics are the global batch's means on every rank.
+(parallel/sharded_fused.py); the eager head (`eager_apply`) runs on the
+rank's kernel and head-state shards, its [N, C/m] logits, loss and
+accuracy combined over the model group, so no rank holds the whole kernel
+or any [N, C] tensor; the gradients are averaged over the data group
+before the update, and the metrics are the global batch's means on every
+rank.
 """
 
 from __future__ import annotations
@@ -55,7 +57,6 @@ from face_recognition_models_tpu_torch.ops.image_ops import (
     normalization_constants,
 )
 from face_recognition_models_tpu_torch.parallel import collectives as coll
-from face_recognition_models_tpu_torch.parallel import sharding
 from face_recognition_models_tpu_torch.train.losses import mean_cross_entropy
 from face_recognition_models_tpu_torch.train.metrics import topk_accuracy
 from face_recognition_models_tpu_torch.train.state import TrainState
@@ -77,6 +78,28 @@ def distill_loss(student_feats: torch.Tensor, teacher_feats: torch.Tensor,
         return torch.mean(torch.sum((student_feats - teacher_feats) ** 2,
                                     dim=1))
     raise ValueError(f"unknown distill mode '{mode}' (cosine | mse)")
+
+
+def eager_apply(head, head_cfg, kernel, feats, labels, head_state, rng=None,
+                minput=None, mesh=None):
+    """The eager head + mean CE + top-1 / top-5 -> (HeadOutput, loss_id,
+    acc1, acc5). With a model axis in `mesh` (or the active mesh), kernel
+    and head_state are the rank's class shards and the logits its
+    [N, C/m] columns; the loss and the accuracy combine the shards over
+    the model group. A head whose logits do not cover its shard exactly
+    raises: nothing falls back to the whole kernel."""
+    with coll.using(coll.active() if mesh is None else mesh):
+        out = head.apply(head_cfg, kernel, feats, labels, head_state,
+                         rng=rng, minput=minput)
+        model = coll.model_size()
+        if out.logits.shape[1] * model != head_cfg.num_classes:
+            raise ValueError(
+                f"head '{head_cfg.name}' gave {out.logits.shape[1]} logit "
+                f"columns on a shard of {head_cfg.num_classes} classes over "
+                f"{model} model ranks")
+        loss_id = mean_cross_entropy(out.logits, labels)
+        acc1, acc5 = topk_accuracy(out.pre_logits, labels)
+    return out, loss_id, acc1, acc5
 
 
 def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
@@ -148,22 +171,6 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
             state, metrics = one_step(state, images, labels, minput_images)
             return state, coll.average_metrics(metrics, mesh)
 
-    def eager_head(state, feats, labels, rng, minput_feats):
-        """The eager head; with a model axis over the whole kernel and
-        head state gathered from the shards, its new state sliced back."""
-        if coll.model_size(mesh) == 1:
-            return head.apply(head_cfg, state.kernel_w, feats, labels,
-                              state.head_state, rng=rng,
-                              minput=minput_feats)
-        c = head_cfg.num_classes
-        out = head.apply(
-            head_cfg, coll.gather_classes(state.kernel_w, 1, mesh, grad=True),
-            feats, labels,
-            sharding.gather_head_state(state.head_state, c, mesh), rng=rng,
-            minput=minput_feats)
-        return out._replace(state=sharding.shard_head_state(out.state, c,
-                                                            mesh))
-
     def one_step(state: TrainState, images, labels, minput_images=None):
         images = apply_augmentations(state.rng, prepare(images),
                                      horizontal_flip, crop_pad, color_jitter,
@@ -185,9 +192,9 @@ def make_train_step(head, head_cfg, lr_schedule: Optional[Callable] = None,
                               mesh=mesh)
             loss_id, acc1, acc5 = out.loss_id, out.acc1, out.acc5
         else:
-            out = eager_head(state, feats, labels, rng, minput_feats)
-            loss_id = mean_cross_entropy(out.logits, labels)
-            acc1, acc5 = topk_accuracy(out.pre_logits, labels)
+            out, loss_id, acc1, acc5 = eager_apply(
+                head, head_cfg, state.kernel_w, feats, labels,
+                state.head_state, rng, minput_feats, mesh)
         loss_mag = lambda_g * out.loss_g
         loss = loss_id + loss_mag
         if t_feats is not None:

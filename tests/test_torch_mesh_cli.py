@@ -6,6 +6,10 @@ MASTER_PORT in its environment, gloo on the CPU (`--device cpu`).
   every rank exits 0 with the same global losses, rank 0 alone prints,
   writes the log, the one epoch checkpoint, min_loss and the final
   artifact, and the epoch checkpoint holds the whole [D, C] kernel.
+- `train --mesh-model 2 --head-path eager` in a world of 4: the eager head
+  on each rank's class shard; the ranks' losses equal, and the first step's
+  loss that of the same command in one process (the same global batch and
+  weights) at 1e-4 relative.
 - `facenet --use-mesh` in a world of 2 trains and writes its final
   artifact.
 
@@ -18,6 +22,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -100,6 +105,32 @@ def test_train_multihost_mesh_model_2(tmp_path):
     # rank 0's log and metrics alone
     assert sorted(os.listdir(work / "log")) == ["arcface.metrics.jsonl",
                                                 "arcface.txt"]
+
+
+def test_train_multihost_eager_head_mesh_model_2(tmp_path):
+    argv = ["train", "--synthetic", "--device", "cpu", "--head-path",
+            "eager", "--synthetic-classes", "8", "--synthetic-per-class",
+            "4", "--batch_size", "8", "--epochs", "1", "--image-size", "16",
+            "--print_freq", "1"]
+    outs = _launch(4, [*argv, "--mesh-model", "2", "--working-path",
+                       str(tmp_path / "world")])
+    one = subprocess.run(
+        [sys.executable, "-c", _WRAPPER, *argv, "--working-path",
+         str(tmp_path / "one")], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT),
+        timeout=240)
+    assert one.returncode == 0, one.stderr
+    losses = [_losses(o) for o in outs]
+    assert "mesh 2x2 (data x model)" in outs[0]
+    assert all(x == losses[0] for x in losses)
+    world, single = losses[0][0], _losses(one.stdout)[0]
+    assert len(world) == len(single) == 4
+    assert all(np.isfinite(world))
+    assert abs(world[0] - single[0]) <= 1e-4 * abs(single[0]), (world,
+                                                                single)
+    saved = torch.load(tmp_path / "world" / "checkpoints" / "arcface"
+                       / "epoch_1", map_location="cpu", weights_only=True)
+    assert saved["state"]["kernel_w"].shape == (512, 8)
 
 
 def test_facenet_use_mesh(tmp_path):

@@ -11,9 +11,12 @@ batch.
 - The port's world against its own one-process step from the same weights
   and seed, two steps at lr 0.01, in a world of 4: the fused head over
   2 x 2 and 4 x 1 meshes (CurricularFace's t, AdaFace's statistics, MagFace, the
-  elastic margins drawn over the global batch), the eager head gathering
-  the class shards (AdaFace, VPL-ArcFace over a 1 x 4 mesh, AdaCos's
-  median), and the four augmentations drawn for the global batch. Losses
+  elastic margins drawn over the global batch), the eager head on the
+  rank's class shard with no gather of the class axis (AdaFace, sub-center
+  ArcFace and AdaCos over 2 x 2, VPL-ArcFace and CurricularFace over
+  1 x 4, AdaCos's median over 4 x 1), and the four augmentations drawn
+  for the global batch. Every world step runs with
+  collectives.gather_classes and sharding.gather_head_state refused. Losses
   at 1e-4 relative, the state and the head state at rtol 5e-3 / atol
   2e-3; every rank's backbone bitwise equal. (The two
   programs' fp32 rounding differs by about 2e-5 of a step's update; at this
@@ -34,6 +37,7 @@ from face_recognition_models_tpu.models.resnet import ResNet as JResNet
 from face_recognition_models_tpu.train import TrainState as JTrainState
 from face_recognition_models_tpu.train import get_optimizer as jget_optimizer
 from face_recognition_models_tpu.train import make_train_step as jmake_step
+from face_recognition_models_tpu_torch import config as tcfg
 from face_recognition_models_tpu_torch.models.resnet import init_weights
 from face_recognition_models_tpu_torch.utils.weights import from_jax
 
@@ -144,6 +148,11 @@ WORLD_CASES = [
     pytest.param("vpl_arcface", False, 1, 4, {}, id="vpl-eager-1x4"),
     pytest.param("vpl_arcface", True, 2, 2, {}, id="vpl-fused-2x2"),
     pytest.param("adacos", False, 4, 1, {}, id="adacos-eager-4x1"),
+    pytest.param("subcenter_arcface", False, 2, 2, {},
+                 id="subcenter-eager-2x2"),
+    pytest.param("curricularface", False, 1, 4, {},
+                 id="curricular-eager-1x4"),
+    pytest.param("adacos", False, 2, 2, {}, id="adacos-eager-2x2"),
     pytest.param("arcface", True, 2, 2,
                  {"horizontal_flip": True, "crop_pad": 2,
                   "color_jitter": 0.2, "random_erasing": 0.5},
@@ -157,10 +166,13 @@ def test_world_step_equals_one_process_step(worlds, name, fused, data,
     bb = jobs.tiny_resnet(STAGES, WIDTH, D)
     init_weights(bb, torch.Generator().manual_seed(1))
     sd = {k: v.clone() for k, v in bb.state_dict().items()}
-    kernel = 0.1 * np.random.RandomState(2).randn(D, C).astype(np.float32)
+    # sub-center: k columns a class
+    k = getattr(tcfg.make_head_config(name, num_classes=C), "k", 1)
+    kernel = 0.1 * np.random.RandomState(2).randn(D, C * k).astype(
+        np.float32)
     batches = _batches(2, seed=5)
     args = (STAGES, WIDTH, sd, kernel, batches, 0.01)
-    kw = dict(use_fused=fused, step_kw=step_kw)
+    kw = dict(use_fused=fused, step_kw=step_kw, num_classes=C)
     want = jobs.train_steps(name, 0, 0, *args, **kw)
     out = worlds(4).run("train_steps", name, data, model, *args, **kw)
     want_sd = {k: torch.as_tensor(v) for k, v in want["sd"].items()}

@@ -5,11 +5,14 @@ the JAX package. No JAX import here: the workers run the port alone."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
 from face_recognition_models_tpu_torch import config as tcfg
 from face_recognition_models_tpu_torch.heads import get_head
+from face_recognition_models_tpu_torch.heads import margins
 from face_recognition_models_tpu_torch.heads.fused_adapter import (
     MEM_FUSED_HEADS,
     _mem_row_params,
@@ -30,7 +33,10 @@ from face_recognition_models_tpu_torch.parallel.sharded_fused import (
 )
 from face_recognition_models_tpu_torch.train.optim import get_optimizer
 from face_recognition_models_tpu_torch.train.state import TrainState
-from face_recognition_models_tpu_torch.train.step import make_train_step
+from face_recognition_models_tpu_torch.train.step import (
+    eager_apply,
+    make_train_step,
+)
 
 
 def _np(x):
@@ -95,21 +101,86 @@ def fused_head(name, data, model, kernel, feats, labels, head_state,
             "data_index": mesh.data_index, "model_index": mesh.model_index}
 
 
+@contextlib.contextmanager
+def no_class_gather():
+    """Inside the block, collectives.gather_classes and
+    sharding.gather_head_state raise: a head or step that would make the
+    whole class axis on a rank fails."""
+    kept = coll.gather_classes, sharding.gather_head_state
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the whole class axis gathered under a model "
+                             "axis")
+
+    coll.gather_classes = sharding.gather_head_state = refuse
+    try:
+        yield
+    finally:
+        coll.gather_classes, sharding.gather_head_state = kept
+
+
+def eager_head(name, data, model, kernel, feats, labels, head_state,
+               head_args=None, noise=None, num_classes=None, lambda_g=0.0):
+    """The train step's eager head, loss and top-k (train/step.
+    eager_apply: heads/margins.py, train/losses.py, train/metrics.py) on
+    the rank's rows and class shard, with the whole class axis refused
+    (no_class_gather); the loss is the CE + lambda_g loss_g. `noise` is
+    the elastic heads' normal draw for the global batch. Returns the
+    global loss and top-1 / top-5, the kernel shard's gradient averaged
+    over the data group, the rank's feature gradient and the whole new
+    head state by field."""
+    mesh = make_mesh(tcfg.MeshConfig(data=data, model=model))
+    c = num_classes or kernel.shape[1]
+    cfg = tcfg.make_head_config(name, feature_dim=kernel.shape[0],
+                                num_classes=c, **(head_args or {}))
+    k = torch.nn.Parameter(sharding.shard(
+        torch.tensor(kernel), sharding.spec_for("kernel_w", kernel.shape,
+                                                   c), mesh))
+    x = _rows(torch.as_tensor(feats), mesh).clone().requires_grad_()
+    y = _rows(torch.as_tensor(labels), mesh)
+    state = sharding.shard_head_state(head_state, c, mesh)
+    draw = margins._normal_noise
+    if noise is not None:
+        margins._normal_noise = lambda rng, n, device: torch.as_tensor(noise)
+    try:
+        with no_class_gather():
+            out, loss_id, *acc = eager_apply(get_head(name), cfg, k, x, y,
+                                             state, torch.Generator(),
+                                             mesh=mesh)
+            loss = loss_id + lambda_g * out.loss_g
+            loss.backward()
+    finally:
+        margins._normal_noise = draw
+    coll.average_gradients([k], mesh)
+    metrics = coll.average_metrics({"loss": loss, "acc1": acc[0],
+                                    "acc5": acc[1]}, mesh)
+    new_state = sharding.gather_head_state(out.state, c, mesh)
+    return {**{key: float(v) for key, v in metrics.items()},
+            "logit_columns": out.logits.shape[1],
+            "gk": _np(k.grad), "gf": _np(x.grad),
+            "state": None if new_state is None else {
+                f: _np(v) for f, v in zip(new_state._fields, new_state)},
+            "data_index": mesh.data_index, "model_index": mesh.model_index}
+
+
 def tiny_resnet(stages, width, d):
     return ResNet(tuple(stages), BasicBlock, embed_dim=d, num_filters=width,
                   dtype=torch.float32)
 
 
 def train_steps(name, data, model, stages, width, sd, kernel, batches, lr,
-                use_fused=True, step_kw=None, seed=7, opt_kw=None):
+                use_fused=True, step_kw=None, seed=7, opt_kw=None,
+                num_classes=None):
     """`len(batches)` train steps of the port's step from the backbone
     state_dict `sd` and the whole `kernel`, on the rank's rows and shard
     of a data x model mesh (data = model = 0: one process, no mesh), with
-    SGD (momentum 0.9, weight decay 5e-4, or `opt_kw`'s overrides).
+    SGD (momentum 0.9, weight decay 5e-4, or `opt_kw`'s overrides); the
+    steps may not gather the class axis (no_class_gather). `num_classes`
+    defaults to the kernel's width (sub-center: C of its C k columns).
     Returns the global losses and the whole state after the steps."""
     mesh = (make_mesh(tcfg.MeshConfig(data=data, model=model))
             if data else None)
-    c = kernel.shape[1]
+    c = num_classes or kernel.shape[1]
     backbone = tiny_resnet(stages, width, kernel.shape[0])
     backbone.load_state_dict(sd, strict=True)
     k = torch.nn.Parameter(sharding.shard(
@@ -131,8 +202,10 @@ def train_steps(name, data, model, stages, width, sd, kernel, batches, lr,
     for images, labels in batches:
         images = _rows(torch.as_tensor(images), mesh)
         view = (degrade_images(images),) if head.requires_minput else ()
-        state, metrics = step(state, images, _rows(torch.as_tensor(labels),
-                                                   mesh), *view)
+        with no_class_gather():
+            state, metrics = step(state, images,
+                                  _rows(torch.as_tensor(labels), mesh),
+                                  *view)
         losses.append(float(metrics["loss"]))
     return {"losses": losses,
             "kernel": _np(sharding.gather(k.detach(), sharding.CLASS_COLUMNS,
