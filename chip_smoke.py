@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--only partial_fc,facenet,mesh,detect]
+    python3 chip_smoke.py [--only partial_fc,facenet,mesh,detect,...]
 
 (`--only` runs just those phases after the device line: no build, no
 kernels line and no result line.) Phases, one JSON line each; any failure ends the run with a non-zero exit
@@ -292,15 +292,34 @@ and no result line:
              AUC >= 0.995, beside the JAX package's 99.74% +- 0.22 (a
              quality reference); K1 / K2 launched once a step (and once a
              step of the capture's warm-up chunk).
+15b. facenet_convergence - the port's scripts/facenet_convergence at its
+             defaults (FaceNet on resnet18, 128-d, P 16 x K 4, margin 0.2,
+             lr 0.05, 15 epochs, 31 steps an epoch, on the convergence
+             phase's split): mean held-out 10-fold accuracy >= 98.0% and
+             AUC >= 0.995 (the margin heads' bounds), beside the JAX
+             package's 99.39% +- 0.64, AUC 1.000 (a quality reference);
+             finite losses, mined triplets a step (min, mean), no kernel of
+             the port launched; seconds, peak GB, memory before and after.
+15c. examples - examples/production_pipeline_torch.py at its demo size on
+             the card (train --eval-every with K1 / K2 once a step, export
+             --which best_acc, embed, identify, one served /identify whose
+             top-1 score is within 2e-3 of the two .npz embeddings'
+             product), then examples/validate_model_torch.py on its
+             checkpoint and benchmark (accuracy and AUC equal to an
+             in-process evaluate_model_on_benchmark of the same restored
+             weights) and examples/dataset_sanity_torch.py on its gallery
+             tree and benchmark (the lines the demo's sizes give); every
+             stage returns 0; each stage's seconds.
 
 The line before the last is {"kernels": [...]} (each kernel's launches from
 the phase that runs its entry point: train, head_bf16, conv3x3_bench; the
 fp32 head kernels' and the _mem kernels' add the scan phase's graphed
 ArcFace and VPL-ArcFace runs, whose replays the host's counters do not see:
 the launches one replay captured times the replays, plus the real ones;
-the fp32 head kernels' also the recipe, backbones, mesh and convergence
-runs, the _mem kernels' the mesh phase's VPL-ArcFace head: each rank's
-launches; the partial_fc, facenet and detect phases launch none),
+the fp32 head kernels' also the recipe, backbones, mesh, convergence and
+examples runs, the _mem kernels' the mesh phase's VPL-ArcFace head: each
+rank's launches; the partial_fc, facenet, detect and facenet_convergence
+phases launch none),
 the last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -4294,6 +4313,199 @@ def phase_convergence():
     return launches
 
 
+def memory_gb():
+    """The caching allocator's allocated and reserved GB on the card."""
+    import torch
+
+    return {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+
+# the facenet_convergence phase: the port's scripts/facenet_convergence at
+# its defaults (FaceNet on resnet18, 128-d, P 16 x K 4, margin 0.2, lr 0.05,
+# 15 epochs on the convergence phase's split). It is held to the margin
+# heads' bounds (MIN_CONVERGED_ACC / _AUC); the JAX package's result on its
+# own hardware is a quality reference, not a bound
+FACENET_JAX_REFERENCE = {"mean_accuracy": 99.39, "std_accuracy": 0.64,
+                         "mean_auc": 1.0}
+
+
+def phase_facenet_convergence(root=None):
+    """The triplet path's trained accuracy."""
+    import torch
+
+    from face_recognition_models_tpu_torch.scripts import (
+        facenet_convergence)
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+
+    args = facenet_convergence.parser().parse_args(["--device", "cuda"])
+    before = memory_gb()
+    print(f"facenet_convergence: before {before}", flush=True)
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, line = facenet_convergence.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    no_kernel_launched("facenet_convergence")
+    steps = len(res.losses)
+    want = args.epochs * (args.classes // args.p)
+    if steps != want or len(res.triplets) != steps:
+        raise AssertionError(f"facenet_convergence: {steps} steps and "
+                             f"{len(res.triplets)} triplet counts, not "
+                             f"{want}")
+    if not np.isfinite(res.losses).all():
+        raise AssertionError("facenet_convergence: a loss is not finite")
+    if not (line["mean_accuracy"] >= MIN_CONVERGED_ACC
+            and line["mean_auc"] >= MIN_CONVERGED_AUC):
+        raise AssertionError(f"facenet_convergence: {line} below "
+                             f"{MIN_CONVERGED_ACC}% / {MIN_CONVERGED_AUC}")
+    triplets, losses = res.triplets, res.losses
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = memory_gb()
+    print(f"facenet_convergence: after {after}", flush=True)
+    emit({"phase": "facenet_convergence", **line, "steps": steps,
+          "triplets_per_step": {"min": int(min(triplets)),
+                                "mean": float(np.mean(triplets))},
+          "first_losses": losses[:3], "last_losses": losses[-3:],
+          "wall_seconds": wall, "peak_gb": peak,
+          "memory": {"before": before, "after": after},
+          "limit": {"mean_accuracy": MIN_CONVERGED_ACC,
+                    "mean_auc": MIN_CONVERGED_AUC},
+          "jax_reference": FACENET_JAX_REFERENCE,
+          "nvidia_smi": nvidia_smi(), "ok": True})
+
+
+# the examples phase: examples/*_torch.py, loaded from their files
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+# the served /identify top-1 score against the product of the two `embed`
+# outputs (micro-batch 4 against batch 32): the serve phase's HTTP-vs-direct
+# bound
+TOL_SERVED_SCORE = 2e-3
+
+
+def load_example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_examples(root):
+    """The port's walkthroughs on the card. Returns {kernel: launches} of
+    the pipeline's train stage."""
+    import io
+
+    import torch
+
+    from face_recognition_models_tpu_torch.checkpoint import restore_backbone
+    from face_recognition_models_tpu_torch.evaluation import batch_eval
+    from face_recognition_models_tpu_torch.models import get_backbone
+    from face_recognition_models_tpu_torch.models.backbones import to_device
+    from face_recognition_models_tpu_torch.ops import fused_head as fh
+    from face_recognition_models_tpu_torch.utils.device import nvidia_smi
+
+    pipeline = load_example("production_pipeline_torch")
+    validate = load_example("validate_model_torch")
+    sanity = load_example("dataset_sanity_torch")
+    before = memory_gb()
+    print(f"examples: before {before}", flush=True)
+    wd = os.path.join(root, "pipeline")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    if pipeline.main(["--workdir", wd]) != 0:
+        raise AssertionError("examples: production_pipeline_torch failed")
+    pipeline_s = time.perf_counter() - t0
+    launches = {k: fh.launch_counts[k] for k in PLAIN_KERNELS}
+    defaults = pipeline.parser().parse_args([])
+    steps = (defaults.classes * pipeline.TRAIN_PER_CLASS // pipeline.BATCH
+             * defaults.epochs)
+    if any(v != steps for v in launches.values()):
+        raise AssertionError(f"examples: launches {launches}, {steps} "
+                             "train steps")
+    for k in PLAIN_KERNELS:
+        fh.launch_counts[k] = 0
+    no_kernel_launched("examples (besides K1 / K2)")
+    with open(os.path.join(wd, "pipeline.json")) as f:
+        summary = json.load(f)
+    with np.load(summary["gallery"]) as g, np.load(summary["probes"]) as p:
+        gallery = dict(zip((str(x) for x in g["paths"]), g["embeddings"]))
+        probes = dict(zip((str(x) for x in p["paths"]), p["embeddings"]))
+    top = summary["matches"][0]
+    want = float(np.dot(gallery[top["path"]], probes[summary["probe"]]))
+    score_err = abs(top["score"] - want)
+    if not score_err <= TOL_SERVED_SCORE:
+        raise AssertionError(f"examples: served top-1 score {top['score']} "
+                             f"vs the .npz product {want}")
+
+    ckpt = os.path.join(wd, "checkpoints", "arcface")
+    bench = os.path.join(wd, "bench", "lfw")
+    size = str(defaults.image_size)
+    t0 = time.perf_counter()
+    with recorded(batch_eval, "evaluate_model_on_benchmark") as calls:
+        rc = validate.main(["--checkpoint-dir", ckpt, "--backbone",
+                            "resnet18", "--bench-root", bench,
+                            "--image-size", size])
+    validate_s = time.perf_counter() - t0
+    if rc != 0 or len(calls) != 1:
+        raise AssertionError(f"examples: validate_model_torch rc {rc}, "
+                             f"{len(calls)} evaluations")
+    got = calls[0]
+    module = get_backbone("resnet18", image_size=defaults.image_size)
+    module.load_state_dict(restore_backbone(ckpt, "final"), strict=True)
+    embed = batch_eval.make_embed_fn(
+        to_device(module, torch.device("cuda")), device="cuda")
+    ref = batch_eval.evaluate_model_on_benchmark(
+        embed, os.path.dirname(bench), "lfw", defaults.image_size, 256,
+        verbose=False)
+    if (got.mean_accuracy, got.mean_auc) != (ref.mean_accuracy,
+                                             ref.mean_auc):
+        raise AssertionError(f"examples: validate_model_torch {got} vs "
+                             f"in-process {ref}")
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = sanity.main(["--dataset-path", os.path.join(wd, "gallery"),
+                          "--eval-path", bench])
+    sanity_s = time.perf_counter() - t0
+    s = defaults.image_size
+    lines = [f"[flat] {defaults.classes} identities, {defaults.classes * 8}"
+             " images; per-identity min=8 max=8",
+             f"24 pairs (12 pos / 12 neg), 0 missing images, sizes: "
+             f"{ {(s, s): 48} }"]
+    if rc != 0 or out.getvalue().splitlines() != lines:
+        raise AssertionError(f"examples: dataset_sanity_torch rc {rc}: "
+                             f"{out.getvalue()!r}")
+    del module, embed
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = memory_gb()
+    print(f"examples: after {after}", flush=True)
+    emit({"phase": "examples", "train_steps": steps, "launches": launches,
+          "pipeline_seconds": pipeline_s,
+          "stage_seconds": summary["seconds"],
+          "served": {"top1": top, "npz_product": want, "abs_err": score_err,
+                     "limit": TOL_SERVED_SCORE,
+                     "quality": summary["quality"]},
+          "validate_model": {"mean_accuracy": got.mean_accuracy,
+                             "std_accuracy": got.std_accuracy,
+                             "mean_auc": got.mean_auc,
+                             "fold_thresholds": list(got.fold_thresholds),
+                             "seconds": validate_s},
+          "dataset_sanity": {"lines": lines, "seconds": sanity_s},
+          "memory": {"before": before, "after": after},
+          "nvidia_smi": nvidia_smi(), "ok": True})
+    return launches
+
+
 # the partial_fc phase: ResNet-50 + ArcFace, D=512, b512, 112 px, bf16
 # convs, SGD 0.1 / 0.9 / 5e-4, ratio 0.1, at C = 1,048,576 (C_s = 104,960)
 # and at CASIA's C = 10,575 (C_s = 1,280)
@@ -5815,7 +6027,9 @@ def phase_mesh(root):
 
 
 ONLY_PHASES = {"partial_fc": phase_partial_fc, "facenet": phase_facenet,
-               "mesh": phase_mesh, "detect": phase_detect}
+               "mesh": phase_mesh, "detect": phase_detect,
+               "facenet_convergence": phase_facenet_convergence,
+               "examples": phase_examples}
 
 
 def main(argv=None) -> int:
@@ -5909,6 +6123,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     for name, count in phase_convergence().items():
         launches[name] += count
+    torch.cuda.empty_cache()
+    phase_facenet_convergence()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        for name, count in phase_examples(root).items():
+            launches[name] += count
+    torch.cuda.empty_cache()
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] == "conv3x3_same_f32":

@@ -40,6 +40,7 @@ from face_recognition_models_tpu_torch.models import resnet as tresnet
 from face_recognition_models_tpu_torch.train import loop
 from face_recognition_models_tpu_torch.train.optim import get_optimizer
 from face_recognition_models_tpu_torch.train.state import TrainState
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -24,6 +24,7 @@ from face_recognition_models_tpu_torch.data import synthetic
 from face_recognition_models_tpu_torch.models import get_backbone
 from face_recognition_models_tpu_torch.scripts import convergence_run
 from face_recognition_models_tpu_torch.utils.weights import from_jax
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the keys of the root script's JSON line without --eval-every / --head-arg

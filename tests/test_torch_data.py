@@ -41,6 +41,7 @@ from face_recognition_models_tpu_torch.data.pipeline import (
     prefetched,
 )
 from face_recognition_models_tpu_torch.native import fastdecode
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "jpeg_fixture")

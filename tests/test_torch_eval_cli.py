@@ -34,6 +34,7 @@ from face_recognition_models_tpu_torch.evaluation import (
 )
 from face_recognition_models_tpu_torch.models import get_backbone
 from face_recognition_models_tpu_torch.scripts import bench_embed
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 SIZE = 32
 

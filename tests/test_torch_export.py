@@ -27,6 +27,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_pretrained_port import _BasicBlock, _TorchResNet  # noqa: E402
+from torch_backbone_parity import _free_disk  # noqa: E402,F401
 
 
 def _init_backbone(name, seed, jitter_stats=True):

@@ -16,6 +16,7 @@ from face_recognition_models_tpu_torch.heads import available_heads
 from face_recognition_models_tpu_torch.heads.fused_adapter import FUSED_HEADS
 from face_recognition_models_tpu_torch.models import get_backbone
 from face_recognition_models_tpu_torch.train import loop
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 NEW_HEADS = ("sphereface", "cosface", "mv_softmax", "mv_softmax_arc",
              "curricularface", "adaface", "elastic_cosface",

@@ -49,6 +49,7 @@ from face_recognition_models_tpu_torch.utils.weights import (
     from_jax,
     head_state_from_jax,
 )
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 N, D, C = 16, 32, 64
 IMAGE = 16

@@ -51,6 +51,7 @@ from face_recognition_models_tpu_torch.train.state import TrainState
 from face_recognition_models_tpu_torch.train.step import make_train_step
 from face_recognition_models_tpu_torch.utils.weights import (
     head_state_from_jax)
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 N, D, C = 24, 64, 100
 HEADS = ("vpl_arcface", "qaface")

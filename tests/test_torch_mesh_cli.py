@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from torch_mesh_world import ROOT, free_port
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 _WRAPPER = """
 import json, sys

@@ -56,6 +56,7 @@ from face_recognition_models_tpu_torch.train.partial_fc_sharded import (
 
 import torch_mesh_jobs as jobs
 from torch_mesh_world import World
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 D, IMAGE = 32, 16
 STAGES, WIDTH = (1, 1), 8

@@ -27,6 +27,7 @@ import torch
 from face_recognition_models_tpu.detection import mtcnn as jm
 from face_recognition_models_tpu_torch.detection import mtcnn as tm
 from face_recognition_models_tpu_torch.utils.weights import mtcnn_from_jax
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 # (seed, image shape, thresholds) of tests/test_mtcnn.py's oracle test
 CASES = [(0, (160, 120), (0.35, 0.25, 0.25)),

@@ -12,6 +12,7 @@ import torch
 from face_recognition_models_tpu.evaluation import openset as jopen
 from face_recognition_models_tpu_torch.cli.main import main as cli
 from face_recognition_models_tpu_torch.evaluation import openset as topen
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -44,6 +44,7 @@ from face_recognition_models_tpu_torch.data.packed import (
     pack_from_loader,
 )
 from face_recognition_models_tpu_torch.data.pipeline import _decode_image
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -36,6 +36,7 @@ from face_recognition_models_tpu_torch.train.state import (
     ema_state_dict,
     state_tensors,
 )
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 C, PER, IMG, BS = 8, 8, 32, 16
 

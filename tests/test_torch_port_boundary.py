@@ -2,6 +2,8 @@
 points refuse to run without a card unless asked for the CPU, and its CLI
 trains end to end on the CPU."""
 
+import ast
+import glob
 import os
 import re
 import subprocess
@@ -11,6 +13,7 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,6 +26,13 @@ _IMPORT_ALL = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401
+    import glob, importlib.util, os
+    # the port's walkthroughs, each loaded from its file
+    for path in sorted(glob.glob(os.path.join("examples", "*_torch.py"))):
+        spec = importlib.util.spec_from_file_location(
+            "example_" + os.path.basename(path)[:-3], path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        names.append(path)
     banned = ("jax", "jaxlib", "flax", "optax")
     bad = [m for m in sys.modules
            if m.split(".")[0] in banned
@@ -43,6 +53,48 @@ def test_port_imports_no_jax_and_no_jax_package():
     count, _, bad = proc.stdout.strip().partition(" ")
     assert int(count) >= 25, "walked too few modules of the port"
     assert bad == "", f"the port pulled in {bad}"
+
+
+BANNED = {"jax", "jaxlib", "flax", "optax", "face_recognition_models_tpu"}
+
+
+def _imported_roots(path):
+    """The top-level names every import statement of a file names,
+    wherever it stands (module level or inside a function)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_examples_and_scripts_import_no_jax():
+    """Every import of examples/*_torch.py and of the port's scripts, also
+    those inside functions that the import test above does not run; and
+    the port's run.sh launches the port's CLI."""
+    paths = sorted(glob.glob(os.path.join(REPO, "examples", "*_torch.py"))
+                   + glob.glob(os.path.join(
+                       REPO, "face_recognition_models_tpu_torch", "scripts",
+                       "*.py")))
+    names = {os.path.basename(p) for p in paths}
+    assert {"production_pipeline_torch.py", "validate_model_torch.py",
+            "dataset_sanity_torch.py", "facenet_convergence.py",
+            "convergence_run.py"} <= names
+    for path in paths:
+        roots = _imported_roots(path)
+        assert not roots & BANNED, (path, roots & BANNED)
+        if path.endswith("_torch.py"):
+            assert "face_recognition_models_tpu_torch" in roots, path
+    with open(os.path.join(REPO, "face_recognition_models_tpu_torch",
+                           "scripts", "run.sh")) as f:
+        launcher = f.read()
+    assert "-m face_recognition_models_tpu_torch.cli train" in launcher
+    assert not re.search(r"\bface\s+train\b|face_recognition_models_tpu\.",
+                         launcher)
 
 
 def test_entry_points_raise_without_a_card(tmp_path):

@@ -29,6 +29,7 @@ from face_recognition_models_tpu.data import preprocess as jpre
 from face_recognition_models_tpu_torch.cli.main import main as cli_main
 from face_recognition_models_tpu_torch.data import preprocess as tpre
 from face_recognition_models_tpu_torch.detection.mtcnn import MTCNN
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 _FACE_LAYERS = {"pnet": "conv4_1", "rnet": "dense5_1", "onet": "dense6_1"}
 _EXACT_LAYERS = ("pnet.conv4_2", "rnet.dense5_2", "onet.dense6_2",

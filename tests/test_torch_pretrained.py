@@ -27,6 +27,7 @@ from face_recognition_models_tpu_torch.train.state import create_train_state
 from face_recognition_models_tpu_torch.utils.pretrained import (
     load_pretrained_backbone)
 from face_recognition_models_tpu_torch.utils.weights import from_jax
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

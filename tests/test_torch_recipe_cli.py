@@ -23,6 +23,7 @@ from face_recognition_models_tpu_torch.data.synthetic import (
 from face_recognition_models_tpu_torch.evaluation import batch_eval
 from face_recognition_models_tpu_torch.train import loop
 from face_recognition_models_tpu_torch.train.state import ema_state_dict
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 SIZE = 32
 BASE = ["train", "--synthetic", "--device", "cpu", "--synthetic-classes",

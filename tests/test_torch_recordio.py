@@ -44,6 +44,7 @@ from face_recognition_models_tpu_torch.data.recordio import (
     write_recordio,
 )
 from face_recognition_models_tpu_torch.native import fastdecode
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -27,6 +27,7 @@ from face_recognition_models_tpu_torch.train.schedules import (
     SCHEDULES,
     get_schedule,
 )
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 LR = 0.1
 STEPS_PER_EPOCH = 3

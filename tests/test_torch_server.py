@@ -35,6 +35,7 @@ from face_recognition_models_tpu_torch.serving.server import (
     make_server,
 )
 from face_recognition_models_tpu_torch.train.step import make_eval_step
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG = 32

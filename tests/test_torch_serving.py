@@ -51,6 +51,7 @@ from face_recognition_models_tpu_torch.serving.export import (
 )
 from face_recognition_models_tpu_torch.train.step import make_eval_step
 from face_recognition_models_tpu_torch.utils.weights import from_jax
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG = 32

@@ -44,6 +44,7 @@ from face_recognition_models_tpu_torch.utils.weights import (
     from_jax,
     head_state_from_jax,
 )
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 N, D, C, IMAGE = 8, 32, 8, 16
 STEPS_PER_EPOCH, EPOCHS = 3, 2

@@ -277,6 +277,12 @@ class _Log(torch.nn.Module):
 
 def test_nan_checks_name_the_module_and_are_removable():
     model = torch.nn.Sequential(torch.nn.Linear(3, 3), _Log())
+    # fixed weights: each output is the row mean, so at x - 100 every log
+    # is NaN whatever the process's global generator did before this test
+    # (Linear's default init draws from it)
+    with torch.no_grad():
+        model[0].weight.fill_(1.0 / 3.0)
+        model[0].bias.zero_()
     x = torch.randn(2, 3, generator=torch.Generator().manual_seed(0))
     checks = tdebug.enable_nan_checks()
     try:

@@ -42,6 +42,7 @@ from face_recognition_models_tpu_torch.evaluation import openset as topen
 from face_recognition_models_tpu_torch.evaluation import verification as tver
 from face_recognition_models_tpu_torch.models import resnet as tresnet
 from face_recognition_models_tpu_torch.utils.weights import from_jax
+from torch_backbone_parity import _free_disk  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
